@@ -1,0 +1,268 @@
+"""The port's plain CPU path against the JAX package on JAX-CPU: u8
+stages array_equal, Oklab within 5e-6 (the bound of
+tests/test_pallas_pipeline.py:40). Inputs come from numpy with a seed and
+go to both packages as the same arrays."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import zignal_tpu as jz
+from zignal_tpu.color import convert_array as jax_convert
+from zignal_tpu.ops.convolution import gaussian_blur as jax_blur
+from zignal_tpu.ops.interpolation import resize as jax_resize
+from zignal_tpu.pipeline import resize_blur_oklab as jax_rbo
+
+import zignal_tpu_torch as zp
+from zignal_tpu_torch import pipeline
+from zignal_tpu_torch.color import convert_array
+from zignal_tpu_torch.ops import fused_pipeline as fp
+from zignal_tpu_torch.ops import tables
+from zignal_tpu_torch.ops.convolution import convolve_separable, \
+    gaussian_blur
+from zignal_tpu_torch.ops.interpolation import resize
+
+OKLAB_TOL = 5e-6
+REPO = Path(__file__).resolve().parent.parent
+
+# the shapes of tests/test_pallas_pipeline.py scaled down to <= 2x256^2,
+# plus an upscale whose blur radius is wider than an axis and 1-px axes
+CASES = [  # (shape, out_rows, out_cols, sigma)
+    ((2, 256, 256, 3), 128, 128, 2.0),
+    ((1, 192, 256, 3), 96, 128, 2.0),
+    ((1, 250, 200, 3), 64, 64, 2.0),
+    ((1, 96, 128, 3), 64, 64, 0.5),
+    ((1, 96, 128, 3), 64, 64, 1.0),
+    ((1, 96, 128, 3), 64, 64, 3.5),
+    ((1, 216, 192, 3), 72, 128, 1.5),
+    ((1, 60, 102, 3), 30, 61, 1.5),
+    ((2, 64, 64, 4), 25, 25, 1.5),
+    ((2, 64, 64, 1), 25, 47, 1.5),
+    ((1, 64, 64, 3), 80, 72, 1.5),
+    ((2, 75, 100, 3), 32, 32, 0.0),
+    ((1, 37, 53, 3), 100, 9, 3.5),
+    ((2, 1, 64, 3), 3, 32, 1.0),
+    ((2, 64, 1, 4), 31, 1, 2.0),
+]
+RGB_CASES = [c for c in CASES if c[0][-1] == 3]
+
+
+def _ids(cases):
+    return [f"{s[0]}x{s[1]}x{s[2]}x{s[3]}-{oh}x{ow}-s{sg}"
+            for s, oh, ow, sg in cases]
+
+
+def _u8(shape, seed):
+    return np.random.default_rng(seed).integers(0, 256, shape, np.uint8)
+
+
+@pytest.mark.parametrize("shape,oh,ow,sigma", CASES, ids=_ids(CASES))
+def test_resize_matches_jax(shape, oh, ow, sigma):
+    x = _u8(shape, 1)
+    got = resize(torch.from_numpy(x), oh, ow).numpy()
+    assert np.array_equal(got, np.asarray(jax_resize(x, oh, ow)))
+
+
+@pytest.mark.parametrize("shape,oh,ow,sigma",
+                         [c for c in CASES if c[3] > 0],
+                         ids=_ids([c for c in CASES if c[3] > 0]))
+def test_gaussian_blur_matches_jax(shape, oh, ow, sigma):
+    x = _u8((shape[0], oh, ow, shape[3]), 2)
+    got = gaussian_blur(torch.from_numpy(x), sigma).numpy()
+    assert np.array_equal(got, np.asarray(jax_blur(x, sigma)))
+
+
+@pytest.mark.parametrize("shape,oh,ow,sigma", CASES, ids=_ids(CASES))
+def test_fused_reference_u8_matches_jax_stages(shape, oh, ow, sigma):
+    x = _u8(shape, 3)
+    got = fp.fused_resize_blur_oklab_reference(torch.from_numpy(x), oh, ow,
+                                               sigma, oklab=False)
+    want = jax_blur(jax_resize(x, oh, ow), sigma)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape,oh,ow,sigma", RGB_CASES,
+                         ids=_ids(RGB_CASES))
+def test_image_batch_resize_blur_oklab_matches_jax(shape, oh, ow, sigma):
+    x = _u8(shape, 4)
+    got = zp.ImageBatch(x, device="cpu").resize_blur_oklab((oh, ow), sigma)
+    want = np.asarray(jz.ImageBatch(x).resize_blur_oklab((oh, ow), sigma))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.max(np.abs(got.numpy() - want)) <= OKLAB_TOL
+
+
+@pytest.mark.parametrize("shape,oh,ow,sigma", CASES[:4], ids=_ids(CASES[:4]))
+def test_pipeline_resize_blur_oklab_matches_jax(shape, oh, ow, sigma):
+    x = _u8(shape, 5)
+    got = pipeline.resize_blur_oklab(torch.from_numpy(x), oh, ow, sigma)
+    want = np.asarray(jax_rbo(x, oh, ow, sigma))
+    assert np.max(np.abs(got.numpy() - want)) <= OKLAB_TOL
+
+
+@pytest.mark.parametrize("shape,oh,ow", [((2, 64, 64, 3), 32, 48),
+                                         ((1, 37, 53, 4), 100, 9),
+                                         ((2, 20, 30, 1), 20, 30)])
+def test_image_batch_resize_matches_jax(shape, oh, ow):
+    x = _u8(shape, 6)
+    got = zp.ImageBatch(x, device="cpu").resize((oh, ow))
+    want = jz.ImageBatch(x).resize((oh, ow))
+    assert (got.rows, got.cols, got.channels) == (oh, ow, shape[3])
+    assert np.array_equal(got.to_numpy(), want.to_numpy())
+
+
+def test_image_batch_scale_factor_size_matches_jax():
+    x = _u8((1, 50, 70, 3), 7)
+    got = zp.ImageBatch(x, device="cpu").resize(0.37)
+    want = jz.ImageBatch(x).resize(0.37)
+    assert np.array_equal(got.to_numpy(), want.to_numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_convert_array_rgb_to_oklab_matches_jax(seed):
+    rgb = np.random.default_rng(seed).random((2, 33, 17, 3), np.float32)
+    rgb[0, 0, :3] = [[0, 0, 0], [1, 1, 1], [0.04045, 0.5, 0.0031308]]
+    got = convert_array(torch.from_numpy(rgb), "rgb", "oklab").numpy()
+    want = np.asarray(jax_convert(rgb, "rgb", "oklab"))
+    assert np.max(np.abs(got - want)) <= OKLAB_TOL
+
+
+def test_convolve_separable_uneven_kernels_match_jax():
+    from zignal_tpu.ops.convolution import convolve_separable as jax_sep
+
+    x = _u8((2, 20, 24, 3), 8)
+    kx, ky = (0.25, 0.5, 0.25), (0.1, 0.2, 0.4, 0.2, 0.1)
+    got = convolve_separable(torch.from_numpy(x), kx, ky).numpy()
+    assert np.array_equal(got, np.asarray(jax_sep(x, kx, ky)))
+
+
+@pytest.mark.parametrize("shape,oh,ow,sigma,tile", [
+    ((2, 64, 64, 3), 40, 24, 2.0, 8),
+    ((1, 37, 53, 3), 100, 9, 3.5, 32),
+    ((1, 37, 53, 4), 100, 9, 3.5, 8),
+    ((2, 1, 64, 1), 3, 32, 1.0, 8),
+    ((1, 50, 40, 3), 17, 33, 0.0, 8),
+])
+def test_kernel_tiling_reproduces_plain(shape, oh, ow, sigma, tile):
+    """A numpy transcription of fused_kernel's index arithmetic: per
+    output tile, resize tile + halo through the halo tables, width pass
+    over every halo row, height pass, (acc + 32768) >> 16. It must give
+    the plain version's u8 at ragged edge tiles and short axes, which
+    checks the tables and tile bounds the CUDA kernel relies on."""
+    x = _u8(shape, 9)
+    b, h, w, c = shape
+    r = tables.blur_radius(sigma)
+    ty = tables.halo_axis_table(h, oh, r).astype(np.int64)
+    tx = tables.halo_axis_table(w, ow, r).astype(np.int64)
+    kint = (tables._kernel_to_int(tables.gaussian_kernel(sigma)) if r
+            else np.ones(1, np.int32)).astype(np.int64)
+    out = np.zeros((b, oh, ow, c), np.uint8)
+    for y0 in range(0, oh, tile):
+        for x0 in range(0, ow, tile):
+            th, tw = min(tile, oh - y0), min(tile, ow - x0)
+            ya, yb, fy = ty[:, y0:y0 + th + 2 * r]
+            xa, xb, fx = tx[:, x0:x0 + tw + 2 * r]
+            ya, yb, fy = ya[:, None], yb[:, None], fy[:, None, None]
+            xa, xb, fx = xa[None, :], xb[None, :], fx[:, None]
+            img = x.astype(np.int64)
+            top = img[:, ya, xa] * (256 - fx) + img[:, ya, xb] * fx
+            bot = img[:, yb, xa] * (256 - fx) + img[:, yb, xb] * fx
+            res = np.minimum((top * (256 - fy) + bot * fy) >> 16, 255)
+            if r == 0:
+                out[:, y0:y0 + th, x0:x0 + tw] = res
+                continue
+            tmp = sum(kint[k] * res[:, :, k:k + tw] for k in range(2 * r + 1))
+            acc = sum(kint[k] * tmp[:, k:k + th] for k in range(2 * r + 1))
+            out[:, y0:y0 + th, x0:x0 + tw] = np.minimum(
+                (acc + 32768) >> 16, 255)
+    want = fp.fused_resize_blur_oklab_reference(torch.from_numpy(x), oh, ow,
+                                                sigma, oklab=False)
+    assert np.array_equal(out, want.numpy())
+
+
+def test_fused_wrapper_on_cpu_runs_plain_without_launching():
+    x = torch.from_numpy(_u8((1, 40, 40, 3), 10))
+    before = fp.LAUNCHES
+    got = fp.fused_resize_blur_oklab(x, 20, 20, 2.0)
+    want = fp.fused_resize_blur_oklab_reference(x, 20, 20, 2.0)
+    assert fp.LAUNCHES == before
+    assert torch.equal(got, want)
+
+
+def test_fused_wrapper_raises_off_cpu_without_a_kernel():
+    x = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fp.fused_resize_blur_oklab(x, 4, 4, 1.0)
+
+
+@pytest.mark.parametrize("args,err", [
+    (((1, 8, 8, 4), 4, 4, 1.0, True), "Oklab epilogue needs RGB"),
+    (((1, 8, 8, 2), 4, 4, 1.0, False), "channel count"),
+    (((1, 8, 8, 3), 0, 4, 1.0, False), "at least 1"),
+    (((1, 8, 8, 3), 4, 4, -1.0, False), "sigma"),
+])
+def test_fused_wrapper_rejects_bad_arguments(args, err):
+    shape, oh, ow, sigma, oklab = args
+    x = torch.zeros(shape, dtype=torch.uint8)
+    with pytest.raises(ValueError, match=err):
+        fp.fused_resize_blur_oklab(x, oh, ow, sigma, oklab)
+
+
+def test_resize_same_size_returns_input():
+    x = torch.from_numpy(_u8((1, 9, 7, 3), 11))
+    assert resize(x, 9, 7) is x
+
+
+def test_unported_paths_raise_not_implemented():
+    x = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        resize(x, 4, 4, zp.Interpolation.BICUBIC)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        resize(x.float(), 4, 4)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        gaussian_blur(x, 1.0, zp.BorderMode.ZERO)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pipeline.resize_blur_oklab(x, 4, 4, 1.0, zp.Interpolation.LANCZOS)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        convert_array(x.float(), "rgb", "lab")
+
+
+def test_image_batch_validation_matches_jax():
+    with pytest.raises(TypeError):
+        zp.ImageBatch(_u8((1, 4, 4, 3), 0))            # no device given
+    for bad, exc in [(np.zeros((4, 4, 3), np.uint8), ValueError),
+                     (np.zeros((1, 4, 4, 2), np.uint8), ValueError),
+                     (np.zeros((1, 4, 4, 3), np.float32), TypeError)]:
+        with pytest.raises(exc):
+            jz.ImageBatch(bad)
+        with pytest.raises(exc):
+            zp.ImageBatch(bad, device="cpu")
+    with pytest.raises(ValueError, match="Rgb"):
+        zp.ImageBatch(_u8((1, 8, 8, 4), 0), device="cpu").resize_blur_oklab(
+            (4, 4))
+    with pytest.raises(TypeError):
+        zp.ImageBatch.from_numpy(torch.zeros((1, 4, 4, 3)), device="cpu")
+
+
+def test_image_batch_metadata_and_round_trip():
+    x = _u8((3, 10, 12, 4), 12)
+    ib = zp.ImageBatch.from_numpy(x, device="cpu")
+    assert (ib.rows, ib.cols, ib.channels) == (10, 12, 4)
+    assert ib.device_array().device == torch.device("cpu")
+    assert ib.device_array().dtype == torch.uint8
+    assert np.array_equal(ib.to_numpy(), x)
+
+
+def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    code = ("import sys, zignal_tpu_torch, zignal_tpu_torch.pipeline, "
+            "zignal_tpu_torch.ops.fused_pipeline, zignal_tpu_torch.ops._build\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'zignal_tpu.')) or "
+            "m == 'zignal_tpu')\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

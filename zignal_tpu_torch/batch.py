@@ -1,0 +1,122 @@
+"""ImageBatch — a batch of same-shape u8 images ``[B, H, W, C]`` held as a
+torch tensor on one explicit device, the counterpart of
+zignal_tpu/batch.py as far as the resize -> blur -> Oklab path needs it.
+
+The device is always the caller's choice (``device=``); nothing here
+picks one. There is no mesh yet (ROADMAP item 15).
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+import torch
+
+from .enums import Interpolation
+from .ops.interpolation import resize as resize_op
+from .pipeline import resize_blur_oklab as _chain
+
+__all__ = ["ImageBatch", "resize_blur_oklab_fn"]
+
+_CHANNELS = (1, 3, 4)  # gray, rgb, rgba: the channel count is the space
+
+
+def resize_blur_oklab_fn(rows: int, cols: int, sigma: float, method):
+    """The callable behind ImageBatch.resize_blur_oklab: the north-star
+    chain with its parameters bound. It runs on its input's device."""
+    return partial(_chain, out_rows=rows, out_cols=cols, sigma=sigma,
+                   method=method)
+
+
+class ImageBatch:
+    """A batch of same-shape images: u8 [B, H, W, C] on ``device``."""
+
+    __slots__ = ("_dev",)
+
+    def __init__(self, array, *, device):
+        if isinstance(array, np.ndarray):
+            is_u8 = array.dtype == np.uint8
+        elif isinstance(array, torch.Tensor):
+            is_u8 = array.dtype == torch.uint8
+        else:
+            raise TypeError("ImageBatch expects a numpy array or a torch "
+                            "tensor")
+        if array.ndim != 4:
+            raise ValueError("ImageBatch expects a [B, H, W, C] array")
+        if array.shape[-1] not in _CHANNELS:
+            raise ValueError("channel count must be 1, 3, or 4")
+        if not is_u8:
+            raise TypeError("ImageBatch requires uint8 pixel data")
+        if isinstance(array, np.ndarray):
+            array = torch.from_numpy(np.ascontiguousarray(array))
+        self._dev = array.to(torch.device(device)).contiguous()
+
+    @classmethod
+    def from_numpy(cls, array, *, device) -> "ImageBatch":
+        if not isinstance(array, np.ndarray):
+            raise TypeError("from_numpy expects a numpy.ndarray")
+        return cls(array, device=device)
+
+    # -- metadata / interop --------------------------------------------------
+
+    @property
+    def rows(self) -> int:
+        return self._dev.shape[1]
+
+    @property
+    def cols(self) -> int:
+        return self._dev.shape[2]
+
+    @property
+    def channels(self) -> int:
+        return self._dev.shape[3]
+
+    def to_numpy(self) -> np.ndarray:
+        return self._dev.cpu().numpy()
+
+    def device_array(self) -> torch.Tensor:
+        """The underlying [B, H, W, C] tensor (no copy)."""
+        return self._dev
+
+    # -- geometry ------------------------------------------------------------
+
+    def _out_size(self, size):
+        if isinstance(size, (int, float)) and not isinstance(size, bool):
+            scale = float(size)
+            if not np.isfinite(scale) or scale <= 0:
+                raise ValueError("scale factor must be positive and finite")
+            rows = int(np.round(np.float32(self.rows) * np.float32(scale)))
+            cols = int(np.round(np.float32(self.cols) * np.float32(scale)))
+            if rows == 0 or cols == 0:
+                raise ValueError("resulting dimensions are zero")
+            return rows, cols
+        if isinstance(size, (tuple, list)) and len(size) == 2:
+            rows, cols = int(size[0]), int(size[1])
+            if rows <= 0 or cols <= 0:
+                raise ValueError("size must be positive")
+            return rows, cols
+        raise TypeError("size must be a scale factor or (rows, cols)")
+
+    def resize(self, size, method: Interpolation = Interpolation.BILINEAR
+               ) -> "ImageBatch":
+        """Batched resize; on the card u8 bilinear is the fused kernel
+        with the blur and the Oklab epilogue off."""
+        rows, cols = self._out_size(size)
+        return ImageBatch(resize_op(self._dev, rows, cols,
+                                    Interpolation(method)),
+                          device=self._dev.device)
+
+    def resize_blur_oklab(self, size, sigma: float = 2.0,
+                          method: Interpolation = Interpolation.BILINEAR):
+        """The north-star chain (BASELINE.md): resize -> Gaussian blur ->
+        sRGB->Oklab, one kernel launch on the card.
+
+        Returns a [B, rows, cols, 3] float32 Oklab tensor on the batch's
+        device (not an ImageBatch — Oklab is float-typed)."""
+        rows, cols = self._out_size(size)
+        if self.channels != 3:
+            raise ValueError("resize_blur_oklab expects an Rgb batch")
+        fn = resize_blur_oklab_fn(rows, cols, float(sigma),
+                                  Interpolation(method))
+        return fn(self._dev)
