@@ -1,19 +1,32 @@
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
 1. device facts: torch/CUDA versions, the card's name and power limit,
    the time nvcc took to build the kernels from csrc/;
-2. kernel vs plain PyTorch on the card over the oracle shapes of
-   tests/test_pallas_pipeline.py (C in {1, 3, 4}, upscales, odd outputs,
-   sigma in {0, 0.5, 1, 1.5, 2, 3.5}, Oklab on and off, a 1-px axis):
-   u8 must be equal, Oklab within 5e-6 max-abs;
-3. the main path: ImageBatch(..., device="cuda").resize_blur_oklab and
+2. K1 (fused resize -> blur -> Oklab) vs plain PyTorch on the card over
+   the oracle shapes of tests/test_pallas_pipeline.py (C in {1, 3, 4},
+   upscales, odd outputs, sigma in {0, 0.5, 1, 1.5, 2, 3.5}, Oklab on and
+   off, a 1-px axis): u8 must be equal, Oklab within 5e-6 max-abs;
+3. K1's main path: ImageBatch(..., device="cuda").resize_blur_oklab and
    ImageBatch.resize on B in {16, 4, 1} of 1024^2 RGB -> 512^2, sigma 2,
    with the kernel's launch count read around each call and the output
    checked against the plain version;
-4. kernel and plain times at B=16 with CUDA events.
+4. K1 and plain times at B=16 with CUDA events;
+5. K2 (the filter chain) vs plain on the card over the shapes of
+   tests/test_pallas_filter.py, tiny planes and thresholds of 127.5, -1
+   and 300: outputs must be equal;
+6. K4 (the separable u8 convolution) vs plain on the card: every border
+   at sigma 1 and 2, a signed 5-tap kernel, C in {1, 3, 4}, a 1-px axis
+   and a 2:1 bilinear band: outputs must be equal;
+7. the filter main paths: pipeline.filter_chain on [16, 1024, 1024] and
+   [1, 1024, 1024] u8 (K2), and ImageBatch of [16, 1024, 1024, 3] RGB
+   with .gaussian_blur and .convolve_separable (K4) and .sharpen,
+   .box_blur and .dilate_binary (plain ops on the card), with the launch
+   counts zeroed just before and read just after, and every output
+   checked against its plain version;
+8. K2 and K4 times at B=16 of 1024^2 against plain, with CUDA events.
 The last two lines are a JSON summary of the kernels and the device line.
 """
 
@@ -51,6 +64,24 @@ ORACLE = [  # (shape, out_rows, out_cols, sigma, oklab)
     ((2, 1, 64, 3), 3, 32, 1.0, False),
     ((2, 64, 1, 4), 31, 1, 2.0, False),
 ]
+FILTER_BATCH = 16
+FILTER_ORACLE = [  # (shape, sigma, sharpen_radius, thr)
+    ((256, 256), 2.0, 2, 128.0),
+    ((128, 384), 1.0, 1, 90.0),
+    ((192, 128), 3.5, 3, 200.0),
+    ((1000, 1000), 2.0, 2, 128.0),
+    ((1080, 500), 2.0, 2, 128.0),
+    ((100, 130), 2.0, 2, 128.0),
+    ((3, 128, 256), 1.5, 2, 128.0),
+    ((1, 64), 2.0, 2, 128.0),
+    ((64, 1), 2.0, 2, 128.0),
+    ((5, 7), 2.0, 2, 128.0),
+    ((1, 1), 2.0, 2, 128.0),
+    ((256, 256), 2.0, 2, 127.5),
+    ((256, 256), 2.0, 2, -1.0),
+    ((256, 256), 2.0, 2, 300.0),
+]
+_SIGNED = (-0.25, 0.5, 1.5, 0.5, -0.25)
 
 
 def _card() -> str:
@@ -72,6 +103,157 @@ def _time_ms(fn, reps: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _u8(rng, shape):
+    return torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).cuda()
+
+
+def _max_err(got, want) -> int:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"bad output {got.shape} {got.dtype}")
+    return int((got.int() - want.int()).abs().max())
+
+
+def _check_equal(label, got, want) -> int:
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    print(f"{label}: max_abs_err={err} {'ok' if err == 0 else 'FAIL'}")
+    if err:
+        raise AssertionError(f"kernel != plain: {label}")
+    return err
+
+
+def _filter_phases(card, rng):
+    """Phases 5-8: K2 and K4. Returns their entries of the kernels line."""
+    from zignal_tpu_torch import BorderMode, ImageBatch, pipeline
+    from zignal_tpu_torch.ops import binary, integral, tables
+    from zignal_tpu_torch.ops import filter_chain as fc
+    from zignal_tpu_torch.ops import separable_conv as sc
+    from zignal_tpu_torch.ops.convolution import convolve_separable, \
+        convolve_separable_reference
+
+    # 5. K2 vs plain
+    for shape, sigma, r, thr in FILTER_ORACLE:
+        x = _u8(rng, shape)
+        _check_equal(f"K2 {shape} sigma={sigma} r={r} thr={thr}",
+                     fc.fused_blur_sharpen_morph(x, sigma, r, thr),
+                     fc.fused_blur_sharpen_morph_reference(x, sigma, r, thr))
+
+    # 6. K4 vs plain
+    conv_oracle = [((2, 40, 56, 3), tables.gaussian_kernel(sigma), border)
+                   for sigma in (1.0, 2.0) for border in BorderMode]
+    conv_oracle += [((2, 40, 56, 3), _SIGNED, BorderMode.ZERO),
+                    ((2, 40, 56, 3), _SIGNED, BorderMode.REPLICATE),
+                    ((2, 40, 56, 1), tables.gaussian_kernel(2.0),
+                     BorderMode.WRAP),
+                    ((2, 40, 56, 4), _SIGNED, BorderMode.MIRROR),
+                    ((2, 1, 64, 3), tables.gaussian_kernel(2.0),
+                     BorderMode.MIRROR),
+                    ((1, 9, 1, 1), _SIGNED, BorderMode.ZERO)]
+    for shape, kernel, border in conv_oracle:
+        x = _u8(rng, shape)
+        _check_equal(f"K4 {shape} taps={len(kernel)} {border.name}",
+                     convolve_separable(x, kernel, kernel, border),
+                     convolve_separable_reference(x, kernel, kernel, border))
+    x = _u8(rng, (2, 1024, 768, 3))
+    bands = []
+    for n in (768, 1024):
+        a, b, f = tables.bilinear_axis_table(n, n // 2)
+        bands.append(tables.build_tap_matrix(
+            np.stack([a, b], 1), np.stack([256 - f, f], 1), n, n // 2))
+    _check_equal("K4 (2, 1024, 768, 3) bilinear band -> 512x384",
+                 sc.separable_u8(x, *bands),
+                 sc.separable_u8_reference(x, *bands))
+
+    # 7. the main paths through the user's entry points
+    n, b = MAIN["size"], FILTER_BATCH
+    planes = {bb: _u8(rng, (bb, n, n)) for bb in (b, 1)}
+    rgb = rng.integers(0, 256, (b, n, n, 3), np.uint8)
+    k = tables.gaussian_kernel(2.0)
+    torch.cuda.synchronize()
+    fc.LAUNCHES = sc.LAUNCHES = 0
+    masks = {bb: pipeline.filter_chain(p) for bb, p in planes.items()}
+    ib = ImageBatch(rgb, device="cuda")
+    outs = {
+        "gaussian_blur": ib.gaussian_blur(2.0),
+        "convolve_separable": ib.convolve_separable(k, k,
+                                                    BorderMode.REPLICATE),
+        "sharpen": ib.sharpen(2),
+        "box_blur": ib.box_blur(2),
+        "dilate_binary": ib.dilate_binary(),
+    }
+    torch.cuda.synchronize()
+    k2_launches, k4_launches = fc.LAUNCHES, sc.LAUNCHES
+    print(f"filter main path: K2 {k2_launches} launches over "
+          f"{len(masks)} filter_chain calls, K4 {k4_launches} launches "
+          "over gaussian_blur + convolve_separable")
+    if k2_launches != len(masks) or k4_launches != 2:
+        raise AssertionError("the filter main path did not launch K2 once "
+                             "per filter_chain and K4 once per blur")
+    k2_err = k4_err = 0
+    for bb, p in planes.items():
+        k2_err = max(k2_err, _check_equal(
+            f"main path filter_chain [{bb}, {n}, {n}]", masks[bb],
+            fc.fused_blur_sharpen_morph_reference(p)))
+        frac = float((masks[bb] == 255).float().mean())
+        print(f"  mask foreground share {frac:.4f}")
+    x = ib.device_array()
+    k4_err = max(_check_equal(
+        "main path ImageBatch.gaussian_blur(2.0)",
+        outs["gaussian_blur"].device_array(),
+        convolve_separable_reference(x, k, k)), _check_equal(
+        "main path ImageBatch.convolve_separable(REPLICATE)",
+        outs["convolve_separable"].device_array(),
+        convolve_separable_reference(x, k, k, BorderMode.REPLICATE)))
+    # the plain ops on the card against the same ops on the CPU, image 0
+    x0 = torch.from_numpy(rgb[:1])
+    gray0 = ImageBatch(rgb[:1], device="cpu")._gray_plane()
+    for name, want in (("sharpen", integral.sharpen(x0, 2)),
+                       ("box_blur", integral.box_blur(x0, 2)),
+                       ("dilate_binary", binary.dilate(gray0)[..., None])):
+        got = outs[name].device_array()[:1].cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ImageBatch.{name} on the card != CPU")
+        print(f"main path ImageBatch.{name}: equal to the CPU on image 0")
+
+    # 8. times at B=16: plain, kernel, kernel, plain in one process
+    p = planes[b]
+    rows = {}
+    for name, kern, plain in (
+            ("K2", lambda: fc.fused_blur_sharpen_morph(p),
+             lambda: fc.fused_blur_sharpen_morph_reference(p)),
+            ("K4", lambda: convolve_separable(x, k, k),
+             lambda: convolve_separable_reference(x, k, k))):
+        p1, t1, t2, p2 = (_time_ms(plain), _time_ms(kern), _time_ms(kern),
+                          _time_ms(plain))
+        rows[name] = (min(t1, t2), min(p1, p2))
+        what = "gray" if name == "K2" else "RGB sigma=2"
+        print(f"[{card}] {name} B={b} {n}^2 {what} kernel: {t1:.4f} / "
+              f"{t2:.4f} ms ({b * n * n / 1e9 / (rows[name][0] / 1e3):.2f} "
+              f"GPix/s); plain: {p1:.4f} / {p2:.4f} ms")
+
+    k2 = {
+        "name": "fused_blur_sharpen_morph",
+        "route": "cuda",
+        "source": "zignal_tpu_torch/csrc/fused_blur_sharpen_morph.cu",
+        "replaces": "zignal_tpu/ops/pallas_filter.py:197",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": rows["K2"][0],
+        "plain_ms": rows["K2"][1],
+    }
+    k4 = {
+        "name": "separable_u8",
+        "route": "cuda",
+        "source": "zignal_tpu_torch/csrc/separable_u8.cu",
+        "replaces": "zignal_tpu/ops/pallas_conv.py:135",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        "ms": rows["K4"][0],
+        "plain_ms": rows["K4"][1],
+    }
+    return k2, k4
 
 
 def main() -> int:
@@ -162,7 +344,7 @@ def main() -> int:
     print(f"[{card}] B=16 {n}^2->{o}^2 sigma={sigma} plain: "
           f"{p1:.4f} / {p2:.4f} ms ({gpix / (plain_ms / 1e3):.2f} GPix/s)")
 
-    print(json.dumps({"kernels": [{
+    k1 = {
         "name": "fused_resize_blur_oklab",
         "route": "cuda",
         "source": "zignal_tpu_torch/csrc/fused_resize_blur_oklab.cu",
@@ -171,7 +353,9 @@ def main() -> int:
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+    }
+    k2, k4 = _filter_phases(card, rng)
+    print(json.dumps({"kernels": [k1, k2, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

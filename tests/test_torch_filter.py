@@ -1,0 +1,352 @@
+"""The config-3 filter chain and the windowed u8 filters of the port
+(ops/binary.py, ops/integral.py, ops/filter_chain.py, pipeline.filter_chain,
+the ImageBatch methods, rgb_to_gray_u8) against the JAX package on JAX-CPU:
+array_equal throughout. Inputs come from numpy with a seed and go to both
+packages as the same arrays."""
+
+import math
+from fractions import Fraction
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import zignal_tpu as jz
+from zignal_tpu import pipeline as jax_pipeline
+from zignal_tpu.color._array import rgb_to_gray_u8 as jax_gray
+from zignal_tpu.ops import binary as jax_binary
+from zignal_tpu.ops import integral as jax_integral
+from zignal_tpu.ops.pallas_filter import fused_blur_sharpen_morph as \
+    jax_fused_filter
+
+import zignal_tpu_torch as zp
+from zignal_tpu_torch import pipeline
+from zignal_tpu_torch.color._array import rgb_to_gray_u8
+from zignal_tpu_torch.ops import binary, integral
+from zignal_tpu_torch.ops import filter_chain as fc
+
+# the shapes of tests/test_pallas_filter.py scaled down to <= 2x128x256,
+# batched, and tiny planes the TPU kernel's gate refuses
+CHAIN_CASES = [  # (shape, sigma, sharpen_radius, thr)
+    ((128, 128), 2.0, 2, 128.0),
+    ((64, 192), 1.0, 1, 90.0),
+    ((96, 64), 3.5, 3, 200.0),
+    ((125, 125), 2.0, 2, 128.0),
+    ((128, 59), 2.0, 2, 128.0),
+    ((50, 65), 2.0, 2, 128.0),
+    ((3, 64, 128), 1.5, 2, 128.0),
+    ((1, 64), 2.0, 2, 128.0),
+    ((64, 1), 2.0, 2, 128.0),
+    ((5, 7), 2.0, 2, 128.0),
+    ((1, 1), 2.0, 2, 128.0),
+    ((2, 40, 50), 2.0, 2, 127.5),
+    ((40, 50), 2.0, 2, -1.0),
+    ((40, 50), 2.0, 2, 300.0),
+    ((40, 50), 0.0, 0, 128.0),
+]
+
+
+def _ids(cases):
+    return ["x".join(map(str, c[0])) + f"-s{c[1]}-r{c[2]}-t{c[3]}"
+            for c in cases]
+
+
+def _u8(shape, seed):
+    return np.random.default_rng(seed).integers(0, 256, shape, np.uint8)
+
+
+def _mask(shape, seed, p=0.5):
+    m = np.random.default_rng(seed).random(shape) < p
+    return (m * 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("thr", [128.0, 127.5, -1.0, 300.0, 254.99999])
+def test_threshold_apply_matches_jax(thr):
+    x = _u8((2, 20, 30), 1)
+    x[0, 0, :4] = [0, 127, 128, 255]
+    got = binary.threshold_apply(torch.from_numpy(x), thr).numpy()
+    assert np.array_equal(got, np.asarray(jax_binary.threshold_apply(
+        jnp.asarray(x), thr)))
+
+
+def test_threshold_compares_in_f32_not_as_an_integer():
+    x = torch.arange(256, dtype=torch.uint8)
+    assert int(binary.threshold_apply(x, 127.5).sum()) == 128 * 255
+    assert int(binary.threshold_apply(x, 127.0).sum()) == 128 * 255
+    assert int(binary.threshold_apply(x, 126.9).sum()) == 129 * 255
+
+
+@pytest.mark.parametrize("op", ["dilate", "erode", "open_morph",
+                                "close_morph"])
+@pytest.mark.parametrize("ksize,iterations", [(3, 1), (3, 2), (5, 1),
+                                              (3, 0)])
+def test_morphology_matches_jax(op, ksize, iterations):
+    x = _mask((20, 31), 2, 0.6)
+    x[5, 5] = 17   # any nonzero value is foreground
+    got = getattr(binary, op)(torch.from_numpy(x), ksize, iterations)
+    want = getattr(jax_binary, op)(jnp.asarray(x), ksize, iterations)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_morphology_is_per_plane_on_a_batch():
+    x = _mask((3, 17, 12), 3)
+    got = binary.close_morph(torch.from_numpy(x), 3, 1).numpy()
+    for i in range(3):
+        assert np.array_equal(got[i], np.asarray(jax_binary.close_morph(
+            jnp.asarray(x[i]), 3, 1)))
+
+
+@pytest.mark.parametrize("op", ["box_blur", "sharpen"])
+@pytest.mark.parametrize("radius", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", [(20, 30, 3), (64, 47, 1), (1, 9, 4),
+                                   (128, 96, 1)])
+def test_box_blur_and_sharpen_match_jax(op, radius, shape):
+    x = _u8(shape, 4)
+    got = getattr(integral, op)(torch.from_numpy(x), radius).numpy()
+    want = getattr(jax_integral, op)(jnp.asarray(x), radius)
+    assert np.array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("h,w,radius", [(20, 30, 2), (20, 30, 127),
+                                        (20, 30, 128), (300, 300, 128),
+                                        (600, 520, 128), (257, 600, 200),
+                                        (1024, 1024, 2)])
+def test_sums_branch_follows_jax(h, w, radius):
+    """sums_fit_f32 picks the branch the JAX package takes: f32 sums
+    where exact_axis_apply reports a bound below 2^24, else int32."""
+    spec = jax.ShapeDtypeStruct((h, w, 1), jnp.uint8)
+    sums = jax.eval_shape(
+        lambda a: jax_integral._box_sums_exact(a, radius)[0], spec)
+    assert integral.sums_fit_f32(h, w, radius) == (sums.dtype == jnp.float32)
+
+
+@pytest.mark.parametrize("op", ["box_blur", "sharpen"])
+def test_integer_form_is_the_exact_rounding(op, monkeypatch):
+    """The int32 quotient/remainder form (taken where the sums pass 2^24)
+    equals floor(mean + 0.5) and floor(2t - mean + 0.5) in exact
+    arithmetic."""
+    x = _u8((9, 11, 2), 5)
+    monkeypatch.setattr(integral, "sums_fit_f32", lambda *a: False)
+    got = getattr(integral, op)(torch.from_numpy(x), 2).numpy()
+    sums, area = integral._box_sums_exact(torch.from_numpy(x), 2)
+    sums = sums.numpy()
+    want = np.zeros_like(x)
+    for idx in np.ndindex(x.shape):
+        mean = Fraction(int(sums[idx]), int(area[idx[0], idx[1], 0]))
+        v = mean if op == "box_blur" else 2 * int(x[idx]) - mean
+        want[idx] = min(max(math.floor(v + Fraction(1, 2)), 0), 255)
+    assert np.array_equal(got, want)
+
+
+def test_f32_form_divides_as_the_compiled_program_does():
+    """3570 / 28 is 127.5; the JAX program multiplies by f32(1/28) and
+    gets 127.50001, so a sharpened 82 becomes 36, not 37."""
+    mean = integral._mean_f32(torch.full((1, 1, 1), 3570, dtype=torch.int32),
+                              np.full((1, 1, 1), 28, np.float32))
+    assert float(mean) == float(np.float32(3570) * (np.float32(1) / 28))
+    assert float(mean) != 127.5
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 5, 3), (1, 4, 4, 4)])
+def test_rgb_to_gray_matches_jax(shape):
+    x = _u8(shape, 6)
+    x[0, 0, :4, :3] = [[0, 0, 0], [255, 255, 255], [255, 0, 0], [0, 0, 255]]
+    got = rgb_to_gray_u8(torch.from_numpy(x[..., :3])).numpy()
+    assert np.array_equal(got, np.asarray(jax_gray(jnp.asarray(x[..., :3]))))
+
+
+@pytest.mark.parametrize("shape,sigma,radius,thr", CHAIN_CASES,
+                         ids=_ids(CHAIN_CASES))
+def test_filter_chain_reference_matches_jax(shape, sigma, radius, thr):
+    x = _u8(shape, 7)
+    got = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x), sigma,
+                                                radius, thr)
+    want = jax_pipeline.filter_chain(jnp.asarray(x), sigma, radius, thr)
+    assert got.dtype == torch.uint8 and got.shape == x.shape
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_filter_chain_reference_matches_the_pallas_kernel_interpret():
+    x = _u8((2, 64, 128), 8)
+    got = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x))
+    want = jax_fused_filter(jnp.asarray(x), 2.0, 2, 128.0, interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def _kernel_tiles(x, sigma, rs, thr, tile):
+    """A numpy transcription of filter_kernel's regions and index
+    arithmetic, tile by tile: input through the halo tables, blur width
+    and height passes, blurred values zeroed outside the image, box width
+    and height passes, sharpen (f32 or int form), threshold, dilate with
+    the outside set back to 0, erode."""
+    h, w = x.shape
+    plan = fc._Plan(h, w, sigma, rs, "cpu")
+    ty, tx = plan.ty.numpy(), plan.tx.numpy()
+    ey, ex = plan.ey.numpy(), plan.ex.numpy()
+    taps = plan.taps.numpy().astype(np.int64)
+    hh, g = 2 + rs, 2 + rs + plan.rb
+    kb, ks = len(taps), 2 * rs + 1
+    out = np.zeros_like(x)
+
+    def inside(y, xx):
+        return ((y >= 0) & (y < h))[:, None] & ((xx >= 0) & (xx < w))[None]
+
+    for y0 in range(0, h, tile):
+        for x0 in range(0, w, tile):
+            th, tw = min(tile, h - y0), min(tile, w - x0)
+            inp = x[ty[y0:y0 + th + 2 * g]][:, tx[x0:x0 + tw + 2 * g]] \
+                .astype(np.int64)
+            bh, bw, mh, mw = th + 2 * hh, tw + 2 * hh, th + 4, tw + 4
+            tmp = sum(taps[k] * inp[:, k:k + bw] for k in range(kb))
+            acc = sum(taps[k] * tmp[k:k + bh] for k in range(kb))
+            bl = np.minimum((acc + 32768) >> 16, 255)
+            bl[~inside(np.arange(y0 - hh, y0 - hh + bh),
+                       np.arange(x0 - hh, x0 - hh + bw))] = 0
+            boxw = sum(bl[:, k:k + mw] for k in range(ks))
+            s = sum(boxw[k:k + mh] for k in range(ks))
+            b = bl[rs:rs + mh, rs:rs + mw]
+            ys, xs = np.arange(y0 - 2, y0 - 2 + mh), np.arange(x0 - 2,
+                                                               x0 - 2 + mw)
+            area = ey[np.clip(ys, 0, h - 1)][:, None] \
+                * ex[np.clip(xs, 0, w - 1)][None]
+            if plan.int_form:
+                a = area.astype(np.int64)
+                q, rem = s // a, s % a
+                sh = np.clip(2 * b - q - (2 * rem > a), 0, 255)
+            else:
+                mean = s.astype(np.float32) * (np.float32(1) / area)
+                v = np.float32(2) * b.astype(np.float32) - mean
+                sh = np.clip(np.floor(v + np.float32(0.5)), 0, 255)
+            mask = np.where(inside(ys, xs)
+                            & (sh.astype(np.float32) > np.float32(thr)),
+                            255, 0)
+            dil = np.zeros((th + 2, tw + 2), np.int64)
+            for dy in range(3):
+                for dx in range(3):
+                    dil = np.maximum(dil, mask[dy:dy + th + 2,
+                                               dx:dx + tw + 2])
+            dil[~inside(np.arange(y0 - 1, y0 + th + 1),
+                        np.arange(x0 - 1, x0 + tw + 1))] = 0
+            ero = np.full((th, tw), 255, np.int64)
+            for dy in range(3):
+                for dx in range(3):
+                    ero = np.minimum(ero, dil[dy:dy + th, dx:dx + tw])
+            out[y0:y0 + th, x0:x0 + tw] = ero
+    return out
+
+
+@pytest.mark.parametrize("shape,sigma,radius,thr,tile", [
+    ((70, 45), 2.0, 2, 128.0, 32),
+    ((70, 45), 2.0, 2, 128.0, 8),
+    ((37, 53), 3.5, 3, 200.0, 16),
+    ((40, 50), 1.0, 1, -1.0, 8),
+    ((5, 7), 2.0, 2, 128.0, 32),
+    ((1, 20), 2.0, 2, 100.0, 8),
+    ((33, 17), 0.0, 0, 127.5, 8),
+])
+def test_kernel_tiling_reproduces_plain(shape, sigma, radius, thr, tile):
+    """The tables, regions and halo zeroing the CUDA kernel relies on give
+    the plain version's mask at ragged edge tiles, tiny planes and a mask
+    that touches the border (thr -1: everything is 255)."""
+    x = _u8(shape, 9)
+    want = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x), sigma,
+                                                 radius, thr)
+    assert np.array_equal(_kernel_tiles(x, sigma, radius, thr, tile),
+                          want.numpy())
+
+
+def test_kernel_tiling_reproduces_plain_in_the_int_form(monkeypatch):
+    monkeypatch.setattr(fc, "sums_fit_f32", lambda *a: False)
+    monkeypatch.setattr(integral, "sums_fit_f32", lambda *a: False)
+    x = _u8((45, 38), 10)
+    want = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x), 1.5, 3,
+                                                 120.0)
+    assert np.array_equal(_kernel_tiles(x, 1.5, 3, 120.0, 16), want.numpy())
+
+
+@pytest.mark.parametrize("rb,rs,tile", [(6, 2, 32), (90, 2, 32), (12, 60, 32),
+                                        (200, 2, 16)])
+def test_tile_plan_fits_shared_memory(rb, rs, tile):
+    got_tile, smem = fc._tile_plan(rb, rs)
+    assert got_tile == tile and smem <= 232448
+
+
+def test_tile_plan_rejects_radius_beyond_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        fc._tile_plan(12, 100)
+
+
+def test_pipeline_filter_chain_on_cpu_matches_jax_without_launching():
+    x = _u8((2, 48, 80), 11)
+    before = fc.LAUNCHES
+    got = pipeline.filter_chain(torch.from_numpy(x))
+    assert fc.LAUNCHES == before
+    want = jax_pipeline.filter_chain(jnp.asarray(x))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    one = pipeline.filter_chain(torch.from_numpy(x[1]), 1.0, 1, 100)
+    assert np.array_equal(one.numpy(), np.asarray(
+        jax_pipeline.filter_chain(jnp.asarray(x[1]), 1.0, 1, 100)))
+
+
+def test_filter_chain_raises_off_cpu_without_a_kernel():
+    x = torch.empty((8, 8), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        pipeline.filter_chain(x)
+
+
+@pytest.mark.parametrize("args,err", [
+    (((1, 8, 8, 3), 2.0, 2), "\\[H, W\\] or \\[B, H, W\\]"),
+    (((0, 8), 2.0, 2), "at least 1"),
+    (((8, 8), -1.0, 2), "sigma"),
+    (((8, 8), float("nan"), 2), "sigma"),
+    (((8, 8), 2.0, -1), "sharpen radius"),
+])
+def test_filter_chain_rejects_bad_arguments(args, err):
+    shape, sigma, radius = args
+    with pytest.raises(ValueError, match=err):
+        pipeline.filter_chain(torch.zeros(shape, dtype=torch.uint8), sigma,
+                              radius)
+
+
+def test_unported_inputs_raise_not_implemented():
+    x = torch.zeros((1, 8, 8, 3))
+    for op in (integral.box_blur, integral.sharpen):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            op(x, 1)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("method,radius", [("box_blur", 2), ("sharpen", 1),
+                                           ("sharpen", 3), ("box_blur", 0)])
+def test_image_batch_clamped_filters_match_jax(channels, method, radius):
+    x = _u8((2, 33, 40, channels), 12)
+    got = getattr(zp.ImageBatch(x, device="cpu"), method)(radius)
+    want = getattr(jz.ImageBatch(x), method)(radius)
+    assert np.array_equal(got.to_numpy(), want.to_numpy())
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("method", ["dilate_binary", "erode_binary",
+                                    "open_binary", "close_binary"])
+def test_image_batch_morphology_matches_jax(channels, method):
+    x = _u8((2, 21, 30, channels), 13)
+    x[..., :3] = (x[..., :3] > 140) * 255
+    for ksize, iterations in ((3, 1), (5, 2), (3, 0)):
+        got = getattr(zp.ImageBatch(x, device="cpu"), method)(ksize,
+                                                               iterations)
+        want = getattr(jz.ImageBatch(x), method)(ksize, iterations)
+        assert got.channels == 1
+        assert np.array_equal(got.to_numpy(), want.to_numpy())
+
+
+def test_image_batch_filter_validation_matches_jax():
+    x = _u8((1, 8, 8, 3), 0)
+    for method, args in (("box_blur", (-1,)), ("sharpen", (-2,)),
+                         ("dilate_binary", (4,)), ("erode_binary", (1,)),
+                         ("open_binary", (3, -1))):
+        with pytest.raises(ValueError):
+            getattr(jz.ImageBatch(x), method)(*args)
+        with pytest.raises(ValueError):
+            getattr(zp.ImageBatch(x, device="cpu"), method)(*args)

@@ -1,5 +1,5 @@
-"""The CUDA kernel against its plain PyTorch version on the card. A CUDA
-kernel has no CPU mode, so every test here needs a device and skips
+"""The CUDA kernels against their plain PyTorch versions on the card. A
+CUDA kernel has no CPU mode, so every test here needs a device and skips
 without one. On a GPU machine (no jax needed):
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -9,8 +9,13 @@ import numpy as np
 import pytest
 import torch
 
-from zignal_tpu_torch import ImageBatch
+from zignal_tpu_torch import BorderMode, ImageBatch, pipeline
+from zignal_tpu_torch.ops import filter_chain as fc
 from zignal_tpu_torch.ops import fused_pipeline as fp
+from zignal_tpu_torch.ops import separable_conv as sc
+from zignal_tpu_torch.ops import tables
+from zignal_tpu_torch.ops.convolution import convolve_separable, \
+    convolve_separable_reference
 from zignal_tpu_torch.ops.interpolation import resize
 
 pytestmark = pytest.mark.cuda
@@ -95,3 +100,111 @@ def test_kernel_rejects_non_contiguous(cuda):
     x = _u8((1, 64, 64, 3), 4, cuda)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         fp.fused_resize_blur_oklab(x, 16, 16, 1.0)
+
+
+FILTER_CASES = [  # (shape, sigma, sharpen_radius, thr): test_pallas_filter's
+    ((256, 256), 2.0, 2, 128.0),
+    ((128, 384), 1.0, 1, 90.0),
+    ((192, 128), 3.5, 3, 200.0),
+    ((1000, 1000), 2.0, 2, 128.0),
+    ((1080, 500), 2.0, 2, 128.0),
+    ((100, 130), 2.0, 2, 128.0),
+    ((3, 128, 256), 1.5, 2, 128.0),
+    ((1, 64), 2.0, 2, 128.0),
+    ((64, 1), 2.0, 2, 128.0),
+    ((5, 7), 2.0, 2, 128.0),
+    ((1, 1), 2.0, 2, 128.0),
+    ((100, 130), 2.0, 2, 127.5),
+    ((100, 130), 2.0, 2, -1.0),
+    ((100, 130), 2.0, 2, 300.0),
+    ((100, 130), 0.0, 0, 128.0),
+    ((64, 64), 30.0, 2, 128.0),      # blur radius 90: > 48 KB shared memory
+    ((70, 90), 2.0, 60, 128.0),      # sharpen radius 60
+]
+
+SIGNED = (-0.25, 0.5, 1.5, 0.5, -0.25)
+CONV_CASES = [  # (shape, kernel, border)
+    *[((2, 40, 56, 3), tables.gaussian_kernel(s), b)
+      for s in (1.0, 2.0) for b in BorderMode],
+    ((2, 40, 56, 3), SIGNED, BorderMode.ZERO),
+    ((2, 40, 56, 3), SIGNED, BorderMode.REPLICATE),
+    ((2, 40, 56, 1), tables.gaussian_kernel(2.0), BorderMode.WRAP),
+    ((2, 40, 56, 4), SIGNED, BorderMode.MIRROR),
+    ((2, 1, 64, 3), tables.gaussian_kernel(2.0), BorderMode.MIRROR),
+    ((1, 9, 1, 1), SIGNED, BorderMode.ZERO),
+    ((1, 64, 64, 3), tables.gaussian_kernel(30.0), BorderMode.REPLICATE),
+]
+
+
+@pytest.mark.parametrize("shape,sigma,radius,thr", FILTER_CASES)
+def test_filter_kernel_equals_plain(cuda, shape, sigma, radius, thr):
+    x = _u8(shape, 5, cuda)
+    before = fc.LAUNCHES
+    got = fc.fused_blur_sharpen_morph(x, sigma, radius, thr)
+    want = fc.fused_blur_sharpen_morph_reference(x, sigma, radius, thr)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+def test_filter_kernel_int_form_equals_plain(cuda, monkeypatch):
+    from zignal_tpu_torch.ops import integral
+
+    monkeypatch.setattr(fc, "_TABLES", {})
+    monkeypatch.setattr(fc, "sums_fit_f32", lambda *a: False)
+    monkeypatch.setattr(integral, "sums_fit_f32", lambda *a: False)
+    x = _u8((2, 300, 200), 6, cuda)
+    got = fc.fused_blur_sharpen_morph(x, 2.0, 3, 128.0)
+    assert torch.equal(got, fc.fused_blur_sharpen_morph_reference(x, 2.0, 3,
+                                                                  128.0))
+
+
+@pytest.mark.parametrize("shape,kernel,border", CONV_CASES)
+def test_separable_kernel_equals_plain(cuda, shape, kernel, border):
+    x = _u8(shape, 7, cuda)
+    before = sc.LAUNCHES
+    got = convolve_separable(x, kernel, kernel, border)
+    want = convolve_separable_reference(x, kernel, kernel, border)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+def test_separable_kernel_on_a_non_square_band(cuda):
+    x = _u8((2, 1024, 768, 3), 8, cuda)
+    a, b, f = tables.bilinear_axis_table(1024, 512)
+    my = tables.build_tap_matrix(np.stack([a, b], 1),
+                                 np.stack([256 - f, f], 1), 1024, 512)
+    a, b, f = tables.bilinear_axis_table(768, 384)
+    mx = tables.build_tap_matrix(np.stack([a, b], 1),
+                                 np.stack([256 - f, f], 1), 768, 384)
+    got = sc.separable_u8(x, mx, my)
+    assert got.shape == (2, 512, 384, 3)
+    assert torch.equal(got, sc.separable_u8_reference(x, mx, my))
+
+
+def test_image_batch_filters_launch_the_kernels(cuda):
+    x = _u8((2, 96, 80, 3), 9, cuda)
+    ib = ImageBatch(x, device=cuda)
+    k2, k4 = fc.LAUNCHES, sc.LAUNCHES
+    blur = ib.gaussian_blur(2.0)
+    conv = ib.convolve_separable(SIGNED, SIGNED, BorderMode.REPLICATE)
+    gray = x[..., 0].contiguous()
+    mask = pipeline.filter_chain(gray)
+    assert (fc.LAUNCHES, sc.LAUNCHES) == (k2 + 1, k4 + 2)
+    assert torch.equal(blur.device_array(),
+                       convolve_separable_reference(
+                           x, tables.gaussian_kernel(2.0),
+                           tables.gaussian_kernel(2.0)))
+    assert torch.equal(conv.device_array(), convolve_separable_reference(
+        x, SIGNED, SIGNED, BorderMode.REPLICATE))
+    assert torch.equal(mask, fc.fused_blur_sharpen_morph_reference(gray))
+
+
+def test_new_kernels_reject_non_contiguous(cuda):
+    x = _u8((64, 64), 10, cuda)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_blur_sharpen_morph(x)
+    y = _u8((1, 64, 64, 3), 11, cuda)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.run_cached(y, "k", None)

@@ -1,6 +1,7 @@
 """The port's host-side tables and constants equal the JAX package's own
 table functions (zignal_tpu_torch/ops/tables.py, color/_constants.py,
-color/_array.py)."""
+color/_array.py); the compact tap tables of the separable kernel rebuild
+the bands they come from."""
 
 import numpy as np
 import pytest
@@ -9,7 +10,8 @@ from zignal_tpu.color import _array as jax_color, _scalar
 from zignal_tpu.enums import BorderMode
 from zignal_tpu.ops import convolution as jax_conv
 from zignal_tpu.ops import interpolation as jax_interp
-from zignal_tpu.ops import mxu_resample, pallas_pipeline
+from zignal_tpu.ops import integral as jax_integral
+from zignal_tpu.ops import mxu_resample, pallas_filter, pallas_pipeline
 
 from zignal_tpu_torch.color import _array as port_color, _constants
 from zignal_tpu_torch.ops import tables
@@ -68,7 +70,7 @@ def test_bilinear_axis_table_is_the_pallas_band(src, dst):
 @pytest.mark.parametrize("sigma", [0.5, 2.0, 3.5])
 def test_blur_tap_table_is_the_pallas_band(n, sigma):
     kint = tables._kernel_to_int(tables.gaussian_kernel(sigma))
-    taps = tables.blur_tap_table(n, len(kint))
+    taps = tables.border_tap_table(n, len(kint), BorderMode.MIRROR)
     got = tables.build_tap_matrix(taps, kint, n, n)
     assert np.array_equal(got, pallas_pipeline._blur_matrix(n, sigma))
 
@@ -80,14 +82,102 @@ def test_halo_axis_table_follows_the_blur_taps(src, dst, radius):
     output i reads, so a tile needs no border logic of its own."""
     halo = tables.halo_axis_table(src, dst, radius)
     plain = tables.bilinear_axis_table(src, dst)
-    taps = tables.blur_tap_table(dst, 2 * radius + 1)
+    taps = tables.border_tap_table(dst, 2 * radius + 1, BorderMode.MIRROR)
     cols = np.arange(dst)[:, None] + np.arange(2 * radius + 1)[None, :]
     assert halo.dtype == np.int32 and halo.shape == (3, dst + 2 * radius)
     assert np.array_equal(halo[:, cols], plain[:, taps])
 
 
+@pytest.mark.parametrize("mode", list(BorderMode))
+@pytest.mark.parametrize("n,ksize", [(1, 5), (2, 13), (9, 5), (40, 13),
+                                     (7, 1)])
+def test_border_tap_table_is_axis_taps(mode, n, ksize):
+    """_axis_taps returns (idx with -1 replaced by 0, mask); the port keeps
+    -1 in place of the mask."""
+    taps = tables.border_tap_table(n, ksize, mode)
+    idx, mask = jax_conv._axis_taps(n, ksize, mode)
+    assert np.array_equal(taps >= 0, mask)
+    assert np.array_equal(np.where(mask, taps, 0), idx)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 64, 130])
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 128])
+def test_window_tables_equal(n, radius):
+    for got, want in zip(tables.window_bounds(n, radius),
+                         jax_integral._window_bounds(n, radius)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    got = tables.extents(n, radius)
+    assert got.dtype == np.float32
+    assert np.array_equal(got, pallas_filter._extents(n, radius))
+    assert np.array_equal(tables.clamped_band(n, radius),
+                          jax_integral._clamped_band(n, radius))
+    assert np.array_equal(tables.clamped_band(n, radius),
+                          pallas_filter._clamped_ones_band(n, radius))
+
+
+@pytest.mark.parametrize("n", [1, 5, 100])
+@pytest.mark.parametrize("sigma", [1.0, 2.0, 3.5])
+def test_gauss_band_from_the_tap_tables(n, sigma):
+    kint = tables._kernel_to_int(tables.gaussian_kernel(sigma))
+    band = tables.build_tap_matrix(
+        tables.border_tap_table(n, len(kint), BorderMode.MIRROR), kint, n, n)
+    assert np.array_equal(band, pallas_filter._gauss_band(n, sigma))
+
+
+def _bands():
+    rng = np.random.default_rng(4)
+    sparse = rng.integers(-3, 4, (20, 31)) * (rng.random((20, 31)) < 0.2)
+    sparse[7] = 0   # an empty row
+    kint = tables._kernel_to_int((-0.25, 0.5, 1.5, 0.5, -0.25))
+    wrap = tables.build_tap_matrix(
+        tables.border_tap_table(50, 5, BorderMode.WRAP), kint, 50, 50)
+    return [sparse, wrap, pallas_pipeline._bilinear_matrix(1024, 512),
+            pallas_pipeline._bilinear_matrix(3, 70), np.zeros((4, 6), int)]
+
+
+@pytest.mark.parametrize("band", _bands(), ids=["sparse", "wrap",
+                                                "bilinear_down", "bilinear_up",
+                                                "empty"])
+def test_band_to_taps_rebuilds_the_band(band):
+    idx, w = tables.band_to_taps(band)
+    assert idx.dtype == w.dtype == np.int32
+    k = max(1, int((band != 0).sum(axis=1).max()))
+    assert idx.shape == w.shape == (band.shape[0], k)
+    assert np.array_equal(
+        tables.build_tap_matrix(idx, w, band.shape[1], band.shape[0]), band)
+    assert idx.min() >= 0 and idx.max() < band.shape[1]
+
+
+@pytest.mark.parametrize("band", _bands(), ids=["sparse", "wrap",
+                                                "bilinear_down", "bilinear_up",
+                                                "empty"])
+@pytest.mark.parametrize("tile", [32, 8, 3])
+def test_tile_sources_cover_every_tap(band, tile):
+    idx, w = tables.band_to_taps(band)
+    src, local = tables.tile_sources(idx, w, tile)
+    assert src.shape[0] == -(-band.shape[0] // tile)
+    for t in range(src.shape[0]):
+        rows = slice(t * tile, (t + 1) * tile)
+        assert np.all(np.diff(src[t]) >= 0)          # sorted, padded
+        live = w[rows] != 0
+        assert np.array_equal(src[t][local[rows]][live], idx[rows][live])
+        assert np.all(local[rows][~live] == 0)
+    assert local.min() >= 0 and local.max() < src.shape[1]
+
+
+def test_wrap_edge_tile_lists_both_ends_not_the_whole_axis():
+    kint = tables._kernel_to_int(tables.gaussian_kernel(2.0))
+    band = tables.build_tap_matrix(
+        tables.border_tap_table(1024, len(kint), BorderMode.WRAP), kint,
+        1024, 1024)
+    src, _ = tables.tile_sources(*tables.band_to_taps(band), 32)
+    assert src.shape[1] == 32 + 2 * 6
+    assert set(src[0]) == set(range(0, 38)) | set(range(1018, 1024))
+
+
 def test_color_constants_equal():
-    for name in ("SRGB_LINEAR_THRESHOLD", "SRGB_GAMMA_THRESHOLD",
+    for name in ("LUMA_R", "LUMA_G", "LUMA_B",
+                 "SRGB_LINEAR_THRESHOLD", "SRGB_GAMMA_THRESHOLD",
                  "SRGB_GAMMA_OFFSET", "SRGB_GAMMA_SCALE",
                  "SRGB_LINEAR_SLOPE", "SRGB_GAMMA_EXPONENT"):
         assert getattr(_constants, name) == getattr(_scalar, name)

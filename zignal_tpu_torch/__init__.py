@@ -1,10 +1,11 @@
-"""zignal-tpu's PyTorch/CUDA port: the resize -> blur -> Oklab batch path.
+"""zignal-tpu's PyTorch/CUDA port: the resize -> blur -> Oklab batch path,
+the config-3 filter chain and the windowed u8 filters.
 
 Imports torch and numpy only (never jax, never ``zignal_tpu``). Every
 entry that places data takes an explicit ``device=``; functions on
-tensors run on their input's device. On a CUDA tensor the main path is
-one hand-written kernel (csrc/), built with nvcc at first use; on a CPU
-tensor it is the plain PyTorch version of the same arithmetic.
+tensors run on their input's device. On a CUDA tensor each ported TPU
+kernel is a hand-written kernel (csrc/), built with nvcc at first use; on
+a CPU tensor it is the plain PyTorch version of the same arithmetic.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """ImageBatch — a batch of same-shape u8 images ``[B, H, W, C]`` held as a
 torch tensor on one explicit device, the counterpart of
-zignal_tpu/batch.py as far as the resize -> blur -> Oklab path needs it.
+zignal_tpu/batch.py as far as the resize -> blur -> Oklab path and the
+windowed u8 filters need it.
 
 The device is always the caller's choice (``device=``); nothing here
 picks one. There is no mesh yet (ROADMAP item 15).
@@ -13,7 +14,11 @@ from functools import partial
 import numpy as np
 import torch
 
-from .enums import Interpolation
+from .color._array import rgb_to_gray_u8
+from .enums import BorderMode, Interpolation
+from .ops import binary, integral
+from .ops.convolution import convolve_separable as convolve_separable_op
+from .ops.convolution import gaussian_blur as gaussian_blur_op
 from .ops.interpolation import resize as resize_op
 from .pipeline import resize_blur_oklab as _chain
 
@@ -103,9 +108,8 @@ class ImageBatch:
         """Batched resize; on the card u8 bilinear is the fused kernel
         with the blur and the Oklab epilogue off."""
         rows, cols = self._out_size(size)
-        return ImageBatch(resize_op(self._dev, rows, cols,
-                                    Interpolation(method)),
-                          device=self._dev.device)
+        return self._wrap(resize_op(self._dev, rows, cols,
+                                    Interpolation(method)))
 
     def resize_blur_oklab(self, size, sigma: float = 2.0,
                           method: Interpolation = Interpolation.BILINEAR):
@@ -120,3 +124,74 @@ class ImageBatch:
         fn = resize_blur_oklab_fn(rows, cols, float(sigma),
                                   Interpolation(method))
         return fn(self._dev)
+
+    # -- windowed filters ----------------------------------------------------
+
+    def _wrap(self, arr) -> "ImageBatch":
+        return ImageBatch(arr, device=self._dev.device)
+
+    def _gray_plane(self) -> torch.Tensor:
+        """u8 [B, H, W] luminance plane (BT.709 fixed point)."""
+        if self.channels == 1:
+            return self._dev[..., 0]
+        return rgb_to_gray_u8(self._dev[..., :3])[..., 0]
+
+    def gaussian_blur(self, sigma: float) -> "ImageBatch":
+        """MIRROR-bordered Gaussian blur; the separable kernel on the
+        card."""
+        sigma = float(sigma)
+        if not (sigma > 0) or not np.isfinite(sigma):
+            raise ValueError("sigma must be positive and finite")
+        return self._wrap(gaussian_blur_op(self._dev, sigma))
+
+    def convolve_separable(self, kernel_x, kernel_y,
+                           border=BorderMode.MIRROR) -> "ImageBatch":
+        """Batched separable convolution (reference: image.zig:935); the
+        separable kernel on the card."""
+        kx = np.asarray(kernel_x, dtype=np.float32)
+        ky = np.asarray(kernel_y, dtype=np.float32)
+        if kx.ndim != 1 or ky.ndim != 1 or len(kx) % 2 == 0 \
+                or len(ky) % 2 == 0:
+            raise ValueError("kernels must be 1-D with odd length")
+        kxt = tuple(float(v) for v in kx)
+        kyt = tuple(float(v) for v in ky)
+        return self._wrap(convolve_separable_op(self._dev, kxt, kyt,
+                                                BorderMode(border)))
+
+    def _clamped(self, op, radius: int) -> "ImageBatch":
+        radius = int(radius)
+        if radius < 0:
+            raise ValueError("radius must be non-negative")
+        if radius == 0:
+            return self._wrap(self._dev)
+        return self._wrap(op(self._dev, radius))
+
+    def box_blur(self, radius: int) -> "ImageBatch":
+        return self._clamped(integral.box_blur, radius)
+
+    def sharpen(self, radius: int) -> "ImageBatch":
+        return self._clamped(integral.sharpen, radius)
+
+    def _morph(self, op, kernel_size: int, iterations: int) -> "ImageBatch":
+        kernel_size = int(kernel_size)
+        iterations = int(iterations)
+        if kernel_size < 3 or kernel_size % 2 == 0:
+            raise ValueError("kernel_size must be odd and >= 3")
+        if iterations < 0:
+            raise ValueError("iterations must be non-negative")
+        plane = self._gray_plane()
+        if iterations:
+            plane = op(plane, kernel_size, iterations)
+        return self._wrap(plane[..., None])
+
+    def dilate_binary(self, kernel_size: int = 3, iterations: int = 1):
+        return self._morph(binary.dilate, kernel_size, iterations)
+
+    def erode_binary(self, kernel_size: int = 3, iterations: int = 1):
+        return self._morph(binary.erode, kernel_size, iterations)
+
+    def open_binary(self, kernel_size: int = 3, iterations: int = 1):
+        return self._morph(binary.open_morph, kernel_size, iterations)
+
+    def close_binary(self, kernel_size: int = 3, iterations: int = 1):
+        return self._morph(binary.close_morph, kernel_size, iterations)

@@ -1,8 +1,10 @@
-"""Batched sRGB -> Oklab on channel-last float32 tensors ``[..., 3]``.
+"""Batched sRGB -> Oklab on channel-last float32 tensors ``[..., 3]``, and
+u8 RGB -> gray.
 
-The counterpart of the rgb -> oklab edge of zignal_tpu/color/_array.py:
-the same constants, the same f64-composed ``_RGB2OKLMS`` matrix and the
-same order of f32 multiply-adds. Other colour spaces are not ported yet.
+The counterpart of the rgb -> oklab edge and ``rgb_to_gray_u8`` of
+zignal_tpu/color/_array.py: the same constants, the same f64-composed
+``_RGB2OKLMS`` matrix and the same order of f32 multiply-adds. Other colour
+spaces are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,11 +13,12 @@ import numpy as np
 import torch
 
 from ._constants import (
-    SRGB_GAMMA_EXPONENT, SRGB_GAMMA_OFFSET, SRGB_GAMMA_SCALE,
-    SRGB_GAMMA_THRESHOLD, SRGB_LINEAR_SLOPE,
+    LUMA_B, LUMA_G, LUMA_R, SRGB_GAMMA_EXPONENT, SRGB_GAMMA_OFFSET,
+    SRGB_GAMMA_SCALE, SRGB_GAMMA_THRESHOLD, SRGB_LINEAR_SLOPE,
 )
 
-__all__ = ["convert_array", "gamma_to_linear", "rgb_to_oklab_fused"]
+__all__ = ["convert_array", "gamma_to_linear", "rgb_to_oklab_fused",
+           "rgb_to_gray_u8"]
 
 
 def _T(m):
@@ -90,3 +93,14 @@ def convert_array(arr, src: str, dst: str):
     if arr.dtype != torch.float32 or arr.shape[-1] != 3:
         raise ValueError("convert_array expects a float32 [..., 3] tensor")
     return rgb_to_oklab_fused(arr)
+
+
+def rgb_to_gray_u8(a):
+    """u8 ``[..., 3]`` -> u8 ``[..., 1]``, BT.709 16.16 fixed point
+    (color.zig:1031): ``floor((r*wr + g*wg + b*wb + 2^15) / 2^16)`` in
+    int32. The sum is at most 65536*255 + 2^15, so the JAX package's f32
+    form of the same expression gives the same integers."""
+    wr, wg, wb = (round(v * 65536) for v in (LUMA_R, LUMA_G, LUMA_B))
+    x = a.to(torch.int32)
+    y = (x[..., 0] * wr + x[..., 1] * wg + x[..., 2] * wb + 32768) >> 16
+    return y.clamp(0, 255).to(torch.uint8)[..., None]

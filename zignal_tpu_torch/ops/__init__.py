@@ -1,2 +1,4 @@
-"""Device ops: u8 bilinear resize, u8 Gaussian blur and the fused
-resize -> blur -> Oklab kernel."""
+"""Device ops: u8 bilinear resize, u8 separable convolution and Gaussian
+blur, clamped-window box blur and sharpen, threshold and morphology, and
+the kernels: the fused resize -> blur -> Oklab kernel, the fused filter
+chain and the separable u8 convolution."""

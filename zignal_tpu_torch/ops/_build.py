@@ -3,9 +3,10 @@ with ctypes.
 
 The sources under ``csrc/`` are compiled for ``sm_90a`` into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library goes to ``zignal_tpu_torch/_build/<hash>/``, keyed
-by a hash of the sources and flags, so an edited source builds anew.
-Nothing here runs at import: ``load()`` is called by the first launch.
+seconds): one nvcc per source, all started together, then one link. The
+library goes to ``zignal_tpu_torch/_build/<hash>/``, keyed by a hash of the
+sources and flags, so an edited source builds anew. Nothing here runs at
+import: ``load()`` is called by the first launch.
 """
 
 from __future__ import annotations
@@ -14,21 +15,28 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load"]
+__all__ = ["load", "launch", "TILES", "SMEM_LIMIT"]
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "fused_resize_blur_oklab.cu",)
+_SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "fused_resize_blur_oklab.cu", "fused_blur_sharpen_morph.cu",
+    "separable_u8.cu"))
 _BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the Oklab epilogue needs IEEE powf/cbrtf
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC")
+
+TILES = (32, 16, 8)     # output tile sides a kernel may take, largest first
+SMEM_LIMIT = 232448     # bytes of shared memory a block may use on sm_90
 
 _LIB = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -40,6 +48,13 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run(cmd) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+
+
 def _compile() -> Path:
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in _SOURCES:
@@ -49,14 +64,24 @@ def _compile() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libzt_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in _SOURCES]
+    cmds = [[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_SOURCES, objs)]
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        list(pool.map(_run, cmds))  # raises the first failure
+    tmp = out_dir / f"libzt_kernels.{pid}.so"
+    _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
+
+
+def _declare(lib, name, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = _I
 
 
 def load():
@@ -64,12 +89,35 @@ def load():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(_compile()))
-        fn = lib.zt_fused_resize_blur_oklab
-        fn.argtypes = [_P, _P, _P, _P, _P, _P,            # src dst ty tx taps mix
-                       _I, _I, _I, _I, _I, _I,            # B H W C OH OW
-                       _I, _I, _I, _I, _P]                # r tile smem oklab stream
-        fn.restype = _I
+        _declare(lib, "zt_fused_resize_blur_oklab",
+                 [_P, _P, _P, _P, _P, _P,          # src dst ty tx taps mix
+                  _I, _I, _I, _I, _I, _I,          # B H W C OH OW
+                  _I, _I, _I, _I, _P])             # r tile smem oklab stream
+        _declare(lib, "zt_fused_blur_sharpen_morph",
+                 [_P, _P, _P, _P, _P, _P, _P,      # src dst ty tx ey ex taps
+                  _I, _I, _I, _I, _I, _F,          # B H W rb rs thr
+                  _I, _I, _I, _P])                 # int_form tile smem stream
+        _declare(lib, "zt_separable_u8",
+                 [_P, _P, _P, _P, _P, _P, _P, _P,  # src dst ysrc yidx yw
+                                                   # xsrc xidx xw
+                  _I, _I, _I, _I, _I, _I,          # B H W C OH OW
+                  _I, _I, _I, _I, _I, _I, _P])     # sy ky sx kx tile smem
+                                                   # stream
         lib.zt_error_string.argtypes = [_I]
         lib.zt_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the library's entry ``name`` with ``args`` and the current
+    stream of ``device``; raise if the launch was refused."""
+    import torch
+
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.zt_error_string(err).decode()}")

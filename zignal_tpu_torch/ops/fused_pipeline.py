@@ -11,13 +11,12 @@ the three stages. The kernel takes any H, W, OH, OW >= 1 and C in
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from ..color._array import _OKLMS2LAB, _RGB2OKLMS, convert_array
-from .convolution import gaussian_blur
+from ._build import SMEM_LIMIT, TILES, launch
+from .convolution import gaussian_blur_reference
 from .interpolation import _resize_bilinear_u8
 from .tables import _kernel_to_int, blur_radius, gaussian_kernel, \
     halo_axis_table
@@ -31,20 +30,17 @@ LAUNCHES = 0
 # per-shape device tables: (H, W, OH, OW, sigma, device) -> _Plan
 _TABLES: dict = {}
 
-_TILES = (32, 16, 8)     # output tile sides, largest first
-_SMEM_LIMIT = 232448     # bytes of shared memory a block may use on sm_90
-
 
 def _tile_plan(c: int, r: int):
     """(tile side, dynamic shared-memory bytes) for a blur of radius r:
     the u8 tile plus halo and the int32 width-pass rows must fit a block.
     The layout matches fused_kernel's."""
-    for tile in _TILES:
+    for tile in TILES:
         if r == 0:
             return tile, 0
         side = tile + 2 * r
         smem = ((side * side * c + 15) & ~15) + side * tile * c * 4
-        if smem <= _SMEM_LIMIT:
+        if smem <= SMEM_LIMIT:
             return tile, smem
     raise ValueError(f"blur radius {r} needs more shared memory than a "
                      "block has")
@@ -95,8 +91,8 @@ def fused_resize_blur_oklab_reference(batch, out_rows: int, out_cols: int,
     the other. u8 ``[B, out_rows, out_cols, C]``, or f32 Oklab when
     ``oklab``."""
     _check(batch, out_rows, out_cols, float(sigma), oklab)
-    q = gaussian_blur(_resize_bilinear_u8(batch, out_rows, out_cols),
-                      float(sigma))
+    q = gaussian_blur_reference(
+        _resize_bilinear_u8(batch, out_rows, out_cols), float(sigma))
     if not oklab:
         return q
     return convert_array(q.to(torch.float32) / 255.0, "rgb", "oklab")
@@ -127,18 +123,9 @@ def fused_resize_blur_oklab(batch, out_rows: int, out_cols: int,
         (b, out_rows, out_cols, 3 if oklab else c),
         dtype=torch.float32 if oklab else torch.uint8, device=batch.device)
 
-    from ._build import load
-
-    lib = load()
-    with torch.cuda.device(batch.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.zt_fused_resize_blur_oklab(
-            batch.data_ptr(), out.data_ptr(), plan.ty.data_ptr(),
-            plan.tx.data_ptr(), plan.taps.data_ptr(), plan.mix.data_ptr(),
-            b, h, w, c, out_rows, out_cols, plan.r, tile, smem, int(oklab),
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError("fused_resize_blur_oklab launch failed: "
-                           f"{lib.zt_error_string(err).decode()}")
+    launch("zt_fused_resize_blur_oklab", batch.device, batch.data_ptr(),
+           out.data_ptr(), plan.ty.data_ptr(), plan.tx.data_ptr(),
+           plan.taps.data_ptr(), plan.mix.data_ptr(), b, h, w, c, out_rows,
+           out_cols, plan.r, tile, smem, int(oklab))
     LAUNCHES += 1
     return out

@@ -1,13 +1,17 @@
 """Host-side numpy tables: resize coordinates, Gaussian taps, border
-resolution.
+resolution, clamped windows and banded matrices.
 
 The table functions below are copied op for op from the JAX package, so both
 packages derive every integer tap from the same float32 arithmetic:
 
 - ``resolve_index_np`` and ``_axis_coords``: zignal_tpu/ops/interpolation.py
-- ``build_tap_matrix``: zignal_tpu/ops/mxu_resample.py (used by the tests
-  to compare the per-axis tables with the JAX package's band matrices)
+- ``build_tap_matrix``: zignal_tpu/ops/mxu_resample.py
 - ``_kernel_to_int`` and ``gaussian_kernel``: zignal_tpu/ops/convolution.py
+- ``border_tap_table``: ``_axis_taps`` of zignal_tpu/ops/convolution.py,
+  with -1 kept for ZERO-border taps instead of a separate mask
+- ``window_bounds`` and ``clamped_band``: ``_window_bounds`` and
+  ``_clamped_band`` of zignal_tpu/ops/integral.py
+- ``extents``: ``_extents`` of zignal_tpu/ops/pallas_filter.py
 
 Coordinates stay numpy float32 on the host: recomputing them on a device
 can flip ``floor()`` at a few pixels.
@@ -21,8 +25,9 @@ from ..enums import BorderMode
 
 __all__ = [
     "SCALE", "resolve_index_np", "build_tap_matrix", "gaussian_kernel",
-    "blur_radius", "bilinear_axis_table", "blur_tap_table",
-    "halo_axis_table",
+    "blur_radius", "bilinear_axis_table", "halo_axis_table",
+    "border_tap_table", "window_bounds", "extents", "clamped_band",
+    "band_to_taps", "tile_sources",
 ]
 
 SCALE = 256  # 8.8 fixed point, for both the resize and the blur taps
@@ -111,14 +116,15 @@ def bilinear_axis_table(src_n: int, dst_n: int) -> np.ndarray:
     return np.stack([a, b, f]).astype(np.int32)
 
 
-def blur_tap_table(n: int, ksize: int) -> np.ndarray:
-    """MIRROR-resolved tap indices of a ``ksize``-tap filter, int64
-    ``[n, ksize]``: output i reads ``taps[i, k]`` with the k-th weight
-    (zignal_tpu/ops/pallas_pipeline.py:169-180; a Gaussian has
-    ``ksize = 2r + 1``)."""
+def border_tap_table(n: int, ksize: int, border: BorderMode) -> np.ndarray:
+    """Resolved tap indices of a ``ksize``-tap filter on an axis of
+    length ``n``, int64 ``[n, ksize]``: output i reads ``taps[i, k]`` with
+    the k-th weight; -1 marks a ZERO-border tap that reads 0 (a Gaussian
+    has ``ksize = 2r + 1``; zignal_tpu/ops/pallas_pipeline.py:169-180 is
+    the MIRROR case)."""
     base = (np.arange(n, dtype=np.int64)[:, None]
             + np.arange(ksize)[None, :] - ksize // 2)
-    return resolve_index_np(base, n, BorderMode.MIRROR)
+    return resolve_index_np(base, n, border)
 
 
 def halo_axis_table(src_n: int, dst_n: int, radius: int) -> np.ndarray:
@@ -126,8 +132,76 @@ def halo_axis_table(src_n: int, dst_n: int, radius: int) -> np.ndarray:
     ``[3, dst_n + 2*radius]``: column ``p + radius`` holds the ``(a, b, f)``
     taps of resized position ``mirror(p)`` for ``p`` in
     ``[-radius, dst_n + radius)``. A blur tap ``k`` of output ``i`` reads
-    halo column ``i + k``, the same position as ``blur_tap_table``
-    resolves, so a tile of the fused kernel needs no border logic of its
-    own, even on an axis shorter than the radius."""
+    halo column ``i + k``, the same position as ``border_tap_table``
+    resolves with MIRROR, so a tile of the fused kernel needs no border
+    logic of its own, even on an axis shorter than the radius."""
     pos = resolve_index_np(np.arange(-radius, dst_n + radius), dst_n)
     return np.ascontiguousarray(bilinear_axis_table(src_n, dst_n)[:, pos])
+
+
+def window_bounds(n: int, radius: int):
+    """First and last in-axis index of each clamped window, int32 [n]."""
+    i = np.arange(n, dtype=np.int64)
+    lo = np.maximum(i - radius, 0)
+    hi = np.minimum(i + radius, n - 1)
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
+def extents(n: int, radius: int) -> np.ndarray:
+    """Clamped window lengths as float32 [n]; their outer product is the
+    box area of sharpen and box blur."""
+    i = np.arange(n)
+    r1 = np.clip(i - radius, 0, None)
+    r2 = np.clip(i + radius, None, n - 1)
+    return (r2 - r1 + 1).astype(np.float32)
+
+
+def clamped_band(n: int, radius: int) -> np.ndarray:
+    """[n, n] 0/1 matrix: row i sums src max(i-r,0)..min(i+r,n-1)."""
+    i = np.arange(n)[:, None]
+    j = np.arange(n)[None, :]
+    return (np.abs(i - j) <= radius).astype(np.int64)
+
+
+def band_to_taps(M):
+    """A dense integer band ``[dst, src]`` as compact tap tables
+    ``(idx, w)``, int32 ``[dst, K]``, K the most nonzeros in any row:
+    output i is ``sum_k w[i, k] * x[idx[i, k]]``. Rows are padded with
+    weight 0 at their first nonzero column (column 0 for an empty row)."""
+    M = np.asarray(M)
+    nz = M != 0
+    k = max(1, int(nz.sum(axis=1).max(initial=0)))
+    # stable sort puts each row's nonzero columns first, in column order
+    order = np.argsort(~nz, axis=1, kind="stable")[:, :k]
+    keep = np.take_along_axis(nz, order, axis=1)
+    w = np.where(keep, np.take_along_axis(M, order, axis=1), 0)
+    idx = np.where(keep, order, order[:, :1])
+    return idx.astype(np.int32), w.astype(np.int32)
+
+
+def tile_sources(idx, w, tile: int):
+    """Per output tile of ``tile`` rows, the distinct source positions
+    its taps read, so a kernel can stage them in shared memory.
+
+    Returns ``(src, local)``: int32 ``src [n_tiles, S]``, the sorted
+    distinct sources of each tile (S the most of any tile; shorter lists
+    repeat their last entry), and int32 ``local [dst, K]``, each tap's
+    position in its tile's list. Taps of weight 0 read no source and
+    point at position 0. A list of positions, not a span: a WRAP tile at
+    the edge reads both ends of the axis, a span would be the whole axis."""
+    idx = np.asarray(idx, np.int64)
+    w = np.asarray(w)
+    dst = idx.shape[0]
+    lists = []
+    local = np.zeros(idx.shape, np.int64)
+    for t0 in range(0, dst, tile):
+        ti, tw = idx[t0:t0 + tile], w[t0:t0 + tile]
+        uniq = np.unique(ti[tw != 0])
+        if uniq.size == 0:
+            uniq = np.zeros(1, np.int64)
+        local[t0:t0 + tile] = np.where(tw != 0,
+                                       np.searchsorted(uniq, ti), 0)
+        lists.append(uniq)
+    s = max(u.size for u in lists)
+    src = np.stack([np.pad(u, (0, s - u.size), mode="edge") for u in lists])
+    return src.astype(np.int32), local.astype(np.int32)

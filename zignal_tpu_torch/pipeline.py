@@ -1,4 +1,4 @@
-"""Batched pipelines on ``[B, H, W, C]`` u8 tensors, the counterpart of
+"""Batched pipelines on u8 tensors, the counterpart of
 zignal_tpu/pipeline.py. Each function runs on its input tensor's device.
 """
 
@@ -6,10 +6,12 @@ from __future__ import annotations
 
 from .enums import Interpolation
 from .ops.convolution import gaussian_blur
+from .ops.filter_chain import fused_blur_sharpen_morph
 from .ops.fused_pipeline import fused_resize_blur_oklab
 from .ops.interpolation import resize as resize_op
 
-__all__ = ["resize_blur_oklab", "batched_resize", "batched_gaussian_blur"]
+__all__ = ["resize_blur_oklab", "batched_resize", "batched_gaussian_blur",
+           "filter_chain"]
 
 
 def batched_resize(batch, rows: int, cols: int,
@@ -19,6 +21,8 @@ def batched_resize(batch, rows: int, cols: int,
 
 
 def batched_gaussian_blur(batch, sigma: float):
+    """Gaussian blur of u8 [B, H, W, C]; the separable kernel on the
+    card."""
     return gaussian_blur(batch, sigma)
 
 
@@ -36,3 +40,13 @@ def resize_blur_oklab(batch, out_rows: int, out_cols: int, sigma: float = 2.0,
             f"resize_blur_oklab with {Interpolation(method).name} is not "
             "ported yet (ROADMAP item 9); only BILINEAR is")
     return fused_resize_blur_oklab(batch, out_rows, out_cols, float(sigma))
+
+
+def filter_chain(plane, sigma: float = 2.0, sharpen_radius: int = 2,
+                 thr: float = 128.0):
+    """Gaussian blur -> unsharp mask -> threshold -> dilate3 -> erode3 on
+    a [H, W] or [B, H, W] u8 plane (the BASELINE config-3 chain), one
+    fused kernel on the card at any shape. Returns a u8 0/255 mask of the
+    same shape, bit-exact with the JAX package's chain."""
+    return fused_blur_sharpen_morph(plane, float(sigma), int(sharpen_radius),
+                                    float(thr))
