@@ -26,7 +26,26 @@ Phases (any failure raises and exits non-zero):
    .box_blur and .dilate_binary (plain ops on the card), with the launch
    counts zeroed just before and read just after, and every output
    checked against its plain version;
-8. K2 and K4 times at B=16 of 1024^2 against plain, with CUDA events.
+8. K2 and K4 times at B=16 of 1024^2 against plain, with CUDA events;
+9. the colour main paths, each with the launch counts zeroed just before
+   and read just after, and every output checked against its plain version
+   on the card: pipeline.color_chain_u8 on [4, 1024, 1024, 3] and
+   [16, 1024, 1024, 3] (K3, and K3p once, before K3's first launch), the
+   config-2 step of bench.py (color_chain_u8 -> equalize(u8[0]) ->
+   autocontrast(u8[1])), and ImageBatch of [16, 1024, 1024, 3] RGB through
+   .resize((512, 512)).gaussian_blur(1.5).autocontrast(0.01)
+   .convert("gray").equalize() (K1, K4) and .convert("gray")
+   .threshold_otsu();
+10. K3p (the transcendental probe) vs plain on (8, 128) and on 1M values in
+   [0, 2]: max relative error <= 1e-6;
+11. K3 (the fused colour chain) vs plain on all 2^24 RGB triples for each of
+   the six chains of tests/test_pallas_color.py: u8 equal, and f32 before
+   the quantization within 1e-5 max-abs (every such chain is the identity
+   on u8, so the u8 check alone would pass a copy); then small and odd
+   shapes and the extreme-values plane;
+12. K3 and plain times at B=4 and B=16 of 1024^2 on the bench chain, and the
+   plain equalize and autocontrast and the config-2 step at the same B,
+   timed in turns in this one process.
 The last two lines are a JSON summary of the kernels and the device line.
 """
 
@@ -256,6 +275,224 @@ def _filter_phases(card, rng):
     return k2, k4
 
 
+CHAIN_UNIT = 1e-5  # f32 max-abs, K3 vs plain
+BENCH_CHAIN = ("rgb", "lab", "rgb", "oklch", "rgb", "xyb", "rgb")
+KERNEL_CHAINS = [BENCH_CHAIN, ("rgb", "oklab", "rgb"),
+                 ("rgb", "lab", "lch", "lab", "rgb"), ("rgb", "xyz", "rgb"),
+                 ("rgb", "xyb", "rgb"), ("rgb", "oklch", "rgb")]
+COLOR_BATCHES = (4, 16)
+
+
+def _all_triples():
+    v = torch.arange(1 << 24, device="cuda", dtype=torch.int64)
+    return torch.stack([v >> 16, (v >> 8) & 255, v & 255], -1) \
+        .to(torch.uint8).reshape(1, 4096, 4096, 3)
+
+
+def _extremes():
+    x = np.zeros((1, 32, 128, 3), np.uint8)
+    x[0, :8] = 255
+    x[0, 8:16] = 1
+    x[0, 16:24, :, 0] = 255
+    return torch.from_numpy(x).cuda()
+
+
+def _check_chain(label, x, spaces):
+    """K3 vs plain on ``x`` in u8 and in f32; returns (f32 max-abs, max
+    distance of f*255 from an integer)."""
+    from zignal_tpu_torch.ops import color_chain as cc
+
+    _check_equal(f"K3 u8 {label}", cc.fused_color_chain_u8(x, spaces),
+                 cc.fused_color_chain_u8_reference(x, spaces))
+    f = cc.fused_color_chain_u8(x, spaces, quantize=False)
+    want = cc.fused_color_chain_u8_reference(x, spaces, quantize=False)
+    torch.cuda.synchronize()
+    if f.shape != x.shape or f.dtype != torch.float32:
+        raise AssertionError(f"bad f32 output {f.shape} {f.dtype}")
+    err = float((f - want).abs().max())
+    margin = float((f * 255 - torch.round(f * 255)).abs().max())
+    ok = err <= CHAIN_UNIT and bool(torch.isfinite(f).all())
+    print(f"K3 f32 {label}: max_abs_err={err} max|f*255-round|={margin} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K3 f32 != plain: {label}")
+    return err, margin
+
+
+def _color_phases(card, rng):
+    """Phases 9-12: K3 and K3p. Returns their entries of the kernels line."""
+    from zignal_tpu_torch import ImageBatch, pipeline
+    from zignal_tpu_torch.ops import color_chain as cc
+    from zignal_tpu_torch.ops import enhancement
+    from zignal_tpu_torch.ops import fused_pipeline as fp
+    from zignal_tpu_torch.ops import separable_conv as sc
+    from zignal_tpu_torch.ops.convolution import \
+        convolve_separable_reference
+    from zignal_tpu_torch.ops.tables import gaussian_kernel
+
+    n = MAIN["size"]
+    batches = {b: _u8(rng, (b, n, n, 3)) for b in COLOR_BATCHES}
+
+    # 9. the colour main paths; K3's first launch in this process runs K3p
+    torch.cuda.synchronize()
+    cc.LAUNCHES = cc.PROBE_LAUNCHES = 0
+    chained = {b: pipeline.color_chain_u8(x, BENCH_CHAIN)
+               for b, x in batches.items()}
+    torch.cuda.synchronize()
+    k3_launches, k3p_launches = cc.LAUNCHES, cc.PROBE_LAUNCHES
+    print(f"colour main path: K3 {k3_launches} launches over "
+          f"{len(chained)} color_chain_u8 calls, K3p {k3p_launches}")
+    if k3_launches != len(chained) or k3p_launches != 1:
+        raise AssertionError("color_chain_u8 did not launch K3 once per "
+                             "call and K3p once before it")
+    for b, x in batches.items():
+        _check_equal(f"main path color_chain_u8 [{b}, {n}, {n}, 3]",
+                     chained[b], cc.fused_color_chain_u8_reference(
+                         x, BENCH_CHAIN))
+
+    x4 = batches[4]
+
+    def config2(x):
+        u8 = pipeline.color_chain_u8(x, BENCH_CHAIN)
+        return u8, enhancement.equalize(u8[0]), \
+            enhancement.autocontrast(u8[1])
+
+    torch.cuda.synchronize()
+    cc.LAUNCHES = 0
+    u8, eq, ac = config2(x4)
+    torch.cuda.synchronize()
+    step_launches = cc.LAUNCHES
+    print(f"config-2 step: K3 {step_launches} launch")
+    if step_launches != 1:
+        raise AssertionError("the config-2 step did not launch K3")
+    ref = cc.fused_color_chain_u8_reference(x4, BENCH_CHAIN)
+    _check_equal("config-2 step chain", u8, ref)
+    _check_equal("config-2 step equalize(u8[0]) vs the CPU", eq.cpu(),
+                 enhancement.equalize(ref[0].cpu()))
+    _check_equal("config-2 step autocontrast(u8[1]) vs the CPU", ac.cpu(),
+                 enhancement.autocontrast(ref[1].cpu()))
+    k3_launches += step_launches
+
+    x16 = batches[16]
+    torch.cuda.synchronize()
+    fp.LAUNCHES = sc.LAUNCHES = 0
+    ib = ImageBatch(x16, device="cuda")
+    out = (ib.resize((512, 512)).gaussian_blur(1.5).autocontrast(0.01)
+           .convert("gray").equalize())
+    binary, thresholds = ib.convert("gray").threshold_otsu()
+    torch.cuda.synchronize()
+    k1_ex, k4_ex = fp.LAUNCHES, sc.LAUNCHES
+    print(f"ImageBatch example chain: K1 {k1_ex} launches, K4 {k4_ex}")
+    if k1_ex != 1 or k4_ex != 1:
+        raise AssertionError("the ImageBatch example chain did not launch "
+                             "K1 and K4")
+    k = gaussian_kernel(1.5)
+    small = fp.fused_resize_blur_oklab_reference(x16, 512, 512, 0.0,
+                                                 oklab=False)
+    plain = ImageBatch(convolve_separable_reference(small, k, k).cpu(),
+                       device="cpu")
+    want = plain.autocontrast(0.01).convert("gray").equalize()
+    _check_equal("ImageBatch example chain vs plain",
+                 out.device_array().cpu(), want.device_array())
+    want_bin, want_t = ImageBatch(x16.cpu(), device="cpu") \
+        .convert("gray").threshold_otsu()
+    if not np.array_equal(thresholds, want_t):
+        raise AssertionError("threshold_otsu thresholds differ from the CPU")
+    _check_equal(f"ImageBatch.threshold_otsu (thresholds {thresholds[:4]}"
+                 "...) vs the CPU", binary.device_array().cpu(),
+                 want_bin.device_array())
+
+    # 10. K3p vs plain
+    probe_rel = probe_abs = 0.0
+    for x in (torch.linspace(0.0, 2.0, 1024, device="cuda").reshape(8, 128),
+              torch.from_numpy(rng.uniform(0, 2, 1 << 20).astype(
+                  np.float32)).cuda()):
+        got = cc.transcendentals_probe(x)
+        want = cc.transcendentals_probe_reference(x)
+        torch.cuda.synchronize()
+        rel = cc.probe_error(got, want)
+        probe_rel = max(probe_rel, rel)
+        probe_abs = max(probe_abs, float((got - want).abs().max()))
+        print(f"K3p {tuple(x.shape)}: max_rel_err={rel} "
+              f"{'ok' if rel <= cc.PROBE_TOL else 'FAIL'}")
+        if not rel <= cc.PROBE_TOL:
+            raise AssertionError("K3p != plain")
+
+    # 11. K3 vs plain on every RGB triple, then odd shapes
+    allx = _all_triples()
+    k3_err = margin = 0.0
+    for spaces in KERNEL_CHAINS:
+        e, m = _check_chain(f"2^24 triples {'-'.join(spaces)}", allx, spaces)
+        k3_err, margin = max(k3_err, e), max(margin, m)
+    del allx
+    for shape in ((2, 64, 128, 3), (1, 1, 1, 3), (3, 5, 7, 3),
+                  (2, 1, 1000, 3)):
+        e, _ = _check_chain(f"{shape}", _u8(rng, shape), BENCH_CHAIN)
+        k3_err = max(k3_err, e)
+    for spaces in KERNEL_CHAINS:
+        e, _ = _check_chain(f"extremes {'-'.join(spaces)}", _extremes(),
+                            spaces)
+        k3_err = max(k3_err, e)
+    print(f"K3 over all checks: f32 max_abs_err={k3_err}, largest distance "
+          f"of f*255 from an integer {margin} (u8 margin {0.5 - margin})")
+
+    # 12. times: plain, kernel, kernel, plain; then the plain histogram ops
+    rows = {}
+    for b, x in batches.items():
+        kern = lambda: cc.fused_color_chain_u8(x, BENCH_CHAIN)  # noqa: E731
+        plain = lambda: cc.fused_color_chain_u8_reference(  # noqa: E731
+            x, BENCH_CHAIN)
+        p1, t1, t2, p2 = (_time_ms(plain), _time_ms(kern), _time_ms(kern),
+                          _time_ms(plain))
+        rows[b] = (min(t1, t2), min(p1, p2))
+        gpix = b * n * n / 1e9
+        print(f"[{card}] K3 B={b} {n}^2 bench chain kernel: {t1:.4f} / "
+              f"{t2:.4f} ms ({gpix / (rows[b][0] / 1e3):.2f} GPix/s); "
+              f"plain: {p1:.4f} / {p2:.4f} ms")
+        u8 = chained[b]
+        eq = lambda: enhancement.equalize(u8)  # noqa: E731
+        ac = lambda: enhancement.autocontrast(u8, 0.01)  # noqa: E731
+        step = lambda: config2(x)  # noqa: E731
+        e1, a1, s1, s2, a2, e2 = (_time_ms(eq, 5), _time_ms(ac, 5),
+                                  _time_ms(step, 5), _time_ms(step, 5),
+                                  _time_ms(ac, 5), _time_ms(eq, 5))
+        print(f"[{card}] B={b} {n}^2 plain equalize: {e1:.4f} / {e2:.4f} ms; "
+              f"plain autocontrast(0.01): {a1:.4f} / {a2:.4f} ms; config-2 "
+              f"step (K3 + equalize(u8[0]) + autocontrast(u8[1])): "
+              f"{s1:.4f} / {s2:.4f} ms ({gpix / (min(s1, s2) / 1e3):.2f} "
+              "GPix/s)")
+    pb = torch.from_numpy(rng.uniform(0, 2, 1 << 20).astype(np.float32)) \
+        .cuda()
+    kern = lambda: cc.transcendentals_probe(pb)  # noqa: E731
+    plain = lambda: cc.transcendentals_probe_reference(pb)  # noqa: E731
+    p1, t1, t2, p2 = (_time_ms(plain), _time_ms(kern), _time_ms(kern),
+                      _time_ms(plain))
+    print(f"[{card}] K3p 1M values: kernel {t1:.4f} / {t2:.4f} ms; plain "
+          f"{p1:.4f} / {p2:.4f} ms")
+
+    k3 = {
+        "name": "fused_color_chain_u8",
+        "route": "cuda",
+        "source": "zignal_tpu_torch/csrc/fused_color_chain_u8.cu",
+        "replaces": "zignal_tpu/ops/pallas_color.py:367",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": rows[4][0],
+        "plain_ms": rows[4][1],
+    }
+    k3p = {
+        "name": "transcendentals_probe",
+        "route": "cuda",
+        "source": "zignal_tpu_torch/csrc/fused_color_chain_u8.cu",
+        "replaces": "zignal_tpu/ops/pallas_color.py:110",
+        "launches": k3p_launches,
+        "max_abs_err": probe_abs,
+        "ms": min(t1, t2),
+        "plain_ms": min(p1, p2),
+    }
+    return k3, k3p, (k1_ex, k4_ex)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -355,7 +592,10 @@ def main() -> int:
         "plain_ms": plain_ms,
     }
     k2, k4 = _filter_phases(card, rng)
-    print(json.dumps({"kernels": [k1, k2, k4]}))
+    k3, k3p, (k1_ex, k4_ex) = _color_phases(card, rng)
+    k1["launches"] += k1_ex
+    k4["launches"] += k4_ex
+    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from zignal_tpu_torch import BorderMode, ImageBatch, pipeline
+from zignal_tpu_torch.color import convert_chain
+from zignal_tpu_torch.ops import color_chain as cc
 from zignal_tpu_torch.ops import filter_chain as fc
 from zignal_tpu_torch.ops import fused_pipeline as fp
 from zignal_tpu_torch.ops import separable_conv as sc
@@ -208,3 +210,89 @@ def test_new_kernels_reject_non_contiguous(cuda):
     y = _u8((1, 64, 64, 3), 11, cuda)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         sc.run_cached(y, "k", None)
+
+
+CHAIN_UNIT = 1e-5   # f32 max-abs, K3 vs plain on the card
+CHAINS = [  # test_pallas_color.py's chains, then stock hops the gate admits
+    ("rgb", "lab", "rgb", "oklch", "rgb", "xyb", "rgb"),
+    ("rgb", "oklab", "rgb"),
+    ("rgb", "lab", "lch", "lab", "rgb"),
+    ("rgb", "xyz", "rgb"),
+    ("rgb", "xyb", "rgb"),
+    ("rgb", "oklch", "rgb"),
+    ("rgb", "xyz", "lab", "rgb"),
+    ("rgb", "lab", "oklab", "xyb", "rgb"),
+    ("rgb", "xyb", "xyz", "oklab", "oklch", "rgb"),
+    ("rgb", "rgb"),
+]
+
+
+@pytest.mark.parametrize("spaces", CHAINS, ids=["-".join(c) for c in CHAINS])
+@pytest.mark.parametrize("shape", [(2, 64, 128, 3), (3, 5, 7, 3),
+                                   (1, 1, 1, 3)])
+def test_color_chain_kernel_equals_plain(cuda, spaces, shape):
+    x = _u8(shape, 12, cuda)
+    before = cc.LAUNCHES
+    got = cc.fused_color_chain_u8(x, spaces)
+    f = cc.fused_color_chain_u8(x, spaces, quantize=False)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == before + 2 and cc.PROBE_LAUNCHES >= 1
+    assert torch.equal(got, cc.fused_color_chain_u8_reference(x, spaces))
+    want = cc.fused_color_chain_u8_reference(x, spaces, quantize=False)
+    assert f.dtype == torch.float32 and f.shape == x.shape
+    assert float((f - want).abs().max()) <= CHAIN_UNIT
+    # not a copy of its input: the f32 values are the chain's, off the bytes
+    if spaces != ("rgb", "rgb"):
+        assert float((f * 255 - x.float()).abs().max()) > 0
+
+
+def test_color_chain_kernel_on_every_rgb_triple(cuda):
+    v = torch.arange(1 << 24, device=cuda, dtype=torch.int64)
+    x = torch.stack([v >> 16, (v >> 8) & 255, v & 255], -1) \
+        .to(torch.uint8).reshape(1, 4096, 4096, 3)
+    spaces = CHAINS[0]
+    assert torch.equal(cc.fused_color_chain_u8(x, spaces), x)
+    f = cc.fused_color_chain_u8(x, spaces, quantize=False)
+    want = convert_chain(x.to(torch.float32) / 255.0, spaces)
+    assert float((f - want).abs().max()) <= CHAIN_UNIT
+
+
+def test_transcendentals_probe_equals_plain(cuda):
+    x = torch.rand(1 << 20, device=cuda, generator=None) * 2.0
+    before = cc.PROBE_LAUNCHES
+    got = cc.transcendentals_probe(x)
+    assert cc.PROBE_LAUNCHES == before + 1
+    err = cc.probe_error(got, cc.transcendentals_probe_reference(x))
+    assert err <= cc.PROBE_TOL
+
+
+def test_color_chain_u8_launches_the_kernel(cuda):
+    x = _u8((2, 32, 48, 3), 13, cuda)
+    spaces = CHAINS[0]
+    before = cc.LAUNCHES
+    got = pipeline.color_chain_u8(x, spaces)
+    other = pipeline.color_chain_u8(x, ("rgb", "hsv", "rgb"))
+    assert cc.LAUNCHES == before + 1
+    assert torch.equal(got, cc.fused_color_chain_u8_reference(x, spaces))
+    want = pipeline.color_chain_u8(x.cpu(), ("rgb", "hsv", "rgb"))
+    assert torch.equal(other.cpu(), want)
+
+
+def test_histogram_ops_on_the_card_equal_the_cpu(cuda):
+    x = _u8((2, 40, 56, 3), 14, cuda)
+    ib, cpu = ImageBatch(x, device=cuda), ImageBatch(x.cpu(), device="cpu")
+    assert torch.equal(ib.histogram().cpu(), cpu.histogram())
+    assert torch.equal(ib.equalize().device_array().cpu(),
+                       cpu.equalize().device_array())
+    assert torch.equal(ib.autocontrast(0.01).device_array().cpu(),
+                       cpu.autocontrast(0.01).device_array())
+    got, t = ib.convert("gray").threshold_otsu()
+    want, wt = cpu.convert("gray").threshold_otsu()
+    assert (t == wt).all()
+    assert torch.equal(got.device_array().cpu(), want.device_array())
+
+
+def test_color_chain_kernel_rejects_non_contiguous(cuda):
+    x = _u8((1, 64, 64, 3), 15, cuda)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.fused_color_chain_u8(x, CHAINS[0])

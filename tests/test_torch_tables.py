@@ -197,3 +197,81 @@ def test_tile_plan_fits_shared_memory(c, r, tile):
 def test_tile_plan_rejects_radius_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         _tile_plan(4, 200)
+
+
+def test_more_color_constants_equal():
+    for name in ("XYB_BIAS", "XYB_CBRT_BIAS_ENCODE", "XYB_CBRT_BIAS_DECODE",
+                 "D65_X", "D65_Y", "D65_Z", "LAB_EPSILON",
+                 "LAB_KAPPA_DIV_116", "LAB_DELTA"):
+        assert getattr(_constants, name) == getattr(_scalar, name)
+    assert port_color._OKLMS2RGB == jax_color._OKLMS2RGB
+
+
+def _cu_enum(name):
+    """The enumerators of ``enum <name>`` in the colour-chain kernel's
+    source, without the trailing count (kMatrices, kScalars)."""
+    import re
+    from pathlib import Path
+
+    import zignal_tpu_torch
+
+    src = (Path(zignal_tpu_torch.__file__).parent / "csrc"
+           / "fused_color_chain_u8.cu").read_text()
+    body = re.search(r"enum %s : int \{(.*?)\};" % name, src, re.S).group(1)
+    names = [re.sub(r"\s*=.*", "", item.strip()) for item in body.split(",")]
+    return [n for n in names if n and not n.startswith("k")], src
+
+
+def test_chain_kernel_tables_follow_the_wrapper():
+    from zignal_tpu_torch.ops import color_chain as cc
+
+    assert tuple(_cu_enum("Step")[0]) == cc.STEPS
+    assert tuple(_cu_enum("Matrix")[0]) == cc.MATRICES
+    scalars, src = _cu_enum("Scalar")
+    assert tuple(scalars) == cc.SCALARS
+    assert f"constexpr int kMaxSteps = {cc.MAX_STEPS};" in src
+    raw = cc.params_bytes(cc.compile_chain(("rgb", "lab", "rgb")))
+    assert len(raw) == 4 * (1 + cc.MAX_STEPS + 9 * len(cc.MATRICES)
+                            + len(cc.SCALARS))
+    ints = np.frombuffer(raw[:4 * (1 + cc.MAX_STEPS)], np.int32)
+    assert ints[0] == 4 and list(ints[1:5]) == [
+        cc.STEPS.index(s) for s in ("GAMMA_TO_LINEAR", "LIN_TO_LAB",
+                                    "LAB_TO_LIN", "LINEAR_TO_GAMMA")]
+    assert not ints[5:].any()
+    assert np.array_equal(np.frombuffer(raw[4 * (1 + cc.MAX_STEPS):],
+                                        np.float32), cc.constants())
+
+
+def test_chain_kernel_constants_are_the_plain_versions_f32():
+    from zignal_tpu_torch.ops import color_chain as cc
+
+    table = cc.constants()
+    assert table.dtype == np.float32
+    for i, name in enumerate(cc.MATRICES):
+        want = np.asarray(getattr(jax_color, "_" + name), np.float32).ravel()
+        assert np.array_equal(table[9 * i:9 * i + 9], want), name
+    k = dict(zip(cc.SCALARS, table[9 * len(cc.MATRICES):]))
+    f32 = np.float32
+    for name in ("SRGB_GAMMA_THRESHOLD", "SRGB_GAMMA_OFFSET",
+                 "SRGB_GAMMA_SCALE", "SRGB_LINEAR_SLOPE", "D65_Y",
+                 "SRGB_GAMMA_EXPONENT", "LAB_DELTA", "XYB_BIAS"):
+        assert k[name] == f32(getattr(_scalar, name))
+    assert k["SRGB_INV_GAMMA_EXPONENT"] == f32(1 / 2.4)
+    assert k["ONE_THIRD"] == f32(1 / 3)
+    # the reciprocal in f64, rounded once, as PyTorch's CUDA division by a
+    # Python scalar takes it: for 1.055 and D65_X it is an ulp away from
+    # f32(1) / f32(c)
+    assert k["INV_255"] == f32(1 / 255)
+    assert k["INV_D65_X"] == f32(1 / _scalar.D65_X)
+    assert k["INV_D65_X"] != f32(1) / f32(_scalar.D65_X)
+    assert k["INV_SRGB_GAMMA_SCALE"] == f32(1 / _scalar.SRGB_GAMMA_SCALE)
+    assert k["INV_LAB_KAPPA_DIV_116"] == f32(1 / _scalar.LAB_KAPPA_DIV_116)
+
+
+def test_build_compiles_every_kernel_source():
+    from pathlib import Path
+
+    from zignal_tpu_torch.ops import _build
+
+    csrc = Path(_build.__file__).parent.parent / "csrc"
+    assert sorted(_build._SOURCES) == sorted(csrc.glob("*.cu"))

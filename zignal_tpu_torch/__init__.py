@@ -1,5 +1,6 @@
 """zignal-tpu's PyTorch/CUDA port: the resize -> blur -> Oklab batch path,
-the config-3 filter chain and the windowed u8 filters.
+the config-3 filter chain and the windowed u8 filters, the config-2 colour
+chain with the colour-conversion graph, and the histogram ops.
 
 Imports torch and numpy only (never jax, never ``zignal_tpu``). Every
 entry that places data takes an explicit ``device=``; functions on

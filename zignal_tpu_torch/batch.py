@@ -1,7 +1,8 @@
 """ImageBatch — a batch of same-shape u8 images ``[B, H, W, C]`` held as a
 torch tensor on one explicit device, the counterpart of
-zignal_tpu/batch.py as far as the resize -> blur -> Oklab path and the
-windowed u8 filters need it.
+zignal_tpu/batch.py as far as the resize -> blur -> Oklab path, the
+windowed u8 filters, colour conversion among gray/rgb/rgba and the
+histogram ops need it.
 
 The device is always the caller's choice (``device=``); nothing here
 picks one. There is no mesh yet (ROADMAP item 15).
@@ -14,9 +15,9 @@ from functools import partial
 import numpy as np
 import torch
 
-from .color._array import rgb_to_gray_u8
+from .color._array import convert_u8_array, rgb_to_gray_u8
 from .enums import BorderMode, Interpolation
-from .ops import binary, integral
+from .ops import binary, enhancement, integral
 from .ops.convolution import convolve_separable as convolve_separable_op
 from .ops.convolution import gaussian_blur as gaussian_blur_op
 from .ops.interpolation import resize as resize_op
@@ -24,7 +25,8 @@ from .pipeline import resize_blur_oklab as _chain
 
 __all__ = ["ImageBatch", "resize_blur_oklab_fn"]
 
-_CHANNELS = (1, 3, 4)  # gray, rgb, rgba: the channel count is the space
+_CHANNELS_SPACE = {1: "gray", 3: "rgb", 4: "rgba"}  # the count is the space
+_CHANNELS = tuple(_CHANNELS_SPACE)
 
 
 def resize_blur_oklab_fn(rows: int, cols: int, sigma: float, method):
@@ -195,3 +197,47 @@ class ImageBatch:
 
     def close_binary(self, kernel_size: int = 3, iterations: int = 1):
         return self._morph(binary.close_morph, kernel_size, iterations)
+
+    # -- colour --------------------------------------------------------------
+
+    def convert(self, space: str) -> "ImageBatch":
+        """Colour conversion among ``"gray"``, ``"rgb"`` and ``"rgba"``
+        (the spaces an ImageBatch holds), exact u8 fixed point."""
+        if space not in _CHANNELS_SPACE.values():
+            raise TypeError("space must be 'gray', 'rgb', or 'rgba'")
+        src = _CHANNELS_SPACE[self.channels]
+        if space == src:
+            return self._wrap(self._dev)
+        return self._wrap(convert_u8_array(self._dev, src, space))
+
+    # -- histogram-based global ops ------------------------------------------
+
+    def _hists(self, plane=None) -> torch.Tensor:
+        """Per-image per-channel histograms [B, C, 256] int32 (a gray
+        plane [B, H, W]: [B, 1, 256])."""
+        arr = self._dev if plane is None else plane[..., None]
+        return binary.histogram256_batch(arr)
+
+    def histogram(self) -> torch.Tensor:
+        """[B, C, 256] int32 histograms on the batch's device."""
+        return self._hists()
+
+    def equalize(self) -> "ImageBatch":
+        return self._wrap(enhancement.equalize(self._dev))
+
+    def autocontrast(self, cutoff: float = 0.0) -> "ImageBatch":
+        cutoff = float(cutoff)
+        if cutoff < 0 or cutoff >= 0.5:
+            raise ValueError("cutoff must be in [0, 0.5)")
+        return self._wrap(enhancement.autocontrast(self._dev, cutoff))
+
+    def threshold_otsu(self):
+        """Otsu per image -> (binary gray ImageBatch, [B] int32 numpy
+        thresholds): exact histograms on the device, the f64 variance
+        sweep on the host, the threshold applied on the device."""
+        plane = self._gray_plane()
+        thresholds = binary.otsu_from_hists(
+            self._hists(plane)[:, 0].cpu().numpy())
+        t = torch.from_numpy(thresholds).to(plane.device)
+        out = (plane > t[:, None, None]).to(torch.uint8) * 255
+        return self._wrap(out[..., None]), thresholds

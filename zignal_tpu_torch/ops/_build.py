@@ -23,9 +23,10 @@ __all__ = ["load", "launch", "TILES", "SMEM_LIMIT"]
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / name for name in (
     "fused_resize_blur_oklab.cu", "fused_blur_sharpen_morph.cu",
-    "separable_u8.cu"))
+    "separable_u8.cu", "fused_color_chain_u8.cu"))
 _BUILD_DIR = _PKG / "_build"
-# no --use_fast_math: the Oklab epilogue needs IEEE powf/cbrtf
+# no --use_fast_math: the Oklab epilogue and the colour chain need IEEE
+# powf/cbrtf
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
@@ -37,6 +38,7 @@ _LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -103,6 +105,12 @@ def load():
                   _I, _I, _I, _I, _I, _I,          # B H W C OH OW
                   _I, _I, _I, _I, _I, _I, _P])     # sy ky sx kx tile smem
                                                    # stream
+        _declare(lib, "zt_fused_color_chain_u8",
+                 [_P, _P, _P, _L, _I, _P])         # src dst params n
+                                                   # quantize stream
+        _declare(lib, "zt_transcendentals_probe",
+                 [_P, _P, _P, _L, _P])             # x y params n stream
+        _declare(lib, "zt_color_chain_params_bytes", [])
         lib.zt_error_string.argtypes = [_I]
         lib.zt_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -1,11 +1,16 @@
-"""Binary threshold and morphology (reference: src/image/binary.zig), the
-counterpart of the threshold and morphology part of
-zignal_tpu/ops/binary.py.
+"""Histograms, LUTs, Otsu, binary threshold and morphology (reference:
+src/image/binary.zig), the counterpart of zignal_tpu/ops/binary.py.
+
+Histogram counts are integer ``bincount``s (exact in any order, so the
+card's atomics give the JAX package's counts); a LUT is an index gather.
+The JAX package's nibble one-hot einsums exist to get these integers from
+the TPU's matrix unit and are not carried over. Otsu's 256-entry variance
+sweep runs on the host in f64, op for op as the JAX package runs it.
 
 Morphology with the square all-ones structuring element is two separable
 min/max passes with zero padding (background), on ``[..., H, W]`` planes:
 dilate ignores out-of-bounds pixels, erode treats them as background.
-Histograms, Otsu and the adaptive thresholds are ROADMAP items 8 and 12.
+The adaptive thresholds are ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -13,8 +18,87 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["threshold_apply", "dilate", "erode", "open_morph",
-           "close_morph"]
+__all__ = ["histogram256", "histogram256_multi", "histogram256_batch",
+           "lut_apply_u8", "lut_apply_u8_per_channel", "otsu_threshold",
+           "otsu_from_hists", "threshold_apply", "dilate", "erode",
+           "open_morph", "close_morph"]
+
+
+def histogram256(plane, weights=None):
+    """int32 [256] histogram of a u8/int plane of any shape; ``weights``
+    (same shape, small non-negative ints) makes it a weighted count.
+    Values outside [0, 255] are not counted, as in the JAX package."""
+    x = plane.reshape(-1).to(torch.int64)
+    valid = (x >= 0) & (x < 256)
+    w = valid.to(torch.int64)
+    if weights is not None:
+        w = w * weights.reshape(-1).to(torch.int64)
+    counts = torch.zeros(256, dtype=torch.int64, device=x.device)
+    counts.scatter_add_(0, torch.where(valid, x, 0), w)
+    return counts.to(torch.int32)
+
+
+def histogram256_batch(arr):
+    """[B, ..., C] u8 -> int32 [B, C, 256]: each image's per-channel
+    histograms in one ``bincount`` over ``x + 256 * (c + C * b)``."""
+    b, c = arr.shape[0], arr.shape[-1]
+    x = arr.reshape(b, -1, c).to(torch.int64)
+    offs = 256 * torch.arange(b * c, device=arr.device,
+                              dtype=torch.int64).reshape(b, 1, c)
+    counts = torch.bincount((x + offs).reshape(-1), minlength=256 * b * c)
+    return counts.reshape(b, c, 256).to(torch.int32)
+
+
+def histogram256_multi(arr):
+    """[..., C] u8 -> int32 [C, 256] per-channel histograms."""
+    return histogram256_batch(arr.reshape(1, -1, arr.shape[-1]))[0]
+
+
+def lut_apply_u8(plane, lut):
+    """``lut[plane]`` for a u8/int plane and a [256] or [256, C] u8 LUT
+    (out ``plane.shape`` or ``plane.shape + (C,)``)."""
+    return lut.to(torch.uint8)[plane.to(torch.int64)]
+
+
+def lut_apply_u8_per_channel(arr, luts):
+    """``out[..., c] = luts[..., c, arr[..., c]]`` for u8 ``arr [..., C]``
+    and ``luts [C, 256]``, or ``[B, C, 256]`` for a batch ``[B, ..., C]``
+    (one table per image and channel)."""
+    luts = luts.to(torch.uint8)
+    c = arr.shape[-1]
+    if luts.ndim == 2:
+        return luts[torch.arange(c, device=arr.device), arr.to(torch.int64)]
+    b = arr.shape[0]
+    flat = luts.reshape(b * c, 256)
+    row = (torch.arange(b, device=arr.device)[:, None] * c
+           + torch.arange(c, device=arr.device)[None, :])
+    row = row.reshape((b,) + (1,) * (arr.ndim - 2) + (c,))
+    return flat[row, arr.to(torch.int64)]
+
+
+def otsu_from_hists(hists) -> np.ndarray:
+    """Otsu's between-class-variance maximisation (binary.zig:38-85) over
+    histograms ``[..., 256]``, on the host in f64 (the JAX package's math,
+    op for op): int32 thresholds ``[...]``."""
+    hists = np.asarray(hists, dtype=np.float64)
+    total = hists.sum(axis=-1, keepdims=True)
+    intensities = np.arange(256, dtype=np.float64)
+    sum_total = (hists * intensities).sum(axis=-1, keepdims=True)
+    wb = hists.cumsum(axis=-1)
+    sb = (hists * intensities).cumsum(axis=-1)
+    wf = total - wb
+    valid = (wb > 0) & (wf > 0)
+    mean_b = sb / np.where(wb == 0, 1, wb)
+    mean_f = (sum_total - sb) / np.where(wf == 0, 1, wf)
+    variance = wb * wf * (mean_b - mean_f) ** 2
+    variance = np.where(valid, variance, -1.0)
+    return variance.argmax(axis=-1).astype(np.int32)
+
+
+def otsu_threshold(plane) -> int:
+    """Otsu threshold of a u8 [H, W] plane, as a Python int: the histogram
+    on the plane's device, the sweep on the host."""
+    return int(otsu_from_hists(histogram256(plane).cpu().numpy()))
 
 
 def threshold_apply(plane, threshold):

@@ -4,14 +4,35 @@ zignal_tpu/pipeline.py. Each function runs on its input tensor's device.
 
 from __future__ import annotations
 
+import torch
+
+from .color import convert_chain
 from .enums import Interpolation
+from .ops.color_chain import chain_supported, fused_color_chain_u8
 from .ops.convolution import gaussian_blur
 from .ops.filter_chain import fused_blur_sharpen_morph
 from .ops.fused_pipeline import fused_resize_blur_oklab
 from .ops.interpolation import resize as resize_op
 
 __all__ = ["resize_blur_oklab", "batched_resize", "batched_gaussian_blur",
-           "filter_chain"]
+           "filter_chain", "color_chain_u8"]
+
+
+def color_chain_u8(batch, spaces):
+    """[B, H, W, 3] u8 through ``color.convert_chain(spaces)`` and back to
+    u8 via clip(round(f * 255)): the BASELINE config-2 quantized chain.
+
+    The route is chosen from ``spaces`` alone: a u8 ``[B, H, W, 3]``
+    batch whose chain ``chain_supported`` accepts runs the fused colour
+    chain (one kernel launch on the card, the plain version on the CPU);
+    any other chain or input runs the plain ``convert_chain`` on the
+    batch's device."""
+    spaces = tuple(spaces)
+    if (batch.dtype == torch.uint8 and batch.ndim == 4
+            and batch.shape[-1] == 3 and chain_supported(spaces)):
+        return fused_color_chain_u8(batch.contiguous(), spaces)
+    f = convert_chain(batch.to(torch.float32) / 255.0, spaces)
+    return torch.clamp(torch.round(f * 255.0), 0, 255).to(torch.uint8)
 
 
 def batched_resize(batch, rows: int, cols: int,
