@@ -45,7 +45,23 @@ Phases (any failure raises and exits non-zero):
    shapes and the extreme-values plane;
 12. K3 and plain times at B=4 and B=16 of 1024^2 on the bench chain, and the
    plain equalize and autocontrast and the config-2 step at the same B,
-   timed in turns in this one process.
+   timed in turns in this one process;
+13. the resize, convolution, order-statistic, edge and pyramid paths, each
+   through the user's entry point and with the launch counts zeroed just
+   before and read just after: ImageBatch of [16, 1024, 1024, 3] RGB
+   through .resize to 512^2 with each of the six methods and to
+   1536x1280, .letterbox((512, 768)), .convolve (a 3x3 sharpen; a 5x5
+   kernel under ZERO), the six order-statistic blurs, .sobel, .canny,
+   .shen_castan and .threshold_adaptive_mean, and ImagePyramid.build of
+   one 1024^2 gray plane with 8 levels; K1 must launch once for the
+   bilinear resize, once for the letterbox and 7 times for the pyramid,
+   K4 once for the pyramid;
+14. each phase-13 output on image 0 against the same call on the CPU: u8
+   equal (canny and shen_castan print the count of differing pixels),
+   the float resize, Sobel gradients, the float Gaussian and the ISEF
+   within 1e-4 max-abs on 0-255 data (the CPU tests' bound); and a
+   [2, 3, H, W, 3] resize on the card against the CPU;
+15. each phase-13 call timed with CUDA events after a warm-up.
 The last two lines are a JSON summary of the kernels and the device line.
 """
 
@@ -493,6 +509,171 @@ def _color_phases(card, rng):
     return k3, k3p, (k1_ex, k4_ex)
 
 
+FLOAT_TOL = 1e-4  # max-abs on 0-255 data, the bound of the CPU tests
+SHARPEN3 = ((0.0, -1.0, 0.0), (-1.0, 5.0, -1.0), (0.0, -1.0, 0.0))
+_B5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+BINOMIAL5 = tuple(tuple(float(v) for v in row) for row in np.outer(_B5, _B5))
+
+
+def _slice4_calls():
+    """(name, call, expected (K1, K4) launches) of every phase-13 path;
+    a call takes the ImageBatch and one gray plane of it."""
+    from zignal_tpu_torch import BorderMode, Interpolation
+    from zignal_tpu_torch.ops.pyramid import ImagePyramid
+
+    calls = [(f"resize 512^2 {m.name}",
+              lambda ib, g, m=m: ib.resize((512, 512), m),
+              (1, 0) if m == Interpolation.BILINEAR else (0, 0))
+             for m in Interpolation]
+    calls += [
+        ("resize 1536x1280 BICUBIC",
+         lambda ib, g: ib.resize((1536, 1280), Interpolation.BICUBIC),
+         (0, 0)),
+        ("letterbox (512, 768)", lambda ib, g: ib.letterbox((512, 768)),
+         (1, 0)),
+        ("convolve 3x3 sharpen", lambda ib, g: ib.convolve(SHARPEN3), (0, 0)),
+        ("convolve 5x5 ZERO",
+         lambda ib, g: ib.convolve(BINOMIAL5, BorderMode.ZERO), (0, 0)),
+        ("median_blur(2)", lambda ib, g: ib.median_blur(2), (0, 0)),
+        ("percentile_blur(3, 0.9, WRAP)",
+         lambda ib, g: ib.percentile_blur(3, 0.9, BorderMode.WRAP), (0, 0)),
+        ("min_blur(2)", lambda ib, g: ib.min_blur(2), (0, 0)),
+        ("max_blur(2)", lambda ib, g: ib.max_blur(2), (0, 0)),
+        ("midpoint_blur(2)", lambda ib, g: ib.midpoint_blur(2), (0, 0)),
+        ("alpha_trimmed_mean_blur(2, 0.2)",
+         lambda ib, g: ib.alpha_trimmed_mean_blur(2, 0.2), (0, 0)),
+        ("sobel", lambda ib, g: ib.sobel(), (0, 0)),
+        ("canny", lambda ib, g: ib.canny(), (0, 0)),
+        ("shen_castan", lambda ib, g: ib.shen_castan(), (0, 0)),
+        ("threshold_adaptive_mean",
+         lambda ib, g: ib.threshold_adaptive_mean(), (0, 0)),
+        ("ImagePyramid.build of one 1024^2 gray plane, 8 levels",
+         lambda ib, g: ImagePyramid.build(g, 8).levels, (7, 1)),
+    ]
+    return calls
+
+
+def _planes(out):
+    """An ImageBatch's tensor, or a pyramid's levels."""
+    return out if isinstance(out, list) else [out.device_array()]
+
+
+def _time_events(fn) -> float:
+    """ms a call: CUDA events around back-to-back calls after one
+    warm-up, as many as fit in about half a second."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    reps = max(1, min(20, int(500.0 / max(start.elapsed_time(stop), 1e-3))))
+    return _time_ms(fn, reps)
+
+
+def _slice4_phases(card, rng):
+    """Phases 13-15. Returns the K1 and K4 launches of phase 13."""
+    from zignal_tpu_torch import ImageBatch, Interpolation
+    from zignal_tpu_torch.ops import color_chain as cc
+    from zignal_tpu_torch.ops import edges
+    from zignal_tpu_torch.ops import filter_chain as fc
+    from zignal_tpu_torch.ops import fused_pipeline as fp
+    from zignal_tpu_torch.ops import separable_conv as sc
+    from zignal_tpu_torch.ops.convolution import convolve_separable, \
+        sobel_gradients
+    from zignal_tpu_torch.ops.interpolation import resize
+    from zignal_tpu_torch.ops.tables import gaussian_kernel
+
+    n, b = MAIN["size"], FILTER_BATCH
+    # piecewise-flat images (16-px blocks) with noise, so the edge
+    # detectors have edges to find
+    blocks = rng.integers(0, 256, (b, n // 16, n // 16, 3)).repeat(
+        16, 1).repeat(16, 2)
+    x = np.clip(blocks + rng.integers(-12, 13, (b, n, n, 3)), 0, 255) \
+        .astype(np.uint8)
+    ib = ImageBatch(x, device="cuda")
+    gray = ib.convert("gray").device_array()[0, ..., 0]
+    calls = _slice4_calls()
+
+    # 13. every path once, launch counts zeroed just before
+    torch.cuda.synchronize()
+    fp.LAUNCHES = sc.LAUNCHES = fc.LAUNCHES = cc.LAUNCHES = 0
+    outs = {}
+    for name, fn, want in calls:
+        k1, k4 = fp.LAUNCHES, sc.LAUNCHES
+        t0 = time.perf_counter()
+        outs[name] = fn(ib, gray)
+        torch.cuda.synchronize()
+        got = (fp.LAUNCHES - k1, sc.LAUNCHES - k4)
+        print(f"phase 13 {name}: K1 {got[0]}, K4 {got[1]} launches "
+              f"({time.perf_counter() - t0:.2f} s first call)")
+        if got != want:
+            raise AssertionError(f"{name} launched K1, K4 {got}, not {want}")
+    k1_launches, k4_launches = fp.LAUNCHES, sc.LAUNCHES
+    if fc.LAUNCHES or cc.LAUNCHES:
+        raise AssertionError("phase 13 launched K2 or K3")
+    print(f"phase 13: K1 {k1_launches} launches, K4 {k4_launches}")
+
+    # 14. image 0 against the same calls on the CPU
+    cpu = ImageBatch(x[:1], device="cpu")
+    cpu_gray = cpu.convert("gray").device_array()[0, ..., 0]
+    for name, fn, _ in calls:
+        t0 = time.perf_counter()
+        want = _planes(fn(cpu, cpu_gray))
+        got = _planes(outs[name])
+        if name.startswith("ImagePyramid"):
+            got = [g.cpu() for g in got]
+        else:
+            got = [got[0][:1].cpu()]
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{name}: {g.shape} {g.dtype} on the "
+                                     f"card, {w.shape} {w.dtype} on the CPU")
+            if not torch.equal(g, w):
+                bad = int((g != w).sum())
+                raise AssertionError(f"{name}: {bad} values differ from "
+                                     "the CPU")
+        extra = ""
+        if name in ("canny", "shen_castan"):
+            extra = f", {int((want[0] > 0).sum())} edge pixels"
+        print(f"phase 14 {name}: equal to the CPU on image 0{extra} "
+              f"({time.perf_counter() - t0:.2f} s)")
+    x0 = ib.device_array()[:1].float()
+    g0 = ib.convert("gray").device_array()[:1, ..., 0].float()
+    k = gaussian_kernel(1.4)
+    floats = [(f"float resize 512^2 {m.name}",
+               lambda a, m=m: resize(a[0], 512, 512, m))
+              for m in Interpolation]
+    floats += [("float Gaussian sigma 1.4",
+                lambda a: convolve_separable(a[1][..., None], k, k)),
+               ("Sobel gx", lambda a: sobel_gradients(a[1])[0]),
+               ("Sobel gy", lambda a: sobel_gradients(a[1])[1]),
+               ("ISEF b=0.9", lambda a: edges.isef_filter(a[1], 0.9))]
+    for name, fn in floats:
+        got = fn((x0, g0)).cpu()
+        want = fn((x0.cpu(), g0.cpu()))
+        err = float((got - want).abs().max())
+        ok = err <= FLOAT_TOL and bool(torch.isfinite(got).all())
+        print(f"phase 14 {name}: max_abs_err={err} vs the CPU "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} on the card differs from the CPU")
+    five = ib.device_array()[:6].reshape(2, 3, n, n, 3)
+    got = resize(five, 300, 200)
+    if got.shape != (2, 3, 300, 200, 3) or not torch.equal(
+            got.cpu(), resize(five.cpu(), 300, 200)):
+        raise AssertionError("resize of [2, 3, H, W, 3] on the card != CPU")
+    print("phase 14 resize of [2, 3, 1024, 1024, 3] to 300x200: equal to "
+          "the CPU")
+
+    # 15. times
+    print(f"phase 15: ImageBatch of [{b}, {n}, {n}, 3] u8 unless named")
+    for name, fn, _ in calls:
+        ms = _time_events(lambda: fn(ib, gray))
+        print(f"[{card}] phase 15 {name}: {ms:.4f} ms")
+    return k1_launches, k4_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -593,8 +774,9 @@ def main() -> int:
     }
     k2, k4 = _filter_phases(card, rng)
     k3, k3p, (k1_ex, k4_ex) = _color_phases(card, rng)
-    k1["launches"] += k1_ex
-    k4["launches"] += k4_ex
+    k1_s4, k4_s4 = _slice4_phases(card, rng)
+    k1["launches"] += k1_ex + k1_s4
+    k4["launches"] += k4_ex + k4_s4
     print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
-"""The port's u8 separable convolution (ops/convolution.py) and the plain
-version of its separable kernel (ops/separable_conv.py) against the JAX
-package on JAX-CPU: array_equal throughout. Inputs come from numpy with a
-seed and go to both packages as the same arrays."""
+"""The port's convolutions (ops/convolution.py: separable u8 and float,
+2-D u8 and float, Sobel), the plain version of its separable kernel
+(ops/separable_conv.py) and ``ImageBatch.convolve`` against the JAX
+package on JAX-CPU: u8 outputs array_equal, float outputs within the
+bound stated below. Inputs come from numpy with a seed and go to both
+packages as the same arrays."""
 
 import numpy as np
 import pytest
@@ -19,8 +21,9 @@ from zignal_tpu_torch import pipeline
 from zignal_tpu_torch.enums import BorderMode
 from zignal_tpu_torch.ops import separable_conv as sc
 from zignal_tpu_torch.ops import tables
-from zignal_tpu_torch.ops.convolution import convolve_separable, \
-    convolve_separable_reference, gaussian_blur
+from zignal_tpu_torch.ops.convolution import convolve2d, \
+    convolve_separable, convolve_separable_reference, gaussian_blur, \
+    sobel_gradients, sobel_magnitude
 
 SIGNED = (-0.25, 0.5, 1.5, 0.5, -0.25)
 GAUSS = tables.gaussian_kernel(1.0)
@@ -251,3 +254,129 @@ def test_image_batch_conv_validation_matches_jax():
             jz.ImageBatch(x).convolve_separable(kx, ky)
         with pytest.raises(ValueError, match="odd length"):
             zp.ImageBatch(x, device="cpu").convolve_separable(kx, ky)
+
+
+# -- float separable convolution, 2-D convolution and Sobel -----------------
+
+SHARPEN3 = ((0.0, -1.0, 0.0), (-1.0, 5.0, -1.0), (0.0, -1.0, 0.0))
+BINOMIAL3 = ((0.0625, 0.125, 0.0625), (0.125, 0.25, 0.125),
+             (0.0625, 0.125, 0.0625))
+_k = np.random.default_rng(30).random((5, 5))
+SMOOTH5 = tuple(tuple(float(v) for v in row)
+                for row in (_k / _k.sum()).astype(np.float32))
+WIDE35 = ((0.1, -0.2, 0.4, -0.2, 0.1), (0.0, 0.3, 0.5, 0.3, 0.0),
+          (-0.1, 0.2, 0.0, 0.2, -0.1))
+# float bounds (max-abs against the JAX package). Measured over these
+# cases: separable 1.5e-5 on 0-255 data and 1.2e-7 on 0-1 data, 2-D
+# 1.5e-5 and 6.0e-8 (at some shapes XLA leaves a multiply-add of the
+# jitted sums uncontracted where the port contracts it: an ulp)
+F255_TOL, F01_TOL = 1e-4, 1e-6
+
+
+def _float(shape, seed, scale):
+    return (np.random.default_rng(seed).random(shape, np.float32)
+            * np.float32(scale)).astype(np.float32)
+
+
+@pytest.mark.parametrize("scale,tol", [(255.0, F255_TOL), (1.0, F01_TOL)],
+                         ids=["0-255", "0-1"])
+@pytest.mark.parametrize("border", list(BorderMode), ids=lambda b: b.name)
+def test_float_convolve_separable_within_bound_of_jax(border, scale, tol):
+    for shape in ((20, 24, 3), (2, 9, 40, 4), (33, 7, 1), (1, 9, 3)):
+        x = _float(shape, 31, scale)
+        for kernel in (GAUSS, SIGNED):
+            if border == BorderMode.ZERO and min(shape[-3:-1]) <= \
+                    len(kernel) // 2:
+                continue  # the JAX package's tiny-axis fault (ROADMAP §3)
+            got = convolve_separable(torch.from_numpy(x), kernel, kernel,
+                                     border).numpy()
+            want = np.asarray(jax_conv.convolve_separable(
+                jnp.asarray(x), kernel, kernel, JaxBorder(int(border))))
+            assert got.dtype == np.float32
+            assert float(np.abs(got - want).max()) <= tol
+
+
+def test_float_zero_border_tiny_axis_is_the_zero_padded_answer():
+    x = _float((1, 9, 1), 32, 255.0)
+    got = convolve_separable(torch.from_numpy(x), SIGNED, SIGNED,
+                             BorderMode.ZERO).numpy()
+    k = np.asarray(SIGNED, np.float64)
+    p = np.pad(x[..., 0].astype(np.float64), 2)
+    rows = sum(k[i] * p[:, i:i + 9] for i in range(5))
+    want = sum(k[i] * rows[i:i + 1] for i in range(5))
+    assert float(np.abs(got[..., 0] - want).max()) <= F255_TOL
+
+
+@pytest.mark.parametrize("border", list(BorderMode), ids=lambda b: b.name)
+@pytest.mark.parametrize("kernel", [SHARPEN3, BINOMIAL3, SMOOTH5, WIDE35],
+                         ids=["sharpen", "binomial", "smooth5", "wide3x5"])
+def test_convolve2d_u8_matches_jax(kernel, border):
+    for shape in ((13, 17, 3), (9, 6, 4), (1, 9, 1)):
+        x = _u8(shape, 33)
+        got = convolve2d(torch.from_numpy(x), kernel, border).numpy()
+        want = np.asarray(jax_conv.convolve2d(jnp.asarray(x), kernel,
+                                              JaxBorder(int(border))))
+        assert got.dtype == np.uint8
+        assert np.array_equal(got, want)
+
+
+def test_convolve2d_on_a_batch_equals_each_image():
+    x = _u8((3, 11, 8, 3), 34)
+    got = convolve2d(torch.from_numpy(x), SMOOTH5, BorderMode.WRAP).numpy()
+    for i in range(3):
+        assert np.array_equal(got[i], np.asarray(jax_conv.convolve2d(
+            jnp.asarray(x[i]), SMOOTH5, JaxBorder.WRAP)))
+
+
+@pytest.mark.parametrize("scale,tol", [(255.0, F255_TOL), (1.0, F01_TOL)],
+                         ids=["0-255", "0-1"])
+@pytest.mark.parametrize("border", list(BorderMode), ids=lambda b: b.name)
+def test_float_convolve2d_within_bound_of_jax(border, scale, tol):
+    x = _float((20, 24, 3), 35, scale)
+    for kernel in (SMOOTH5, WIDE35, BINOMIAL3):
+        got = convolve2d(torch.from_numpy(x), kernel, border).numpy()
+        want = np.asarray(jax_conv.convolve2d(jnp.asarray(x), kernel,
+                                              JaxBorder(int(border))))
+        assert float(np.abs(got - want).max()) <= tol
+
+
+def test_convolve2d_rejects_even_kernels():
+    with pytest.raises(ValueError, match="odd dimensions"):
+        convolve2d(torch.zeros((4, 4, 1), dtype=torch.uint8),
+                   ((0.5, 0.5), (0.5, 0.5)))
+
+
+@pytest.mark.parametrize("shape", [(20, 24), (1, 9), (7, 1), (2, 13, 11)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sobel_matches_jax(shape):
+    """Integer planes (as ImageBatch.sobel passes) and a blurred float
+    plane: the gradients are exact sums of ±1, ±2 taps."""
+    planes = [_u8(shape, 36).astype(np.float32), _float(shape, 37, 255.0)]
+    for x in planes:
+        got = sobel_magnitude(torch.from_numpy(x)).numpy()
+        gx, gy = sobel_gradients(torch.from_numpy(x))
+        for i in np.ndindex(shape[:-2]):
+            assert np.array_equal(got[i], np.asarray(
+                jax_conv.sobel_magnitude(jnp.asarray(x[i]))))
+            wx, wy = jax_conv.sobel_gradients(jnp.asarray(x[i]))
+            assert np.array_equal(gx[i].numpy(), np.asarray(wx))
+            assert np.array_equal(gy[i].numpy(), np.asarray(wy))
+
+
+@pytest.mark.parametrize("kernel,border", [
+    (SHARPEN3, BorderMode.MIRROR), (SMOOTH5, BorderMode.ZERO),
+    (WIDE35, BorderMode.WRAP), (BINOMIAL3, BorderMode.REPLICATE)])
+def test_image_batch_convolve_matches_jax(kernel, border):
+    x = _u8((2, 15, 12, 4), 38)
+    got = zp.ImageBatch(x, device="cpu").convolve(kernel, border)
+    want = jz.ImageBatch(x).convolve(kernel, JaxBorder(int(border)))
+    assert np.array_equal(got.to_numpy(), want.to_numpy())
+
+
+def test_image_batch_convolve_validation_matches_jax():
+    x = _u8((1, 8, 8, 3), 0)
+    for bad in (((1.0, 0.0),), (1.0, 2.0, 3.0), ((0.5, 0.5), (0.5, 0.5))):
+        with pytest.raises(ValueError, match="odd dimensions"):
+            jz.ImageBatch(x).convolve(bad)
+        with pytest.raises(ValueError, match="odd dimensions"):
+            zp.ImageBatch(x, device="cpu").convolve(bad)

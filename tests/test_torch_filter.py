@@ -1,8 +1,9 @@
-"""The config-3 filter chain and the windowed u8 filters of the port
+"""The config-3 filter chain and the windowed filters of the port
 (ops/binary.py, ops/integral.py, ops/filter_chain.py, pipeline.filter_chain,
 the ImageBatch methods, rgb_to_gray_u8) against the JAX package on JAX-CPU:
-array_equal throughout. Inputs come from numpy with a seed and go to both
-packages as the same arrays."""
+u8 outputs array_equal, float outputs within the bound stated below.
+Inputs come from numpy with a seed and go to both packages as the same
+arrays."""
 
 import math
 from fractions import Fraction
@@ -311,10 +312,13 @@ def test_filter_chain_rejects_bad_arguments(args, err):
 
 
 def test_unported_inputs_raise_not_implemented():
+    """Float inputs are ported; integer dtypes other than uint8, which the
+    JAX package sends down its float path, are not."""
     x = torch.zeros((1, 8, 8, 3))
     for op in (integral.box_blur, integral.sharpen):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            op(x, 1)
+        assert torch.equal(op(x, 1), x)
+        with pytest.raises(NotImplementedError, match="int32 is not ported"):
+            op(x.to(torch.int32), 1)
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])
@@ -350,3 +354,122 @@ def test_image_batch_filter_validation_matches_jax():
             getattr(jz.ImageBatch(x), method)(*args)
         with pytest.raises(ValueError):
             getattr(zp.ImageBatch(x, device="cpu"), method)(*args)
+
+
+# -- integral image, float box blur and sharpen, adaptive threshold -------
+
+def _dyadic(shape, seed):
+    """0-1 floats k/256: every SAT entry of a small plane is exact in f32,
+    so the JAX package's f32 SAT is exact on them."""
+    return (_u8(shape, seed) / np.float32(256)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["u8", "int-valued f32", "dyadic f32"])
+@pytest.mark.parametrize("shape", [(20, 30, 3), (33, 7, 1), (64, 64, 1),
+                                   (2, 9, 11, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_integral_image_equals_jax_where_jax_is_exact(kind, shape):
+    """Below 2^24 a SAT entry is exact in the JAX package's f32 cumsums
+    and in the port's int64 / f64 sums cast once, so both agree bit for
+    bit (255 * H * W < 2^24 for every shape here)."""
+    x = _u8(shape, 14)
+    if kind == "int-valued f32":
+        x = x.astype(np.float32)
+    elif kind == "dyadic f32":
+        x = _dyadic(shape, 14)
+    got = integral.integral_image(torch.from_numpy(x)).numpy()
+    for i in np.ndindex(shape[:-3]):
+        assert np.array_equal(got[i], np.asarray(
+            jax_integral.integral_image(jnp.asarray(x[i]))))
+
+
+def test_integral_image_is_exact_where_the_f32_sat_is_not():
+    """Past 2^24 the JAX package's f32 running sums round (ROADMAP §3:
+    on a random u8 plane 9,336 entries of 512^2 differ, by up to 2); the
+    port's int64 sums cast once are the true sums, correctly rounded, on
+    any device."""
+    x = _u8((512, 512, 1), 19)
+    got = integral.integral_image(torch.from_numpy(x)).numpy()[..., 0]
+    truth = x[..., 0].astype(np.int64).cumsum(0).cumsum(1).astype(np.float32)
+    assert np.array_equal(got, truth)
+    jax_out = np.asarray(jax_integral.integral_image(jnp.asarray(x)))[..., 0]
+    assert not np.array_equal(jax_out, truth)
+
+
+# float box blur / sharpen bounds (max-abs): against the JAX package on
+# data its f32 SAT holds exactly (measured 0.0), and against the f64 truth
+# on random floats (measured 3.0e-5 on 0-255, 1.2e-7 on 0-1: a rounding of
+# the sums, of the mean and of 2x - mean); the JAX package's f32 SAT is
+# 1.7e-3 and 9.8e-6 from the truth on the same data, so it is not the
+# reference for random floats
+F255_TOL, F01_TOL = 1e-4, 1e-6
+
+
+@pytest.mark.parametrize("op", ["box_blur", "sharpen"])
+@pytest.mark.parametrize("radius", [1, 3, 0])
+def test_float_box_blur_and_sharpen_equal_jax_where_jax_is_exact(op, radius):
+    for shape in ((20, 30, 3), (33, 7, 1), (64, 47, 1)):
+        for x in (_u8(shape, 15).astype(np.float32), _dyadic(shape, 15)):
+            got = getattr(integral, op)(torch.from_numpy(x), radius).numpy()
+            want = getattr(jax_integral, op)(jnp.asarray(x), radius)
+            assert got.dtype == np.float32
+            assert float(np.abs(got - np.asarray(want)).max()) <= 0.0
+
+
+def _truth(op, x, radius):
+    """f64 clamped-window mean (box blur) or ``2x - mean`` (sharpen)."""
+    h, w = x.shape[:2]
+    out = np.empty(x.shape, np.float64)
+    for r in range(h):
+        for c in range(w):
+            win = x[max(0, r - radius):r + radius + 1,
+                    max(0, c - radius):c + radius + 1].astype(np.float64)
+            out[r, c] = win.mean(axis=(0, 1))
+    return out if op == "box_blur" else 2.0 * x - out
+
+
+@pytest.mark.parametrize("scale,tol", [(255.0, F255_TOL), (1.0, F01_TOL)],
+                         ids=["0-255", "0-1"])
+@pytest.mark.parametrize("op", ["box_blur", "sharpen"])
+def test_float_box_blur_and_sharpen_within_bound_of_the_truth(op, scale, tol):
+    rng = np.random.default_rng(16)
+    for shape, radius in (((20, 30, 3), 1), ((64, 64, 1), 3),
+                          ((33, 7, 1), 2)):
+        x = (rng.random(shape, np.float32) * np.float32(scale)) \
+            .astype(np.float32)
+        got = getattr(integral, op)(torch.from_numpy(x), radius).numpy()
+        assert float(np.abs(got - _truth(op, x, radius)).max()) <= tol
+
+
+@pytest.mark.parametrize("shape,radius", [((20, 24), 2), ((2, 33, 17), 6),
+                                          ((33, 7), 9), ((1, 9), 1),
+                                          ((270, 260), 130)],
+                         ids=["20x24-r2", "batch-r6", "33x7-r9", "1x9-r1",
+                              "int-branch"])
+def test_adaptive_mean_threshold_matches_jax(shape, radius):
+    x = _u8(shape, 17)
+    if shape == (270, 260):
+        assert not integral.sums_fit_f32(270, 260, radius)
+    for c in (5.0, -3.5, 0.0):
+        got = binary.adaptive_mean_threshold(torch.from_numpy(x), radius,
+                                             c).numpy()
+        for i in np.ndindex(shape[:-2]):
+            want = jax_binary.adaptive_mean_threshold(jnp.asarray(x[i]),
+                                                      radius, c)
+            assert np.array_equal(got[i], np.asarray(want))
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_image_batch_threshold_adaptive_mean_matches_jax(channels):
+    x = _u8((2, 25, 31, channels), 18)
+    for radius, c in ((6, 5.0), (2, -1.0)):
+        got = zp.ImageBatch(x, device="cpu").threshold_adaptive_mean(radius,
+                                                                     c)
+        want = jz.ImageBatch(x).threshold_adaptive_mean(radius, c)
+        assert got.channels == 1
+        assert np.array_equal(got.to_numpy(), want.to_numpy())
+    for bad in (0, -2):
+        with pytest.raises(ValueError, match="positive"):
+            jz.ImageBatch(x).threshold_adaptive_mean(bad)
+        with pytest.raises(ValueError, match="positive"):
+            zp.ImageBatch(x, device="cpu").threshold_adaptive_mean(bad)

@@ -296,3 +296,73 @@ def test_color_chain_kernel_rejects_non_contiguous(cuda):
     x = _u8((1, 64, 64, 3), 15, cuda)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         cc.fused_color_chain_u8(x, CHAINS[0])
+
+
+def test_resize_takes_any_leading_dims_on_the_card(cuda):
+    x = _u8((2, 3, 37, 53, 3), 16, cuda)
+    before = fp.LAUNCHES
+    got = resize(x, 20, 31)
+    assert fp.LAUNCHES == before + 1
+    assert got.shape == (2, 3, 20, 31, 3)
+    assert torch.equal(got.cpu(), resize(x.cpu(), 20, 31))
+    rgb = _u8((2, 37, 53, 4), 17, cuda)[..., :3]   # not contiguous
+    assert torch.equal(resize(rgb, 20, 31).cpu(), resize(rgb.cpu(), 20, 31))
+
+
+def test_image_pyramid_launches_the_blur_and_resize_kernels(cuda):
+    from zignal_tpu_torch.ops.pyramid import ImagePyramid
+
+    x = _u8((300, 410), 17, cuda)
+    k1, k4 = fp.LAUNCHES, sc.LAUNCHES
+    got = ImagePyramid.build(x, 6)
+    assert (fp.LAUNCHES - k1, sc.LAUNCHES - k4) == (5, 1)
+    want = ImagePyramid.build(x.cpu(), 6)
+    for g, w in zip(got.levels, want.levels):
+        assert torch.equal(g.cpu(), w)
+
+
+# the new plain paths on the card against the CPU: u8 equal, floats within
+# the bounds of the CPU tests (an f64 multiply-add rounds the same on both)
+F255_TOL = 1e-4
+
+
+@pytest.mark.parametrize("method,args", [
+    *[("resize", ((21, 34), m)) for m in range(6)],
+    ("resize", ((70, 61), 5)), ("letterbox", ((40, 60),)),
+    ("letterbox", ((30, 30), 2)),
+    ("convolve", (((0.0, -1.0, 0.0), (-1.0, 5.0, -1.0), (0.0, -1.0, 0.0)),)),
+    ("convolve", ((np.ones((5, 5)) / 25).tolist(), BorderMode.ZERO)),
+    ("median_blur", (2,)), ("percentile_blur", (3, 0.9, BorderMode.WRAP)),
+    ("min_blur", (2,)), ("max_blur", (2, BorderMode.ZERO)),
+    ("midpoint_blur", (2,)), ("alpha_trimmed_mean_blur", (2, 0.2)),
+    ("sobel", ()), ("canny", ()), ("shen_castan", ()),
+    ("shen_castan", (0.8, 7, 0.9, 0.5, True, True)),
+    ("threshold_adaptive_mean", ()),
+])
+def test_new_image_batch_paths_on_the_card_equal_the_cpu(cuda, method, args):
+    x = _u8((2, 48, 64, 3), 18, cuda)
+    got = getattr(ImageBatch(x, device=cuda), method)(*args)
+    want = getattr(ImageBatch(x.cpu(), device="cpu"), method)(*args)
+    assert torch.equal(got.device_array().cpu(), want.device_array())
+
+
+def test_float_paths_on_the_card_are_within_bound_of_the_cpu(cuda):
+    from zignal_tpu_torch.ops import edges, integral
+    from zignal_tpu_torch.ops.convolution import convolve2d, sobel_gradients
+
+    x = (torch.rand((2, 40, 52, 3), generator=torch.Generator().manual_seed(0))
+         * 255).to(cuda)
+    k = tables.gaussian_kernel(1.5)
+    pairs = [(resize(x, 23, 70, m), resize(x.cpu(), 23, 70, m))
+             for m in range(6)]
+    pairs.append((convolve_separable(x, k, k), convolve_separable(x.cpu(), k,
+                                                                   k)))
+    pairs.append((convolve2d(x, ((0.1, 0.2, 0.1),) * 3),
+                  convolve2d(x.cpu(), ((0.1, 0.2, 0.1),) * 3)))
+    pairs.append((integral.box_blur(x, 2), integral.box_blur(x.cpu(), 2)))
+    pairs += list(zip(sobel_gradients(x[..., 0]),
+                      sobel_gradients(x[..., 0].cpu())))
+    pairs.append((edges.isef_filter(x[..., 0], 0.9),
+                  edges.isef_filter(x[..., 0].cpu(), 0.9)))
+    for got, want in pairs:
+        assert float((got.cpu() - want).abs().max()) <= F255_TOL

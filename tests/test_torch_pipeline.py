@@ -217,15 +217,28 @@ def test_resize_same_size_returns_input():
 
 
 def test_unported_paths_raise_not_implemented():
+    """Every resampling method and float inputs are ported; integer
+    dtypes other than uint8, which the JAX package sends down its float
+    paths, are not."""
     x = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        resize(x, 4, 4, zp.Interpolation.BICUBIC)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        resize(x.float(), 4, 4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        gaussian_blur(x.float(), 1.0, zp.BorderMode.ZERO)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipeline.resize_blur_oklab(x, 4, 4, 1.0, zp.Interpolation.LANCZOS)
+    assert resize(x, 4, 4, zp.Interpolation.BICUBIC).shape == (1, 4, 4, 3)
+    assert resize(x.float(), 4, 4).dtype == torch.float32
+    assert torch.equal(gaussian_blur(x.float(), 1.0, zp.BorderMode.ZERO),
+                       x.float())
+    with pytest.raises(NotImplementedError, match="int32 is not ported"):
+        resize(x.int(), 4, 4, zp.Interpolation.BICUBIC)
+    with pytest.raises(NotImplementedError, match="int32 is not ported"):
+        gaussian_blur(x.int(), 1.0, zp.BorderMode.ZERO)
+
+
+@pytest.mark.parametrize("method", [zp.Interpolation.LANCZOS,
+                                    zp.Interpolation.NEAREST],
+                         ids=lambda m: m.name)
+def test_resize_blur_oklab_other_methods_match_jax(method):
+    x = _u8((2, 40, 36, 3), 13)
+    got = pipeline.resize_blur_oklab(torch.from_numpy(x), 17, 23, 1.5, method)
+    want = jax_rbo(x, 17, 23, 1.5, jz.Interpolation(int(method)))
+    assert float(np.abs(got.numpy() - np.asarray(want)).max()) <= OKLAB_TOL
 
 
 def test_image_batch_validation_matches_jax():
@@ -260,7 +273,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "zignal_tpu_torch.ops._build, zignal_tpu_torch.ops.filter_chain, "
             "zignal_tpu_torch.ops.separable_conv, "
             "zignal_tpu_torch.ops.color_chain, "
-            "zignal_tpu_torch.ops.enhancement, zignal_tpu_torch.color\n"
+            "zignal_tpu_torch.ops.enhancement, zignal_tpu_torch.color, "
+            "zignal_tpu_torch.ops.edges, zignal_tpu_torch.ops.order_stat, "
+            "zignal_tpu_torch.ops.pyramid, zignal_tpu_torch.ops.fma\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'zignal_tpu.')) or "
             "m == 'zignal_tpu')\n"

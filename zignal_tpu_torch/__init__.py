@@ -1,6 +1,8 @@
 """zignal-tpu's PyTorch/CUDA port: the resize -> blur -> Oklab batch path,
-the config-3 filter chain and the windowed u8 filters, the config-2 colour
-chain with the colour-conversion graph, and the histogram ops.
+the config-3 filter chain and the windowed filters, the config-2 colour
+chain with the colour-conversion graph, the histogram ops, every resize
+method, the convolutions, the order-statistic blurs, the edge detectors
+and the image pyramid.
 
 Imports torch and numpy only (never jax, never ``zignal_tpu``). Every
 entry that places data takes an explicit ``device=``; functions on

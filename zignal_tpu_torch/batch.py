@@ -1,8 +1,11 @@
 """ImageBatch — a batch of same-shape u8 images ``[B, H, W, C]`` held as a
 torch tensor on one explicit device, the counterpart of
-zignal_tpu/batch.py as far as the resize -> blur -> Oklab path, the
-windowed u8 filters, colour conversion among gray/rgb/rgba and the
-histogram ops need it.
+zignal_tpu/batch.py as far as resize and letterbox, the resize -> blur ->
+Oklab path, the windowed filters (convolutions, clamped-window and
+order-statistic blurs, morphology), the edge detectors, colour conversion
+among gray/rgb/rgba and the histogram and threshold ops need it. The ops
+take ``[B, H, W, C]`` (or the ``[B, H, W]`` gray plane) directly: nothing
+is mapped image by image.
 
 The device is always the caller's choice (``device=``); nothing here
 picks one. There is no mesh yet (ROADMAP item 15).
@@ -17,7 +20,8 @@ import torch
 
 from .color._array import convert_u8_array, rgb_to_gray_u8
 from .enums import BorderMode, Interpolation
-from .ops import binary, enhancement, integral
+from .ops import binary, edges, enhancement, integral, order_stat
+from .ops.convolution import convolve2d, sobel_magnitude
 from .ops.convolution import convolve_separable as convolve_separable_op
 from .ops.convolution import gaussian_blur as gaussian_blur_op
 from .ops.interpolation import resize as resize_op
@@ -113,6 +117,30 @@ class ImageBatch:
         return self._wrap(resize_op(self._dev, rows, cols,
                                     Interpolation(method)))
 
+    def letterbox(self, size, method: Interpolation = Interpolation.BILINEAR
+                  ) -> "ImageBatch":
+        """Resize into ``size`` keeping the aspect ratio, centred on a
+        zero canvas."""
+        if isinstance(size, (int, float)) and not isinstance(size, bool):
+            rows = cols = int(size)
+        else:
+            rows, cols = int(size[0]), int(size[1])
+        if rows <= 0 or cols <= 0:
+            raise ValueError("size must be positive")
+        f32 = np.float32
+        rs, cs = f32(rows) / f32(self.rows), f32(cols) / f32(self.cols)
+        if rs == cs:
+            return self.resize((rows, cols), method)
+        aspect = min(rs, cs)
+        sr = max(1, int(np.round(aspect * f32(self.rows))))
+        sc = max(1, int(np.round(aspect * f32(self.cols))))
+        off_r, off_c = (rows - sr) // 2, (cols - sc) // 2
+        content = resize_op(self._dev, sr, sc, Interpolation(method))
+        canvas = self._dev.new_zeros((self._dev.shape[0], rows, cols,
+                                      self.channels))
+        canvas[:, off_r:off_r + sr, off_c:off_c + sc] = content
+        return self._wrap(canvas)
+
     def resize_blur_oklab(self, size, sigma: float = 2.0,
                           method: Interpolation = Interpolation.BILINEAR):
         """The north-star chain (BASELINE.md): resize -> Gaussian blur ->
@@ -138,6 +166,9 @@ class ImageBatch:
             return self._dev[..., 0]
         return rgb_to_gray_u8(self._dev[..., :3])[..., 0]
 
+    def _gray_f32(self) -> torch.Tensor:
+        return self._gray_plane().to(torch.float32)
+
     def gaussian_blur(self, sigma: float) -> "ImageBatch":
         """MIRROR-bordered Gaussian blur; the separable kernel on the
         card."""
@@ -160,6 +191,79 @@ class ImageBatch:
         return self._wrap(convolve_separable_op(self._dev, kxt, kyt,
                                                 BorderMode(border)))
 
+    def convolve(self, kernel, border=BorderMode.MIRROR) -> "ImageBatch":
+        """Batched 2-D convolution (reference: image.zig:917)."""
+        k = np.asarray(kernel, dtype=np.float32)
+        if k.ndim != 2 or k.shape[0] % 2 == 0 or k.shape[1] % 2 == 0:
+            raise ValueError("kernel must be 2-D with odd dimensions")
+        return self._wrap(convolve2d(self._dev, k, BorderMode(border)))
+
+    def _order_stat(self, op, radius: int, *args) -> "ImageBatch":
+        radius = int(radius)
+        if radius < 0:
+            raise ValueError("radius must be non-negative")
+        if radius == 0:
+            return self._wrap(self._dev)
+        return self._wrap(op(self._dev, radius, *args))
+
+    def median_blur(self, radius: int) -> "ImageBatch":
+        return self._order_stat(order_stat.median_blur, radius)
+
+    def percentile_blur(self, radius: int, percentile: float,
+                        border: BorderMode = BorderMode.MIRROR
+                        ) -> "ImageBatch":
+        percentile = float(percentile)
+        if not 0.0 <= percentile <= 1.0:
+            raise ValueError("percentile must be in [0, 1]")
+        return self._order_stat(order_stat.percentile_blur, radius,
+                                percentile, BorderMode(border))
+
+    def min_blur(self, radius: int,
+                 border: BorderMode = BorderMode.MIRROR) -> "ImageBatch":
+        return self._order_stat(order_stat.min_blur, radius,
+                                BorderMode(border))
+
+    def max_blur(self, radius: int,
+                 border: BorderMode = BorderMode.MIRROR) -> "ImageBatch":
+        return self._order_stat(order_stat.max_blur, radius,
+                                BorderMode(border))
+
+    def midpoint_blur(self, radius: int,
+                      border: BorderMode = BorderMode.MIRROR) -> "ImageBatch":
+        return self._order_stat(order_stat.midpoint_blur, radius,
+                                BorderMode(border))
+
+    def alpha_trimmed_mean_blur(self, radius: int, trim_fraction: float,
+                                border: BorderMode = BorderMode.MIRROR
+                                ) -> "ImageBatch":
+        trim_fraction = float(trim_fraction)
+        if not np.isfinite(trim_fraction) or not 0.0 <= trim_fraction < 0.5:
+            raise ValueError("trim_fraction must be in [0, 0.5)")
+        return self._order_stat(order_stat.alpha_trimmed_mean_blur, radius,
+                                trim_fraction, BorderMode(border))
+
+    def sobel(self) -> "ImageBatch":
+        return self._wrap(sobel_magnitude(self._gray_f32())[..., None])
+
+    def canny(self, sigma: float = 1.4, low: float = 50,
+              high: float = 150) -> "ImageBatch":
+        sigma, low, high = float(sigma), float(low), float(high)
+        if sigma < 0 or low < 0 or high < 0 or low >= high:
+            raise ValueError("need sigma >= 0 and 0 <= low < high")
+        return self._wrap(edges.canny(self._gray_f32(), sigma, low,
+                                      high)[..., None])
+
+    def shen_castan(self, smooth: float = 0.9, window_size: int = 7,
+                    high_ratio: float = 0.99, low_rel: float = 0.5,
+                    hysteresis: bool = True, use_nms: bool = False
+                    ) -> "ImageBatch":
+        out = edges.shen_castan(
+            self._gray_f32(), smooth=float(smooth),
+            window_size=int(window_size), high_ratio=float(high_ratio),
+            low_rel=float(low_rel), hysteresis=bool(hysteresis),
+            use_nms=bool(use_nms))
+        return self._wrap(out[..., None])
+
     def _clamped(self, op, radius: int) -> "ImageBatch":
         radius = int(radius)
         if radius < 0:
@@ -173,6 +277,16 @@ class ImageBatch:
 
     def sharpen(self, radius: int) -> "ImageBatch":
         return self._clamped(integral.sharpen, radius)
+
+    def threshold_adaptive_mean(self, radius: int = 6, c: float = 5.0
+                                ) -> "ImageBatch":
+        """255 where the gray plane exceeds its clamped-window mean less
+        ``c``, else 0 (a gray batch)."""
+        if int(radius) <= 0:
+            raise ValueError("radius must be positive")
+        out = binary.adaptive_mean_threshold(self._gray_plane(), int(radius),
+                                             float(c))
+        return self._wrap(out[..., None])
 
     def _morph(self, op, kernel_size: int, iterations: int) -> "ImageBatch":
         kernel_size = int(kernel_size)

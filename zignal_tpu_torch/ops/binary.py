@@ -10,7 +10,8 @@ sweep runs on the host in f64, op for op as the JAX package runs it.
 Morphology with the square all-ones structuring element is two separable
 min/max passes with zero padding (background), on ``[..., H, W]`` planes:
 dilate ignores out-of-bounds pixels, erode treats them as background.
-The adaptive thresholds are ROADMAP item 12.
+The adaptive mean threshold compares each pixel with its clamped-window
+mean, formed from exact window sums by the JAX package's rule.
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .integral import _box_sums_exact, _mean_f32, _quot_rem, sums_fit_f32
+
 __all__ = ["histogram256", "histogram256_multi", "histogram256_batch",
            "lut_apply_u8", "lut_apply_u8_per_channel", "otsu_threshold",
            "otsu_from_hists", "threshold_apply", "dilate", "erode",
-           "open_morph", "close_morph"]
+           "open_morph", "close_morph", "adaptive_mean_threshold"]
 
 
 def histogram256(plane, weights=None):
@@ -150,3 +153,19 @@ def open_morph(plane, ksize: int = 3, iterations: int = 1):
 
 def close_morph(plane, ksize: int = 3, iterations: int = 1):
     return _morph(plane, ksize, iterations, (True, False))
+
+
+def adaptive_mean_threshold(plane, radius: int, c: float):
+    """255 where ``plane > window_mean - c``, else 0 (binary.zig:86-118),
+    for a u8 ``[..., H, W]`` plane. The mean is the JAX package's
+    (integral.py ``_mean_parts``): ``sums * f32(1 / area)`` where its
+    window sums are f32, else ``q + rem * f32(1 / area)`` from the exact
+    integer quotient and remainder."""
+    sums, area = _box_sums_exact(plane[..., None], int(radius))
+    if sums_fit_f32(plane.shape[-2], plane.shape[-1], int(radius)):
+        mean = _mean_f32(sums, area)
+    else:
+        q, rem, _ = _quot_rem(sums, area)
+        mean = q.to(torch.float32) + _mean_f32(rem, area)
+    thr = mean[..., 0] - float(np.float32(c))
+    return (plane.to(torch.float32) > thr).to(torch.uint8) * 255

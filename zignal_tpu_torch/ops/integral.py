@@ -1,4 +1,4 @@
-"""u8 box blur and sharpen over clamped windows (reference:
+"""Integral image, box blur and sharpen over clamped windows (reference:
 src/image/integral.zig), the counterpart of zignal_tpu/ops/integral.py.
 
 Window sums are exact int32 sums over the window clamped to the image;
@@ -14,6 +14,13 @@ multiplication by the constant's f32 reciprocal. A true division differs
 from that at a few pixels in 10^4 (3570 / 28 = 127.5 exactly, while
 3570 * f32(1/28) = 127.50001 rounds the other way), so the port multiplies
 by ``f32(1) / area`` too.
+
+The JAX package's float paths read window sums off an f32 summed-area
+table, which is exact only while every entry stays below 2^24 (for a
+255-valued plane, about 256 x 256 pixels). The port's table is exact
+wherever that one is and device-independent beyond it: int64 prefix sums
+of an integer input, f64 of a float input, cast to f32 once
+(``window_sums``).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 
 from .tables import extents, window_bounds
 
-__all__ = ["box_blur", "sharpen"]
+__all__ = ["integral_image", "window_sums", "box_blur", "sharpen"]
 
 _F32_EXACT = 1 << 24
 
@@ -56,27 +63,36 @@ def sums_fit_f32(h: int, w: int, radius: int) -> bool:
     return _digit_bound(min(2 * radius + 1, w), rows)[1]
 
 
-def _window_sums(x, radius: int, axis: int):
-    """Exact sums over the clamped windows along ``axis`` (int64
-    prefix sums, int32 result)."""
-    n = x.shape[axis]
-    lo, hi = (torch.from_numpy(t).long().to(x.device)
-              for t in window_bounds(n, radius))
-    cs = torch.cumsum(x, dim=axis, dtype=torch.int64)
-    shape = list(x.shape)
-    shape[axis] = 1
-    cs = torch.cat([cs.new_zeros(shape), cs], dim=axis)
-    return (cs.index_select(axis, hi + 1)
-            - cs.index_select(axis, lo)).to(torch.int32)
+def _accumulator(x):
+    return torch.float64 if x.is_floating_point() else torch.int64
+
+
+def window_sums(x, radius: int, axes=(-3, -2)):
+    """Sums of ``x`` over the windows clamped to the plane spanned by
+    ``axes``, by prefix sums per axis in int64 (integer ``x``: exact) or
+    f64 (float ``x``); the result keeps that dtype."""
+    for axis in axes:
+        lo, hi = (torch.from_numpy(t).long().to(x.device)
+                  for t in window_bounds(x.shape[axis], radius))
+        cs = torch.cumsum(x, dim=axis, dtype=_accumulator(x))
+        shape = list(cs.shape)
+        shape[axis] = 1
+        cs = torch.cat([cs.new_zeros(shape), cs], dim=axis)
+        x = cs.index_select(axis, hi + 1) - cs.index_select(axis, lo)
+    return x
+
+
+def _area(h: int, w: int, radius: int):
+    """f32 window areas ``[H, W, 1]`` (numpy)."""
+    return (extents(h, radius)[:, None] * extents(w, radius)[None, :])[
+        ..., None]
 
 
 def _box_sums_exact(arr, radius: int):
     """Exact int32 window sums of u8 ``[..., H, W, C]`` and the f32 area
     ``[H, W, 1]`` as a numpy array."""
-    h, w = arr.shape[-3], arr.shape[-2]
-    sums = _window_sums(_window_sums(arr, radius, -3), radius, -2)
-    area = extents(h, radius)[:, None] * extents(w, radius)[None, :]
-    return sums, area[..., None]
+    sums = window_sums(arr, radius).to(torch.int32)
+    return sums, _area(arr.shape[-3], arr.shape[-2], radius)
 
 
 def _mean_f32(sums, area):
@@ -86,11 +102,24 @@ def _mean_f32(sums, area):
     return sums.to(torch.float32) * recip
 
 
+def integral_image(arr):
+    """SAT of ``[..., H, W, C]`` -> f32: ``sat[r, c]`` sums ``[0..r, 0..c]``,
+    accumulated exactly (or in f64) and rounded to f32 once."""
+    acc = _accumulator(arr)
+    return arr.cumsum(-3, dtype=acc).cumsum(-2).to(torch.float32)
+
+
+def _box_sums_float(arr, radius: int):
+    """Clamped-window sums of a float ``[..., H, W, C]`` in f64, rounded
+    to f32 once, and the f32 area ``[H, W, 1]`` (numpy)."""
+    sums = window_sums(arr, radius).to(torch.float32)
+    return sums, _area(arr.shape[-3], arr.shape[-2], radius)
+
+
 def _check(arr, radius: int, op: str):
-    if arr.dtype != torch.uint8:
+    if arr.dtype != torch.uint8 and not arr.is_floating_point():
         raise NotImplementedError(
-            f"{op} of {arr.dtype} is not ported yet (ROADMAP item 9); only "
-            "uint8 is")
+            f"{op} of {arr.dtype} is not ported; uint8 and float are")
     if arr.ndim < 3:
         raise ValueError(f"{op} expects a [..., H, W, C] tensor")
     if radius < 0:
@@ -104,12 +133,14 @@ def _quot_rem(sums, area):
 
 
 def box_blur(arr, radius: int):
-    """Box blur of u8 ``[..., H, W, C]``: the clamped-window mean,
-    rounded half up."""
+    """Box blur of ``[..., H, W, C]``: the clamped-window mean, rounded
+    half up for u8, in the input's dtype for a float input."""
     radius = int(radius)
     _check(arr, radius, "box_blur")
     if radius == 0:
         return arr
+    if arr.is_floating_point():
+        return _mean_f32(*_box_sums_float(arr, radius)).to(arr.dtype)
     sums, area = _box_sums_exact(arr, radius)
     if sums_fit_f32(arr.shape[-3], arr.shape[-2], radius):
         vals = torch.floor(_mean_f32(sums, area) + 0.5)
@@ -120,12 +151,15 @@ def box_blur(arr, radius: int):
 
 
 def sharpen(arr, radius: int):
-    """Unsharp mask of u8 ``[..., H, W, C]``: ``2 * x - box mean``,
+    """Unsharp mask of ``[..., H, W, C]``: ``2 * x - box mean``; for u8
     ``floor(v + 0.5)``, clipped (integral.zig sharpen)."""
     radius = int(radius)
     _check(arr, radius, "sharpen")
     if radius == 0:
         return arr
+    if arr.is_floating_point():
+        mean = _mean_f32(*_box_sums_float(arr, radius))
+        return (2.0 * arr.to(torch.float32) - mean).to(arr.dtype)
     sums, area = _box_sums_exact(arr, radius)
     if sums_fit_f32(arr.shape[-3], arr.shape[-2], radius):
         vals = 2.0 * arr.to(torch.float32) - _mean_f32(sums, area)

@@ -4,7 +4,11 @@ resolution, clamped windows and banded matrices.
 The table functions below are copied op for op from the JAX package, so both
 packages derive every integer tap from the same float32 arithmetic:
 
-- ``resolve_index_np`` and ``_axis_coords``: zignal_tpu/ops/interpolation.py
+- ``resolve_index_np``, ``_axis_coords``, the cubic-family kernels
+  (``_cubic_kernel_i32``, ``_catmull_kernel_i32``, ``_mitchell_kernel_i32``,
+  ``_trunc_div_np``), ``_lanczos_kernel_f32``, ``cubic_axis_table``,
+  ``lanczos_axis_table`` and ``nearest_indices``:
+  zignal_tpu/ops/interpolation.py
 - ``build_tap_matrix``: zignal_tpu/ops/mxu_resample.py
 - ``_kernel_to_int`` and ``gaussian_kernel``: zignal_tpu/ops/convolution.py
 - ``border_tap_table``: ``_axis_taps`` of zignal_tpu/ops/convolution.py,
@@ -21,13 +25,14 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..enums import BorderMode
+from ..enums import BorderMode, Interpolation
 
 __all__ = [
     "SCALE", "resolve_index_np", "build_tap_matrix", "gaussian_kernel",
     "blur_radius", "bilinear_axis_table", "halo_axis_table",
     "border_tap_table", "window_bounds", "extents", "clamped_band",
-    "band_to_taps", "tile_sources",
+    "band_to_taps", "tile_sources", "nearest_indices", "cubic_axis_table",
+    "lanczos_axis_table", "CUBIC_KERNELS",
 ]
 
 SCALE = 256  # 8.8 fixed point, for both the resize and the blur taps
@@ -65,6 +70,92 @@ def _axis_coords(src_n: int, dst_n: int):
     i0 = np.floor(src_f).astype(np.int64)
     frac = src_f - np.floor(src_f)  # f32 in [0,1)
     return src_f, i0, frac
+
+
+def nearest_indices(src_n: int, dst_n: int) -> np.ndarray:
+    """Nearest-neighbour source index of each output position, int64
+    ``[dst_n]``: ``floor(src + 0.5)`` in f32 (Zig @round, half away from
+    zero, on coordinates > -0.5), clipped to the axis."""
+    src, _, _ = _axis_coords(src_n, dst_n)
+    return np.clip(np.floor(src + np.float32(0.5)), 0,
+                   src_n - 1).astype(np.int64)
+
+
+def _trunc_div_np(a, b):
+    return (np.sign(a) * (np.abs(a) // np.abs(b))).astype(np.int64)
+
+
+def _cubic_kernel_i32(t):
+    """Bicubic a=-0.5 kernel in 8.8 fixed point (channel_ops.zig:228-244)."""
+    at = np.abs(t).astype(np.int64)
+    t2 = (at * at) // SCALE
+    t3 = (t2 * at) // SCALE
+    w_near = SCALE - 2 * t2 + t3
+    w_far = 4 * SCALE - 8 * at + 5 * t2 - t3
+    return np.where(at <= SCALE, w_near, np.where(at <= 2 * SCALE, w_far, 0))
+
+
+def _catmull_kernel_i32(t):
+    """Catmull-Rom kernel in 8.8 fixed point (channel_ops.zig:304-320)."""
+    at = np.abs(t).astype(np.int64)
+    t2 = (at * at) // SCALE
+    t3 = (t2 * at) // SCALE
+    w_near = SCALE - (5 * t2) // 2 + (3 * t3) // 2
+    w_far = 2 * SCALE - 4 * at + (5 * t2) // 2 - _trunc_div_np(t3, 2)
+    return np.where(at <= SCALE, w_near, np.where(at <= 2 * SCALE, w_far, 0))
+
+
+def _mitchell_kernel_i32(t):
+    """Mitchell-Netravali b=c=1/3 kernel (channel_ops.zig:378-394); its
+    support tests ``at < s`` where the other two test ``at <= SCALE``."""
+    s = SCALE
+    at = np.abs(t).astype(np.int64)
+    at2 = at * at
+    at3 = at2 * at
+    w_near = _trunc_div_np(21 * at3 - 36 * at2 * s + 16 * s**3, 18 * s * s)
+    w_far = _trunc_div_np(-7 * at3 + 36 * at2 * s - 60 * at * s * s
+                          + 32 * s**3, 18 * s * s)
+    return np.where(at < s, w_near, np.where(at < 2 * s, w_far, 0))
+
+
+def _lanczos_kernel_f32(x):
+    """Lanczos3 (channel_ops.zig:449-457), computed in f32."""
+    x = np.asarray(x, dtype=np.float32)
+    a = np.float32(3.0)
+    pi_x = np.float32(np.pi) * x
+    with np.errstate(divide="ignore", invalid="ignore"):
+        val = (a * np.sin(pi_x) * np.sin(pi_x / a)) / (pi_x * pi_x)
+    val = np.where(x == 0, np.float32(1.0), val)
+    return np.where(np.abs(x) >= a, np.float32(0.0), val).astype(np.float32)
+
+
+CUBIC_KERNELS = {  # the 8.8 integer kernel of each cubic-family method
+    Interpolation.BICUBIC: _cubic_kernel_i32,
+    Interpolation.CATMULL_ROM: _catmull_kernel_i32,
+    Interpolation.MITCHELL: _mitchell_kernel_i32,
+}
+
+
+def cubic_axis_table(src_n: int, dst_n: int, kernel):
+    """MIRROR-resolved indices int32 ``[dst, 4]`` and 8.8 integer weights
+    int32 ``[dst, 4]`` of a cubic-family axis."""
+    _, i0, frac = _axis_coords(src_n, dst_n)
+    f_fix = np.trunc(frac * np.float32(SCALE)).astype(np.int64)  # 0..255
+    ks = np.arange(4, dtype=np.int64)
+    idx = resolve_index_np(i0[:, None] + ks[None, :] - 1, src_n)
+    w = kernel(ks[None, :] * SCALE - SCALE - f_fix[:, None])
+    return idx.astype(np.int32), w.astype(np.int32)
+
+
+def lanczos_axis_table(src_n: int, dst_n: int):
+    """MIRROR-resolved indices int32 ``[dst, 6]`` and f32 Lanczos3
+    weights ``[dst, 6]``."""
+    _, i0, frac = _axis_coords(src_n, dst_n)
+    ks = np.arange(6, dtype=np.int64)
+    idx = resolve_index_np(i0[:, None] + ks[None, :] - 2, src_n)
+    w = _lanczos_kernel_f32((ks[None, :] - 2).astype(np.float32)
+                            - frac[:, None])
+    return idx.astype(np.int32), w.astype(np.float32)
 
 
 def build_tap_matrix(idx, weights, src_n: int, dst_n: int) -> np.ndarray:

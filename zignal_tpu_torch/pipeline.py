@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from .color import convert_chain
+from .color import convert_array, convert_chain
 from .enums import Interpolation
 from .ops.color_chain import chain_supported, fused_color_chain_u8
 from .ops.convolution import gaussian_blur
@@ -54,13 +54,16 @@ def resize_blur_oklab(batch, out_rows: int, out_cols: int, sigma: float = 2.0,
 
     batch: [B, H, W, 3] uint8 sRGB. Returns [B, out_rows, out_cols, 3]
     float32 Oklab. uint8 stages are bit-exact with the reference's
-    fixed-point kernels; the Oklab conversion is float32.
+    fixed-point kernels; the Oklab conversion is float32. Another
+    resampling method runs the three stages one after the other (the
+    separable kernel blurs on the card).
     """
-    if Interpolation(method) != Interpolation.BILINEAR:
-        raise NotImplementedError(
-            f"resize_blur_oklab with {Interpolation(method).name} is not "
-            "ported yet (ROADMAP item 9); only BILINEAR is")
-    return fused_resize_blur_oklab(batch, out_rows, out_cols, float(sigma))
+    if Interpolation(method) == Interpolation.BILINEAR:
+        return fused_resize_blur_oklab(batch, out_rows, out_cols,
+                                       float(sigma))
+    small = resize_op(batch, out_rows, out_cols, method)
+    blurred = gaussian_blur(small, float(sigma))
+    return convert_array(blurred.to(torch.float32) / 255.0, "rgb", "oklab")
 
 
 def filter_chain(plane, sigma: float = 2.0, sharpen_radius: int = 2,
