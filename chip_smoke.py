@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times [TREE]   # K2 and K4 times alone
 
 Phases (any failure raises and exits non-zero):
 1. device facts: torch/CUDA versions, the card's name and power limit,
@@ -16,17 +17,22 @@ Phases (any failure raises and exits non-zero):
 4. K1 and plain times at B=16 with CUDA events;
 5. K2 (the filter chain) vs plain on the card over the shapes of
    tests/test_pallas_filter.py, tiny planes and thresholds of 127.5, -1
-   and 300: outputs must be equal;
+   and 300, then at the edges of its tile plans (planes of 63-129 px at
+   B=1 and B=16, sigma 0-3.5, r 1-3): outputs must be equal;
 6. K4 (the separable u8 convolution) vs plain on the card: every border
-   at sigma 1 and 2, a signed 5-tap kernel, C in {1, 3, 4}, a 1-px axis
-   and a 2:1 bilinear band: outputs must be equal;
+   at sigma 1 and 2, a signed 5-tap kernel (the int32 route), C in 1-4,
+   planes of 63-129 px, 1-px axes and a 2:1 bilinear band: outputs must
+   be equal;
 7. the filter main paths: pipeline.filter_chain on [16, 1024, 1024] and
    [1, 1024, 1024] u8 (K2), and ImageBatch of [16, 1024, 1024, 3] RGB
    with .gaussian_blur and .convolve_separable (K4) and .sharpen,
    .box_blur and .dilate_binary (plain ops on the card), with the launch
    counts zeroed just before and read just after, and every output
    checked against its plain version;
-8. K2 and K4 times at B=16 of 1024^2 against plain, with CUDA events;
+8. K2 times at B=16 and B=1 and K4 times at sigma 2 and 1 (B=16 RGB)
+   against plain, with CUDA events and the profiler's device time, and
+   K4's library call (depthwise F.conv2d on the reflect-padded batch)
+   timed and checked beside it;
 9. the colour main paths, each with the launch counts zeroed just before
    and read just after, and every output checked against its plain version
    on the card: pipeline.color_chain_u8 on [4, 1024, 1024, 3] and
@@ -62,7 +68,9 @@ Phases (any failure raises and exits non-zero):
    within 1e-4 max-abs on 0-255 data (the CPU tests' bound); and a
    [2, 3, H, W, 3] resize on the card against the CPU;
 15. each phase-13 call timed with CUDA events after a warm-up.
-The last two lines are a JSON summary of the kernels and the device line.
+The last two lines are a JSON summary of the kernels (each with its
+bound: the larger of its bytes over 3.35 TB/s and its operations over 67
+TFLOP/s, the H100's published peaks) and the device line.
 """
 
 from __future__ import annotations
@@ -117,6 +125,18 @@ FILTER_ORACLE = [  # (shape, sigma, sharpen_radius, thr)
     ((256, 256), 2.0, 2, 300.0),
 ]
 _SIGNED = (-0.25, 0.5, 1.5, 0.5, -0.25)
+# K2 and K4 at the edges of their tile plans: planes just below, at and
+# above the tile sides, B=1 and B=16, the blur widths of the main paths
+EDGE_PLANES = ((16, 63, 129), (1, 64, 65), (1, 127, 63), (16, 129, 127),
+               (1, 65, 64))
+EDGE_SIGMAS = (0.0, 0.5, 1.0, 1.5, 2.0, 3.5)
+EDGE_THRESHOLDS = (127.5, -1.0, 300.0)
+CONV_EDGE_SHAPES = ((2, 63, 129), (1, 65, 64), (1, 1, 64), (1, 64, 1))
+# the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
+# bytes/s and f32 multiply-adds/s (67 TFLOP/s, 2 FLOP each); the bounds
+# count every multiply-add at this rate, the fastest exact one
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 
 
 def _card() -> str:
@@ -159,21 +179,125 @@ def _check_equal(label, got, want) -> int:
     return err
 
 
+def _check_all(label, pairs) -> int:
+    """Every (kernel, plain) pair equal; one line for the lot."""
+    torch.cuda.synchronize()
+    worst = max(_max_err(got, want) for got, want in pairs)
+    print(f"{label}: {len(pairs)} cases, max_abs_err={worst} "
+          f"{'ok' if worst == 0 else 'FAIL'}")
+    if worst:
+        raise AssertionError(f"kernel != plain: {label}")
+    return worst
+
+
+def _device_ms(fn, kernel_name, reps: int = 20) -> float:
+    """ms of device time a call of the kernels whose name holds
+    ``kernel_name`` (or one of a tuple of names), from torch.profiler over
+    ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        names = (kernel_name,) if isinstance(kernel_name, str) \
+            else kernel_name
+        if any(name in e.key for name in names):
+            us += getattr(e, "device_time_total", None) or e.cuda_time_total
+    return us / reps / 1e3
+
+
+def _bound(nbytes: float, ops: float):
+    """(ms, resource): the larger of the HBM time and the op time."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _k1_bound(b: int, n: int, o: int):
+    """K1: u8 in, f32 Oklab out; per output value 4 resize and 26 blur
+    multiply-adds (2 ops each), ~40 f32 ops of Oklab a pixel."""
+    values = b * o * o * 3
+    return _bound(b * n * n * 3 + 4 * values, values * 2 * 30
+                  + b * o * o * 40)
+
+
+def _k2_bound(b: int, n: int):
+    """K2: u8 in and out; per pixel 26 blur multiply-adds (2 ops each)
+    and 19 other ops (running box sums 4, sharpen 6, threshold 1, the
+    separable dilate and erode 8)."""
+    return _bound(2 * b * n * n, b * n * n * (2 * 26 + 19))
+
+
+def _k3_bound(b: int, n: int):
+    """K3: u8 in and out; on the bench chain 15 powf a pixel counted as 30
+    f32 ops each (log2, exp2 and the range reduction; an estimate) and
+    ~80 ops of 3x3 mixes and scalings."""
+    return _bound(6 * b * n * n, b * n * n * (15 * 30 + 80))
+
+
+def _k3p_bound(values: int):
+    """K3p: f32 in and out; two powers (30 ops each) and 5 ops a value."""
+    return _bound(8 * values, values * 65)
+
+
+def _k4_bound(x, k):
+    """K4: u8 in and out; 2 * len(k) multiply-adds (2 ops each) a value."""
+    return _bound(2 * x.numel(), x.numel() * 2 * 2 * len(k))
+
+
+def _library_conv(x, k):
+    """One PyTorch call per axis for the same function as K4 (the port
+    never calls it): depthwise ``F.conv2d`` in f32, TF32 off, of the u8
+    batch cast to f32 and padded with ``reflect`` (MIRROR while the
+    radius is below the axis length), the 8.8 integer taps as weights.
+    Returns (call, its int32 output in [B, H, W, C])."""
+    import torch.nn.functional as F
+    from zignal_tpu_torch.ops.tables import _kernel_to_int
+
+    torch.backends.cudnn.allow_tf32 = False
+    c, r = x.shape[-1], len(k) // 2
+    xp = F.pad(x.permute(0, 3, 1, 2).float(), (r, r, r, r), mode="reflect")
+    t = torch.from_numpy(_kernel_to_int(k).astype(np.float32)).cuda()
+    wx = t.view(1, 1, 1, -1).repeat(c, 1, 1, 1)
+    wy = t.view(1, 1, -1, 1).repeat(c, 1, 1, 1)
+
+    def call():
+        return F.conv2d(F.conv2d(xp, wx, groups=c), wy, groups=c)
+
+    return call, call().permute(0, 2, 3, 1).to(torch.int32)
+
+
 def _filter_phases(card, rng):
     """Phases 5-8: K2 and K4. Returns their entries of the kernels line."""
     from zignal_tpu_torch import BorderMode, ImageBatch, pipeline
     from zignal_tpu_torch.ops import binary, integral, tables
     from zignal_tpu_torch.ops import filter_chain as fc
     from zignal_tpu_torch.ops import separable_conv as sc
-    from zignal_tpu_torch.ops.convolution import convolve_separable, \
-        convolve_separable_reference
+    from zignal_tpu_torch.ops.convolution import _div_clamp_u8, \
+        convolve_separable, convolve_separable_reference
+    from zignal_tpu_torch.ops.tables import SCALE
 
-    # 5. K2 vs plain
+    # 5. K2 vs plain: the TPU tests' shapes, then the tile-plan edges
     for shape, sigma, r, thr in FILTER_ORACLE:
         x = _u8(rng, shape)
         _check_equal(f"K2 {shape} sigma={sigma} r={r} thr={thr}",
                      fc.fused_blur_sharpen_morph(x, sigma, r, thr),
                      fc.fused_blur_sharpen_morph_reference(x, sigma, r, thr))
+    cases = []
+    for shape in EDGE_PLANES:
+        x = _u8(rng, shape)
+        cases += [(x, sigma, r, 128.0) for sigma in EDGE_SIGMAS
+                  for r in (1, 2, 3)]
+        cases += [(x, 2.0, 2, thr) for thr in EDGE_THRESHOLDS]
+    _check_all("K2 tile-plan edges (planes of 63-129 px, B 1 and 16, "
+               f"sigma {EDGE_SIGMAS}, r 1-3, thr {EDGE_THRESHOLDS})",
+               [(fc.fused_blur_sharpen_morph(*c),
+                 fc.fused_blur_sharpen_morph_reference(*c)) for c in cases])
 
     # 6. K4 vs plain
     conv_oracle = [((2, 40, 56, 3), tables.gaussian_kernel(sigma), border)
@@ -191,6 +315,20 @@ def _filter_phases(card, rng):
         _check_equal(f"K4 {shape} taps={len(kernel)} {border.name}",
                      convolve_separable(x, kernel, kernel, border),
                      convolve_separable_reference(x, kernel, kernel, border))
+    pairs = []
+    for shape in CONV_EDGE_SHAPES:
+        for c in range(1, 5):
+            x = _u8(rng, (*shape, c))
+            for kernel in (tables.gaussian_kernel(2.0),
+                           tables.gaussian_kernel(1.0), _SIGNED):
+                for border in BorderMode:
+                    pairs.append((convolve_separable(x, kernel, kernel,
+                                                     border),
+                                  convolve_separable_reference(
+                                      x, kernel, kernel, border)))
+    _check_all("K4 tile-plan edges (C 1-4, every border, sigma 2 and 1 "
+               "on the f32 route, the signed 5-tap kernel on the int32 "
+               "route, WRAP edges, 1-px axes)", pairs)
     x = _u8(rng, (2, 1024, 768, 3))
     bands = []
     for n in (768, 1024):
@@ -252,21 +390,41 @@ def _filter_phases(card, rng):
             raise AssertionError(f"ImageBatch.{name} on the card != CPU")
         print(f"main path ImageBatch.{name}: equal to the CPU on image 0")
 
-    # 8. times at B=16: plain, kernel, kernel, plain in one process
-    p = planes[b]
-    rows = {}
-    for name, kern, plain in (
-            ("K2", lambda: fc.fused_blur_sharpen_morph(p),
-             lambda: fc.fused_blur_sharpen_morph_reference(p)),
-            ("K4", lambda: convolve_separable(x, k, k),
-             lambda: convolve_separable_reference(x, k, k))):
+    # 8. times: plain, kernel, kernel, plain in one process, with the
+    #    profiler's device time beside the events; K4's library call
+    k2_ms = {}
+    for bb, p in planes.items():
+        kern = lambda p=p: fc.fused_blur_sharpen_morph(p)  # noqa: E731
+        plain = lambda p=p: \
+            fc.fused_blur_sharpen_morph_reference(p)  # noqa: E731
         p1, t1, t2, p2 = (_time_ms(plain), _time_ms(kern), _time_ms(kern),
                           _time_ms(plain))
-        rows[name] = (min(t1, t2), min(p1, p2))
-        what = "gray" if name == "K2" else "RGB sigma=2"
-        print(f"[{card}] {name} B={b} {n}^2 {what} kernel: {t1:.4f} / "
-              f"{t2:.4f} ms ({b * n * n / 1e9 / (rows[name][0] / 1e3):.2f} "
-              f"GPix/s); plain: {p1:.4f} / {p2:.4f} ms")
+        dev = _device_ms(kern, "filter_kernel")
+        k2_ms[bb] = (min(t1, t2), min(p1, p2), dev)
+        print(f"[{card}] K2 B={bb} {n}^2 gray sigma=2 r=2 kernel: {t1:.4f} / "
+              f"{t2:.4f} ms (events), {dev:.4f} ms (profiler, device); "
+              f"plain: {p1:.4f} / {p2:.4f} ms; bound "
+              f"{_k2_bound(bb, n)[0]:.4f} ms")
+    k4_ms = {}
+    for sigma in (2.0, 1.0):
+        ks = tables.gaussian_kernel(sigma)
+        kern = lambda ks=ks: convolve_separable(x, ks, ks)  # noqa: E731
+        plain = lambda ks=ks: \
+            convolve_separable_reference(x, ks, ks)  # noqa: E731
+        lib, lib_out = _library_conv(x, ks)
+        lib_equal = torch.equal(_div_clamp_u8(lib_out, SCALE * SCALE),
+                                kern())
+        p1, t1, t2, p2 = (_time_ms(plain), _time_ms(kern), _time_ms(kern),
+                          _time_ms(plain))
+        l1, l2 = _time_ms(lib), _time_ms(lib)
+        dev = _device_ms(kern, "conv_kernel")
+        k4_ms[sigma] = (min(t1, t2), min(p1, p2), min(l1, l2), lib_equal)
+        print(f"[{card}] K4 B={b} {n}^2 RGB sigma={sigma} kernel: "
+              f"{t1:.4f} / {t2:.4f} ms (events), {dev:.4f} ms (profiler, "
+              f"device); plain: {p1:.4f} / {p2:.4f} ms; library (depthwise "
+              f"F.conv2d, two 1-D f32 calls on the reflect-padded batch, "
+              f"TF32 off): {l1:.4f} / {l2:.4f} ms, array_equal after "
+              f"divClampU8: {lib_equal}; bound {_k4_bound(x, ks)[0]:.4f} ms")
 
     k2 = {
         "name": "fused_blur_sharpen_morph",
@@ -275,8 +433,11 @@ def _filter_phases(card, rng):
         "replaces": "zignal_tpu/ops/pallas_filter.py:197",
         "launches": k2_launches,
         "max_abs_err": k2_err,
-        "ms": rows["K2"][0],
-        "plain_ms": rows["K2"][1],
+        "ms": k2_ms[b][0],
+        "plain_ms": k2_ms[b][1],
+        "bound_ms": _k2_bound(b, n)[0],
+        "bound_by": _k2_bound(b, n)[1],
+        "library_ms": None,  # five stages; no one PyTorch call
     }
     k4 = {
         "name": "separable_u8",
@@ -285,8 +446,11 @@ def _filter_phases(card, rng):
         "replaces": "zignal_tpu/ops/pallas_conv.py:135",
         "launches": k4_launches,
         "max_abs_err": k4_err,
-        "ms": rows["K4"][0],
-        "plain_ms": rows["K4"][1],
+        "ms": k4_ms[2.0][0],
+        "plain_ms": k4_ms[2.0][1],
+        "bound_ms": _k4_bound(x, k)[0],
+        "bound_by": _k4_bound(x, k)[1],
+        "library_ms": k4_ms[2.0][2] if k4_ms[2.0][3] else None,
     }
     return k2, k4
 
@@ -495,6 +659,9 @@ def _color_phases(card, rng):
         "max_abs_err": k3_err,
         "ms": rows[4][0],
         "plain_ms": rows[4][1],
+        "bound_ms": _k3_bound(4, n)[0],
+        "bound_by": _k3_bound(4, n)[1],
+        "library_ms": None,  # no one PyTorch call runs a colour chain
     }
     k3p = {
         "name": "transcendentals_probe",
@@ -505,6 +672,9 @@ def _color_phases(card, rng):
         "max_abs_err": probe_abs,
         "ms": min(t1, t2),
         "plain_ms": min(p1, p2),
+        "bound_ms": _k3p_bound(pb.numel())[0],
+        "bound_by": _k3p_bound(pb.numel())[1],
+        "library_ms": None,  # the probe is a where() of two sums of powers
     }
     return k3, k3p, (k1_ex, k4_ex)
 
@@ -674,10 +844,88 @@ def _slice4_phases(card, rng):
     return k1_launches, k4_launches
 
 
+def _host_us(fn, reps: int = 200) -> float:
+    """µs of host time a call, back to back without a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
+def kernel_times(tree) -> int:
+    """``--times [TREE]``: K2 and K4 alone, on the package found first on
+    ``TREE`` (another checkout, e.g. a ``git archive`` of the parent
+    commit) or this one: CUDA events, the profiler's device time and the
+    host time a call at the main-path shapes, the library call beside K4,
+    and, where the package has tile lists, each tile alone."""
+    if tree:
+        sys.path.insert(0, tree)
+    from zignal_tpu_torch.ops import filter_chain as fc
+    from zignal_tpu_torch.ops import separable_conv as sc
+    from zignal_tpu_torch.ops.convolution import _div_clamp_u8, \
+        convolve_separable
+    from zignal_tpu_torch.ops.tables import gaussian_kernel
+
+    card = _card()
+    label = tree or "this tree"
+    rng = np.random.default_rng(0)
+    n = MAIN["size"]
+    k2_names, k4_names = "filter_kernel", ("separable_kernel", "conv_kernel")
+    cases = []
+    for b in (FILTER_BATCH, 1):
+        p = _u8(rng, (b, n, n))
+        cases.append((f"K2 B={b} {n}^2 gray sigma=2 r=2", k2_names,
+                      lambda p=p: fc.fused_blur_sharpen_morph(p)))
+    x = _u8(rng, (FILTER_BATCH, n, n, 3))
+    for sigma in (2.0, 1.0):
+        k = gaussian_kernel(sigma)
+        cases.append((f"K4 B={FILTER_BATCH} {n}^2 RGB sigma={sigma}",
+                      k4_names, lambda k=k: convolve_separable(x, k, k)))
+    g = _u8(rng, (1, n, n, 1))
+    kp = gaussian_kernel(1.6)
+    cases.append((f"K4 pyramid blur, one {n}^2 gray plane, sigma=1.6",
+                  k4_names, lambda: convolve_separable(g, kp, kp)))
+    for name, kernels, fn in cases:
+        print(f"[{card}] {label} {name}: {_time_ms(fn, 50):.4f} ms (events),"
+              f" {_device_ms(fn, kernels):.4f} ms (profiler, device), "
+              f"{_host_us(fn):.1f} us host a call", flush=True)
+    for sigma in (2.0, 1.0):
+        k = gaussian_kernel(sigma)
+        lib, lib_out = _library_conv(x, k)
+        equal = torch.equal(_div_clamp_u8(lib_out, 65536),
+                            convolve_separable(x, k, k))
+        print(f"[{card}] {label} library call (depthwise F.conv2d, two 1-D "
+              f"f32 calls) B={FILTER_BATCH} RGB sigma={sigma}: "
+              f"{_time_ms(lib, 20):.4f} ms, array_equal={equal}", flush=True)
+    if hasattr(fc, "TilePlan"):
+        p16 = _u8(rng, (FILTER_BATCH, n, n))
+        k2 = gaussian_kernel(2.0)
+        for mod, tiles, fn, kernels in (
+                (fc, fc.TILES[:5], lambda: fc.fused_blur_sharpen_morph(p16),
+                 k2_names),
+                (sc, sc.CONV_TILES[:5], lambda: convolve_separable(x, k2, k2),
+                 k4_names)):
+            for tile in tiles:
+                setattr(mod, "TILES" if mod is fc else "CONV_TILES", (tile,))
+                mod._TABLES.clear()
+                print(f"[{card}] {label} {mod.__name__.rsplit('.', 1)[1]} "
+                      f"B={FILTER_BATCH} tile {tile} alone: "
+                      f"{_device_ms(fn, kernels):.4f} ms (profiler, device)",
+                      flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--times" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--times") + 1:]
+        return kernel_times(rest[0] if rest else None)
     from zignal_tpu_torch import ImageBatch
     from zignal_tpu_torch.ops import _build, fused_pipeline as fp
 
@@ -771,6 +1019,9 @@ def main() -> int:
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": _k1_bound(16, n, o)[0],
+        "bound_by": _k1_bound(16, n, o)[1],
+        "library_ms": None,  # F.interpolate's taps are float, not 8.8
     }
     k2, k4 = _filter_phases(card, rng)
     k3, k3p, (k1_ex, k4_ex) = _color_phases(card, rng)

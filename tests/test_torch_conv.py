@@ -176,6 +176,212 @@ def test_kernel_tiling_reproduces_plain_on_a_downscale_band():
     assert np.array_equal(_kernel_tiles(x, mx, my, 8), want.numpy())
 
 
+def _div_clamp(a):
+    return np.where(a < 0, 0, np.minimum((a + 32768) >> 16, 255))
+
+
+def _fma_f32(a, b, c):
+    """f32 fused multiply-add: a * b + c rounded once (exact in f64 for
+    f32 a, b and c of these sizes)."""
+    return (a.astype(np.float64) * np.float64(b)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _conv_tiles(x, kx, ky, border, tw, th, f32):
+    """A numpy transcription of conv_kernel, tile by tile: the source
+    region through the halo tables (contiguous where the kernel's interior
+    test holds), the int32 width pass, the height pass as f32 FMAs in tap
+    order (``f32``) or in int32, divClampU8 (>= 2^24 clips to 255)."""
+    b, h, w, c = x.shape
+    kx = tables._kernel_to_int(kx).astype(np.int64)
+    ky = tables._kernel_to_int(ky).astype(np.int64)
+    ty = sc._halo(h, len(ky), border, "cpu").numpy()
+    tx = sc._halo(w, len(kx), border, "cpu").numpy()
+    out = np.zeros_like(x)
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            tth, ttw = min(th, h - y0), min(tw, w - x0)
+            sh, sw = tth + len(ky) - 1, ttw + len(kx) - 1
+            rows, cols = ty[y0:y0 + sh], tx[x0:x0 + sw]
+            staged = x[:, np.maximum(rows, 0)][:, :, np.maximum(cols, 0)] \
+                .astype(np.int64)
+            staged[:, rows < 0] = 0
+            staged[:, :, cols < 0] = 0
+            sy0, sx0 = y0 - len(ky) // 2, x0 - len(kx) // 2
+            if sy0 >= 0 and sy0 + sh <= h and sx0 >= 0 and sx0 + sw <= w:
+                assert np.array_equal(staged, x[:, sy0:sy0 + sh,
+                                                sx0:sx0 + sw])
+            t = sum(kx[j] * staged[:, :, j:j + ttw] for j in range(len(kx)))
+            if f32:
+                tf = t.astype(np.float32)
+                acc = np.zeros((b, tth, ttw, c), np.float32)
+                for k in range(len(ky)):
+                    acc = _fma_f32(tf[:, k:k + tth], np.float32(ky[k]), acc)
+                v = np.where(acc >= 2 ** 24, 255,
+                             _div_clamp(acc.astype(np.int64)))
+            else:
+                acc = sum(ky[k] * t[:, k:k + tth] for k in range(len(ky)))
+                v = _div_clamp(acc)
+            out[:, y0:y0 + tth, x0:x0 + ttw] = v
+    return out
+
+
+CONV_KERNELS = [GAUSS2, GAUSS, tables.gaussian_kernel(1.5), SIGNED,
+                tables.gaussian_kernel(3.5), (0.25, 0.5, 0.25, 0.125)]
+
+
+@pytest.mark.parametrize("border", list(BorderMode), ids=lambda b: b.name)
+@pytest.mark.parametrize("tile", [(64, 32), (16, 8), (4, 8)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_conv_kernel_tiling_reproduces_plain(border, tile):
+    """conv_kernel's halo tables, tile bounds and interior test give the
+    plain version's u8 at ragged edge tiles, WRAP and ZERO edges, an axis
+    shorter than the radius and an even kernel, in the form (f32 or int32)
+    the wrapper picks."""
+    for shape in ((2, 45, 70, 3), (1, 3, 20, 1), (1, 33, 65, 4)):
+        x = _u8(shape, 24)
+        for k in CONV_KERNELS:
+            f32 = sc.f32_exact(tables._kernel_to_int(k),
+                               tables._kernel_to_int(k))
+            want = convolve_separable_reference(torch.from_numpy(x), k, k,
+                                                border)
+            got = _conv_tiles(x, k, k, border, *tile, f32)
+            assert np.array_equal(got, want.numpy()), (shape, len(k))
+
+
+def test_f32_height_pass_is_exact_where_the_predicate_admits_it():
+    """For every pair of kernels the predicate admits, f32 FMAs in the
+    kernel's tap order give the int32 plain version on an all-255 plane
+    (sigma 2's taps sum to 257: the sums pass 2^24 and clip) and on random
+    planes; signed bands past 2^24 are refused."""
+    k2 = tables._kernel_to_int(GAUSS2)
+    assert k2.sum() == 257 and 255 * 257 * 257 >= 2 ** 24
+    admitted = [(GAUSS2, GAUSS2), (GAUSS, GAUSS2), (SIGNED, (1 / 256,)),
+                ((1 / 64, 1 / 32, 1 / 64), SIGNED[:3]),
+                (tables.gaussian_kernel(5.0), tables.gaussian_kernel(0.5))]
+    for kx, ky in admitted:
+        assert sc.f32_exact(tables._kernel_to_int(kx),
+                            tables._kernel_to_int(ky))
+        for x in (np.full((1, 30, 41, 3), 255, np.uint8),
+                  _u8((2, 30, 41, 3), 25), _u8((1, 16, 16, 1), 26) | 0xF0):
+            for border in (BorderMode.MIRROR, BorderMode.ZERO):
+                want = convolve_separable_reference(torch.from_numpy(x), kx,
+                                                    ky, border)
+                got = _conv_tiles(x, kx, ky, border, 16, 8, True)
+                assert np.array_equal(got, want.numpy()), (len(kx), len(ky))
+    for kx, ky in ((SIGNED, SIGNED), (SIGNED, GAUSS2), (GAUSS, SIGNED)):
+        assert not sc.f32_exact(tables._kernel_to_int(kx),
+                                tables._kernel_to_int(ky))
+    mx = _band(40, k2, BorderMode.WRAP)
+    assert sc.f32_exact(mx, mx)
+    assert not sc.f32_exact(_band(40, tables._kernel_to_int(SIGNED),
+                                  BorderMode.ZERO), mx)
+
+
+@pytest.mark.parametrize("b,h,w", [(16, 1024, 1024), (1, 1024, 1024),
+                                   (2, 63, 129), (1, 1, 65), (3, 65, 1)])
+def test_conv_tile_plans_fit_shared_memory(b, h, w):
+    """Every plan for sigma up to 5 and C in 1..4 fits 232,448 bytes,
+    with power-of-two tiles and the staged rows and the width pass's
+    values (8 rows of slack) in order."""
+    for sigma in np.arange(0.5, 5.01, 0.5):
+        k = len(tables.gaussian_kernel(float(sigma)))
+        for c in range(1, 5):
+            p = sc.conv_tile_plan(k, k, c, h, w, b, 132)
+            assert p.smem <= 232448
+            assert p.tw & (p.tw - 1) == 0 and p.th & (p.th - 1) == 0
+            assert p.tw >= 4 and p.th >= 8
+            assert p.sp % 16 == 0 and p.sp >= (p.tw + k - 1) * c + 16
+            assert p.off_t % 16 == 0 and p.off_t >= (p.th + k - 1) * p.sp
+            assert p.tw <= sc.TILE_W
+            assert p.smem == p.off_t + 4 * (p.th + k - 1 + 8) * 64 * c
+    big = sc.conv_tile_plan(13, 13, 3, 1024, 1024, 16, 132)
+    assert big.blocks >= 4 * 132
+
+
+def test_band_plans_fit_shared_memory():
+    """band_kernel's plans for the bands the wrappers send it: convolution
+    bands up to sigma 5 on every border, a 2:1 bilinear band, kernels of
+    more than conv_kernel's 256 taps, and dense bands at the int32 bound."""
+    bands = [_band(n, tables._kernel_to_int(tables.gaussian_kernel(s)), b)
+             for n in (1, 40, 200) for s in (0.5, 2.0, 5.0)
+             for b in BorderMode]
+    bands.append(pallas_pipeline._bilinear_matrix(1024, 512))
+    bands.append(_band(600, tables._kernel_to_int(tables.gaussian_kernel(
+        43.0)), BorderMode.MIRROR))
+    dense = np.full((64, 64), 45, np.int64)  # 255 * 2880^2 + 2^15 < 2^31
+    sc._check(torch.zeros((1, 64, 64, 1), dtype=torch.uint8), dense, dense)
+    bands.append(dense)
+    for M in bands:
+        for c in (1, 3, 4):
+            plan = sc._BandPlan(M, M, 1, M.shape[1], M.shape[1], c, "cpu")
+            assert plan.smem <= 232448
+
+
+def test_kernels_too_long_for_a_conv_tile_take_the_band_kernel():
+    """sigma 30 (181 taps) on RGB fits no conv_kernel tile; run_conv then
+    sends its bands to band_kernel, whose plan fits; sigma 20 still fits
+    a conv tile."""
+    for sigma, c, fits in ((30.0, 3, False), (30.0, 1, True),
+                           (20.0, 4, True)):
+        k = tables._kernel_to_int(tables.gaussian_kernel(sigma))
+        plan = sc._conv_plan(k, k, BorderMode.REPLICATE, 1, 64, 64, c, "cpu")
+        assert (plan is not None) == fits
+        if not fits:
+            band = _band(64, k, BorderMode.REPLICATE)
+            assert sc._BandPlan(band, band, 1, 64, 64, c, "cpu").smem \
+                <= 232448
+
+
+def test_halo_tables_resolve_each_border():
+    """Entry y0 + r of a table is source position y0 - k // 2 + r under
+    the border, -1 where ZERO reads 0, on axes longer and shorter than the
+    kernel."""
+    for n in (1, 2, 5, 40):
+        for k in (1, 4, 5, 13):
+            for border in BorderMode:
+                got = sc._halo(n, k, border, "cpu").numpy()
+                want = tables.resolve_index_np(np.arange(-(k // 2),
+                                                         n + k - 1 - k // 2),
+                                               n, border)
+                assert got.shape == (n + k - 1,)
+                assert np.array_equal(got, want)
+
+
+# integer inputs other than u8 over their whole range (int32: +-2^30,
+# which f32 rounds; the JAX package rounds them the same way)
+INT_DTYPES = [(np.int16, -32768, 32768), (np.uint16, 0, 65536),
+              (np.int32, -2 ** 30, 2 ** 30)]
+
+
+@pytest.mark.parametrize("dtype,lo,hi", INT_DTYPES,
+                         ids=lambda d: getattr(d, "__name__", str(d)))
+@pytest.mark.parametrize("border", list(BorderMode), ids=lambda b: b.name)
+def test_integer_convolutions_match_jax(dtype, lo, hi, border):
+    """convolve_separable, gaussian_blur and convolve2d take the JAX
+    package's float route for other integer dtypes: f32 out. Bound: 0.0,
+    the same f32 products summed in the same contracted order."""
+    x = np.random.default_rng(26).integers(lo, hi, (1, 8, 9, 3)) \
+        .astype(dtype)
+    jb = JaxBorder(int(border))
+    pairs = [
+        (convolve_separable(torch.from_numpy(x), GAUSS, SIGNED, border),
+         jax_conv.convolve_separable(jnp.asarray(x), GAUSS, SIGNED, jb)),
+        (gaussian_blur(torch.from_numpy(x), 2.0, border),
+         jax_conv.gaussian_blur(jnp.asarray(x), 2.0, jb)),
+        (convolve2d(torch.from_numpy(x[0]), ((0.0, -1.0, 0.0),
+                                             (-1.0, 5.0, -1.0),
+                                             (0.0, -1.0, 0.0)), border),
+         jax_conv.convolve2d(jnp.asarray(x[0]), ((0.0, -1.0, 0.0),
+                                                 (-1.0, 5.0, -1.0),
+                                                 (0.0, -1.0, 0.0)), jb)),
+    ]
+    for got, want in pairs:
+        got, want = got.numpy(), np.asarray(want)
+        assert got.dtype == want.dtype == np.float32
+        assert float(np.abs(got - want).max()) <= 0.0
+
+
 def test_separable_wrapper_on_cpu_runs_plain_without_launching():
     x = torch.from_numpy(_u8((1, 30, 20, 3), 19))
     ki = tables._kernel_to_int(GAUSS)

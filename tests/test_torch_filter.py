@@ -176,65 +176,70 @@ def test_filter_chain_reference_matches_the_pallas_kernel_interpret():
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-def _kernel_tiles(x, sigma, rs, thr, tile):
+def _kernel_tiles(x, sigma, rs, thr, tile, tw=None):
     """A numpy transcription of filter_kernel's regions and index
-    arithmetic, tile by tile: input through the halo tables, blur width
-    and height passes, blurred values zeroed outside the image, box width
-    and height passes, sharpen (f32 or int form), threshold, dilate with
-    the outside set back to 0, erode."""
+    arithmetic, tile by tile (``tile`` rows, ``tw`` columns): input
+    through the halo tables, blur width and height passes, blurred values
+    zeroed outside the image, box sums as running sums, sharpen (f32 or
+    int form) over the clamped window lengths, threshold, dilate as a row
+    OR and a column OR with the outside set back to 0, erode as a row AND
+    and a column AND."""
     h, w = x.shape
-    plan = fc._Plan(h, w, sigma, rs, "cpu")
+    tw = tile if tw is None else tw
+    plan = fc._Plan(1, h, w, sigma, rs, "cpu")
     ty, tx = plan.ty.numpy(), plan.tx.numpy()
-    ey, ex = plan.ey.numpy(), plan.ex.numpy()
-    taps = plan.taps.numpy().astype(np.int64)
-    hh, g = 2 + rs, 2 + rs + plan.rb
+    f = dict(zip(fc._FIELDS, plan.base))
+    taps = plan.base[len(fc._FIELDS) + 2:][:f["kb"]].astype(np.int64)
+    hh, g = 2 + rs, 2 + rs + f["rb"]
     kb, ks = len(taps), 2 * rs + 1
     out = np.zeros_like(x)
 
     def inside(y, xx):
         return ((y >= 0) & (y < h))[:, None] & ((xx >= 0) & (xx < w))[None]
 
+    def extent(i, n):
+        return (np.minimum(i + rs, n - 1) - np.maximum(i - rs, 0)
+                + 1).astype(np.float32)
+
     for y0 in range(0, h, tile):
-        for x0 in range(0, w, tile):
-            th, tw = min(tile, h - y0), min(tile, w - x0)
-            inp = x[ty[y0:y0 + th + 2 * g]][:, tx[x0:x0 + tw + 2 * g]] \
+        for x0 in range(0, w, tw):
+            th, tcw = min(tile, h - y0), min(tw, w - x0)
+            inp = x[ty[y0:y0 + th + 2 * g]][:, tx[x0:x0 + tcw + 2 * g]] \
                 .astype(np.int64)
-            bh, bw, mh, mw = th + 2 * hh, tw + 2 * hh, th + 4, tw + 4
-            tmp = sum(taps[k] * inp[:, k:k + bw] for k in range(kb))
-            acc = sum(taps[k] * tmp[k:k + bh] for k in range(kb))
+            bh, bw, mh, mw = th + 2 * hh, tcw + 2 * hh, th + 4, tcw + 4
+            dh, dw = th + 2, tcw + 2
+            a = sum(taps[k] * inp[:, k:k + bw] for k in range(kb))
+            acc = sum(taps[k] * a[k:k + bh] for k in range(kb))
             bl = np.minimum((acc + 32768) >> 16, 255)
             bl[~inside(np.arange(y0 - hh, y0 - hh + bh),
                        np.arange(x0 - hh, x0 - hh + bw))] = 0
-            boxw = sum(bl[:, k:k + mw] for k in range(ks))
-            s = sum(boxw[k:k + mh] for k in range(ks))
+            boxw = np.cumsum(np.pad(bl, ((0, 0), (1, 0))), axis=1)
+            boxw = boxw[:, ks:ks + mw] - boxw[:, :mw]
+            s = np.cumsum(np.pad(boxw, ((1, 0), (0, 0))), axis=0)
+            s = s[ks:ks + mh] - s[:mh]
             b = bl[rs:rs + mh, rs:rs + mw]
             ys, xs = np.arange(y0 - 2, y0 - 2 + mh), np.arange(x0 - 2,
                                                                x0 - 2 + mw)
-            area = ey[np.clip(ys, 0, h - 1)][:, None] \
-                * ex[np.clip(xs, 0, w - 1)][None]
-            if plan.int_form:
-                a = area.astype(np.int64)
-                q, rem = s // a, s % a
-                sh = np.clip(2 * b - q - (2 * rem > a), 0, 255)
+            area = extent(ys, h)[:, None] * extent(xs, w)[None]
+            if f["int_form"]:
+                ai = np.maximum(area.astype(np.int64), 1)
+                q, rem = s // ai, s % ai
+                sh = np.clip(2 * b - q - (2 * rem > ai), 0, 255)
             else:
-                mean = s.astype(np.float32) * (np.float32(1) / area)
-                v = np.float32(2) * b.astype(np.float32) - mean
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    mean = s.astype(np.float32) * (np.float32(1) / area)
+                    v = np.float32(2) * b.astype(np.float32) - mean
                 sh = np.clip(np.floor(v + np.float32(0.5)), 0, 255)
             mask = np.where(inside(ys, xs)
                             & (sh.astype(np.float32) > np.float32(thr)),
                             255, 0)
-            dil = np.zeros((th + 2, tw + 2), np.int64)
-            for dy in range(3):
-                for dx in range(3):
-                    dil = np.maximum(dil, mask[dy:dy + th + 2,
-                                               dx:dx + tw + 2])
+            rows = mask[:, 0:dw] | mask[:, 1:dw + 1] | mask[:, 2:dw + 2]
+            dil = rows[0:dh] | rows[1:dh + 1] | rows[2:dh + 2]
             dil[~inside(np.arange(y0 - 1, y0 + th + 1),
-                        np.arange(x0 - 1, x0 + tw + 1))] = 0
-            ero = np.full((th, tw), 255, np.int64)
-            for dy in range(3):
-                for dx in range(3):
-                    ero = np.minimum(ero, dil[dy:dy + th, dx:dx + tw])
-            out[y0:y0 + th, x0:x0 + tw] = ero
+                        np.arange(x0 - 1, x0 + tcw + 1))] = 0
+            rows = dil[:, 0:tcw] & dil[:, 1:tcw + 1] & dil[:, 2:tcw + 2]
+            out[y0:y0 + th, x0:x0 + tcw] = rows[0:th] & rows[1:th + 1] \
+                & rows[2:th + 2]
     return out
 
 
@@ -270,13 +275,103 @@ def test_kernel_tiling_reproduces_plain_in_the_int_form(monkeypatch):
 @pytest.mark.parametrize("rb,rs,tile", [(6, 2, 32), (90, 2, 32), (12, 60, 32),
                                         (200, 2, 16)])
 def test_tile_plan_fits_shared_memory(rb, rs, tile):
-    got_tile, smem = fc._tile_plan(rb, rs)
-    assert got_tile == tile and smem <= 232448
+    """The plan for B=16 planes of tile x tile pixels (and of 1024^2)
+    fits a block, with a tile at least 4 columns wide."""
+    for side in (tile, 1024):
+        plan = fc._tile_plan(rb, rs, side, side, 16, 132)
+        assert plan.smem <= 232448
+        assert plan.tw >= 4 and plan.tw % 4 == 0
+        assert plan.tw + 2 * (rs + 2) <= 1 << plan.lg_bw
 
 
 def test_tile_plan_rejects_radius_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
-        fc._tile_plan(12, 100)
+        fc._tile_plan(12, 100, 1024, 1024, 1, 132)
+
+
+@pytest.mark.parametrize("b,h,w", [(16, 1024, 1024), (1, 1024, 1024),
+                                   (1, 63, 129), (3, 1, 65), (1, 1, 1)])
+def test_tile_plans_fit_for_every_main_sigma_and_radius(b, h, w):
+    """Every (sigma <= 5, r <= 3) plan fits 232,448 bytes, its regions
+    follow one another in order, 16-byte aligned, and hold the kernel's
+    reads: the input rows plus slack, the blur width pass plus 8 rows
+    that a vertical pass may read past its region."""
+    for sigma in np.arange(0.0, 5.01, 0.5):
+        rb = fc.blur_radius(float(sigma))
+        for rs in range(4):
+            p = fc._tile_plan(rb, rs, h, w, b, 132)
+            hh, g, bw = rs + 2, rs + 2 + rb, 1 << p.lg_bw
+            ih = p.th + 2 * g
+            assert p.smem <= 232448
+            assert p.tw % 4 == 0 and p.tw + 2 * hh <= bw
+            assert p.iws % 16 == 0 and p.iws >= p.tw + 2 * g + 16
+            assert p.off_a >= ih * p.iws + 16
+            assert p.off_bl - p.off_a == 4 * (ih + fc.ROWS) * bw
+            assert p.off_m0 >= p.off_bl + (p.th + 2 * hh) * bw + 16
+            assert p.off_m1 >= p.off_m0 + (p.th + 4) * bw + 16
+            assert all(o % 16 == 0 for o in (p.off_a, p.off_bl, p.off_m0,
+                                             p.off_m1))
+
+
+def test_tile_plan_follows_the_grid():
+    """B=16 of 1024^2 takes the first tile of the list; B=1 a smaller one,
+    so the grid still gives every SM 4 blocks."""
+    big = fc._tile_plan(6, 2, 1024, 1024, 16, 132)
+    assert (1 << big.lg_bw, big.th, big.tw) == (64, 56, 56)
+    small = fc._tile_plan(6, 2, 1024, 1024, 1, 132)
+    assert small.blocks >= 4 * 132
+    assert small.th * small.tw < big.th * big.tw
+
+
+@pytest.mark.parametrize("hw", [(63, 129), (64, 65), (65, 64), (127, 63),
+                                (129, 127), (1, 65), (65, 1), (1, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("tile", [fc.TILES[0], fc.TILES[3], fc.TILES[8]],
+                         ids=lambda t: f"bw{1 << t[0]}-th{t[1]}")
+def test_kernel_tiling_reproduces_plain_at_real_tiles(hw, tile):
+    """The kernel's own tile shapes, on planes below, at and above the
+    tile sides: the numpy transcription equals the plain version."""
+    x = _u8(hw, 23)
+    plan = fc.TilePlan(tile[0], tile[1], fc.blur_radius(2.0), 2)
+    for sigma, rs, thr in ((2.0, 2, 128.0), (1.0, 1, 127.5)):
+        want = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x),
+                                                     sigma, rs, thr)
+        got = _kernel_tiles(x, sigma, rs, thr, plan.th, plan.tw)
+        assert np.array_equal(got, want.numpy()), (sigma, rs)
+
+
+@pytest.mark.parametrize("hw", [(300, 1024), (63, 129), (64, 65), (65, 64),
+                                (129, 127), (1, 65), (65, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_interior_tiles_read_contiguous_rows(hw):
+    """Where the kernel's interior test holds, its halo tables are the
+    identity, so a contiguous (and, on 16-byte rows, cp.async) staging
+    reads what the tables would; the 16-byte chunks stay inside the row
+    and the staged row. Planes below, at and above the tile sides."""
+    h, w = hw
+    n_in = 0
+    for sigma, rs in ((2.0, 2), (1.0, 1), (3.5, 3)):
+        plan = fc._Plan(1, h, w, sigma, rs, "cpu")
+        f = dict(zip(fc._FIELDS, plan.base))
+        g = 2 + rs + f["rb"]
+        ty, tx = plan.ty.numpy(), plan.tx.numpy()
+        for y0 in range(0, h, f["th"]):
+            for x0 in range(0, w, f["tw"]):
+                th, tw = min(f["th"], h - y0), min(f["tw"], w - x0)
+                if not (y0 >= g and y0 + th + g <= h and x0 >= g
+                        and x0 + tw + g <= w):
+                    continue
+                n_in += 1
+                assert np.array_equal(ty[y0:y0 + th + 2 * g],
+                                      np.arange(y0 - g, y0 + th + g))
+                assert np.array_equal(tx[x0:x0 + tw + 2 * g],
+                                      np.arange(x0 - g, x0 + tw + g))
+                cs = (x0 - g) & ~15
+                nch = (x0 - g - cs + tw + 2 * g + 15) >> 4
+                if w % 16 == 0:
+                    assert 0 <= cs and cs + 16 * nch <= w
+                assert 16 * nch <= f["iws"]
+    assert n_in > 0 or min(h, w) < 128
 
 
 def test_pipeline_filter_chain_on_cpu_matches_jax_without_launching():
@@ -312,13 +407,39 @@ def test_filter_chain_rejects_bad_arguments(args, err):
 
 
 def test_unported_inputs_raise_not_implemented():
-    """Float inputs are ported; integer dtypes other than uint8, which the
-    JAX package sends down its float path, are not."""
+    """Float inputs are ported, and integer dtypes other than uint8 take
+    the JAX package's float route (below); complex inputs are not
+    ported."""
     x = torch.zeros((1, 8, 8, 3))
     for op in (integral.box_blur, integral.sharpen):
         assert torch.equal(op(x, 1), x)
-        with pytest.raises(NotImplementedError, match="int32 is not ported"):
-            op(x.to(torch.int32), 1)
+        assert op(x.to(torch.int32), 1).dtype == torch.int32
+        with pytest.raises(NotImplementedError, match="complex64 is not "
+                                                      "ported"):
+            op(x.to(torch.complex64), 1)
+
+
+# integer inputs other than u8, full range for 16 bits and +-2^16 for
+# int32, so the JAX package's f32 summed-area table is exact on them
+INT_DTYPES = [(np.int16, -32768, 32768), (np.uint16, 0, 65536),
+              (np.int32, -65536, 65536)]
+
+
+@pytest.mark.parametrize("dtype,lo,hi", INT_DTYPES,
+                         ids=lambda d: getattr(d, "__name__", str(d)))
+@pytest.mark.parametrize("op", ["box_blur", "sharpen"])
+@pytest.mark.parametrize("radius", [1, 2, 3])
+def test_integer_box_blur_and_sharpen_match_jax(dtype, lo, hi, op, radius):
+    """The JAX package's float route: f32 window means converted back to
+    the input's dtype as XLA converts (truncated, saturated; sharpen's
+    2x - mean leaves the range at the extremes). Equal, and of the
+    input's dtype."""
+    x = np.random.default_rng(24).integers(lo, hi, (8, 9, 1)).astype(dtype)
+    x[0, 0, 0], x[0, 1, 0] = lo, hi - 1
+    got = getattr(integral, op)(torch.from_numpy(x), radius).numpy()
+    want = np.asarray(getattr(jax_integral, op)(jnp.asarray(x), radius))
+    assert got.dtype == want.dtype == dtype
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])

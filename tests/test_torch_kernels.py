@@ -149,6 +149,45 @@ def test_filter_kernel_equals_plain(cuda, shape, sigma, radius, thr):
     assert torch.equal(got, want)
 
 
+# the new K2 tile plans at their edges: planes just below, at and above the
+# tile sides, B=1 and B=16, the blur and sharpen radii of the main paths
+EDGE_SIDES = [(63, 129), (64, 65), (65, 64), (127, 63), (129, 127), (1, 65),
+              (65, 1)]
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("hw", EDGE_SIDES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sigma", [0.0, 0.5, 1.0, 1.5, 2.0, 3.5])
+def test_filter_kernel_at_tile_edges_equals_plain(cuda, batch, hw, sigma):
+    x = _u8((batch, *hw), 20, cuda)
+    for radius, thr in ((1, 127.5), (2, 128.0), (3, 90.0)):
+        got = fc.fused_blur_sharpen_morph(x, sigma, radius, thr)
+        want = fc.fused_blur_sharpen_morph_reference(x, sigma, radius, thr)
+        assert torch.equal(got, want), (radius, thr)
+
+
+@pytest.mark.parametrize("tile", fc.TILES,
+                         ids=lambda t: f"bw{1 << t[0]}-th{t[1]}")
+def test_filter_kernel_every_tile_equals_plain(cuda, tile, monkeypatch):
+    monkeypatch.setattr(fc, "TILES", (tile,))
+    monkeypatch.setattr(fc, "_TABLES", {})
+    for shape, sigma, radius, thr in (((3, 200, 300), 2.0, 2, 128.0),
+                                      ((2, 130, 70), 1.0, 1, -1.0),
+                                      ((1, 90, 250), 3.5, 3, 300.0),
+                                      ((1, 57, 33), 1.5, 2, 127.5)):
+        x = _u8(shape, 21, cuda)
+        got = fc.fused_blur_sharpen_morph(x, sigma, radius, thr)
+        want = fc.fused_blur_sharpen_morph_reference(x, sigma, radius, thr)
+        assert torch.equal(got, want), (shape, sigma)
+
+
+def test_filter_kernel_unaligned_plane_equals_plain(cuda):
+    base = _u8((2 * 256 * 256 + 3,), 22, cuda)
+    x = base[3:].view(2, 256, 256)   # rows not 16-byte aligned
+    assert torch.equal(fc.fused_blur_sharpen_morph(x),
+                       fc.fused_blur_sharpen_morph_reference(x))
+
+
 def test_filter_kernel_int_form_equals_plain(cuda, monkeypatch):
     from zignal_tpu_torch.ops import integral
 
@@ -170,6 +209,59 @@ def test_separable_kernel_equals_plain(cuda, shape, kernel, border):
     torch.cuda.synchronize()
     assert sc.LAUNCHES == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("border", list(BorderMode), ids=lambda b: b.name)
+@pytest.mark.parametrize("hw", [(63, 129), (64, 65), (129, 127), (1, 64),
+                                (64, 1)], ids=lambda s: "x".join(map(str, s)))
+def test_separable_kernel_at_tile_edges_equals_plain(cuda, channels, border,
+                                                     hw):
+    x = _u8((2, *hw, channels), 23, cuda)
+    for kernel in (tables.gaussian_kernel(2.0), tables.gaussian_kernel(1.0),
+                   tables.gaussian_kernel(1.5), SIGNED,
+                   tables.gaussian_kernel(3.5)):
+        got = convolve_separable(x, kernel, kernel, border)
+        want = convolve_separable_reference(x, kernel, kernel, border)
+        assert torch.equal(got, want), len(kernel)
+
+
+@pytest.mark.parametrize("tile", sc.CONV_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_separable_kernel_every_tile_equals_plain(cuda, tile, monkeypatch):
+    monkeypatch.setattr(sc, "CONV_TILES", (tile,))
+    monkeypatch.setattr(sc, "_TABLES", {})
+    k2 = tables.gaussian_kernel(2.0)
+    for shape, kx, ky, border in (
+            ((16, 70, 150, 3), k2, k2, BorderMode.MIRROR),
+            ((2, 45, 100, 1), tables.gaussian_kernel(1.0), k2,
+             BorderMode.WRAP),
+            ((1, 33, 65, 4), SIGNED, SIGNED, BorderMode.ZERO),
+            ((3, 40, 48, 2), (0.25, 0.5, 0.25), k2, BorderMode.REPLICATE)):
+        x = _u8(shape, 24, cuda)
+        got = convolve_separable(x, kx, ky, border)
+        assert torch.equal(got, convolve_separable_reference(x, kx, ky,
+                                                             border))
+
+
+def test_separable_kernel_int_route_and_long_kernels_equal_plain(cuda):
+    x = _u8((2, 70, 90, 3), 25, cuda)
+    k2 = tables.gaussian_kernel(2.0)
+    for kx, ky in ((SIGNED, SIGNED), (SIGNED, k2), (k2, SIGNED)):
+        # signed bands past 2^24: the int32 height pass
+        assert not sc.f32_exact(tables._kernel_to_int(kx),
+                                tables._kernel_to_int(ky))
+    for kx, ky in ((SIGNED, SIGNED), (SIGNED, k2),
+                   (tables.gaussian_kernel(43.0), (1.0,))):
+        assert torch.equal(convolve_separable(x, kx, ky),
+                           convolve_separable_reference(x, kx, ky))
+
+
+def test_separable_kernel_unaligned_batch_equals_plain(cuda):
+    base = _u8((2 * 64 * 80 * 3 + 5,), 26, cuda)
+    x = base[5:].view(2, 64, 80, 3)
+    k = tables.gaussian_kernel(2.0)
+    assert torch.equal(convolve_separable(x, k, k),
+                       convolve_separable_reference(x, k, k))
 
 
 def test_separable_kernel_on_a_non_square_band(cuda):

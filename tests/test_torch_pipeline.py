@@ -217,18 +217,22 @@ def test_resize_same_size_returns_input():
 
 
 def test_unported_paths_raise_not_implemented():
-    """Every resampling method and float inputs are ported; integer
-    dtypes other than uint8, which the JAX package sends down its float
-    paths, are not."""
+    """Every resampling method and float inputs are ported, and integer
+    dtypes other than uint8 take the JAX package's float route (f32
+    out); complex inputs are not ported."""
     x = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     assert resize(x, 4, 4, zp.Interpolation.BICUBIC).shape == (1, 4, 4, 3)
     assert resize(x.float(), 4, 4).dtype == torch.float32
     assert torch.equal(gaussian_blur(x.float(), 1.0, zp.BorderMode.ZERO),
                        x.float())
-    with pytest.raises(NotImplementedError, match="int32 is not ported"):
-        resize(x.int(), 4, 4, zp.Interpolation.BICUBIC)
-    with pytest.raises(NotImplementedError, match="int32 is not ported"):
-        gaussian_blur(x.int(), 1.0, zp.BorderMode.ZERO)
+    assert resize(x.int(), 4, 4, zp.Interpolation.BICUBIC).dtype == \
+        torch.float32
+    assert torch.equal(gaussian_blur(x.int(), 1.0, zp.BorderMode.ZERO),
+                       x.float())
+    for call in (lambda a: resize(a, 4, 4), lambda a: gaussian_blur(a, 1.0)):
+        with pytest.raises(NotImplementedError, match="complex64 is not "
+                                                      "ported"):
+            call(x.to(torch.complex64))
 
 
 @pytest.mark.parametrize("method", [zp.Interpolation.LANCZOS,

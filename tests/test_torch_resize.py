@@ -107,8 +107,37 @@ def test_resize_same_size_returns_the_input():
 
 
 def test_resize_of_integer_tensors_other_than_u8_is_not_ported():
-    with pytest.raises(NotImplementedError, match="int32 is not ported"):
-        resize(torch.zeros((4, 4, 1), dtype=torch.int32), 2, 2)
+    """They take the JAX package's float route now (below); complex
+    tensors are what stays unported."""
+    assert resize(torch.zeros((4, 4, 1), dtype=torch.int32), 2, 2).dtype \
+        == torch.float32
+    with pytest.raises(NotImplementedError, match="complex64 is not ported"):
+        resize(torch.zeros((4, 4, 1), dtype=torch.complex64), 2, 2)
+
+
+# integer inputs other than u8 over their whole range (int32: +-2^30,
+# which f32 rounds; the JAX package rounds them the same way)
+INT_DTYPES = [(np.int16, -32768, 32768), (np.uint16, 0, 65536),
+              (np.int32, -2 ** 30, 2 ** 30)]
+
+
+@pytest.mark.parametrize("dtype,lo,hi", INT_DTYPES,
+                         ids=lambda d: getattr(d, "__name__", str(d)))
+@pytest.mark.parametrize("method", METHODS, ids=lambda m: m.name)
+def test_integer_resize_matches_jax(dtype, lo, hi, method):
+    """Nearest keeps the dtype; every other method weighs the values in
+    f32 and returns f32, as the JAX package's float route does. Bound:
+    0.0, the two sum the same f32 products in the same contracted order."""
+    x = np.random.default_rng(25).integers(lo, hi, (1, 8, 9, 2)) \
+        .astype(dtype)
+    for rows, cols in ((5, 13), (16, 4)):
+        got = resize(torch.from_numpy(x), rows, cols, method).numpy()
+        want = np.asarray(jax_interp.resize(jnp.asarray(x), rows, cols,
+                                            JaxInterp(int(method))))
+        assert got.dtype == want.dtype
+        assert got.dtype == (dtype if method == Interpolation.NEAREST
+                             else np.float32)
+        assert float(np.abs(got.astype(np.float64) - want).max()) <= 0.0
 
 
 @pytest.mark.parametrize("src,dst", [(23, 11), (12, 37), (1, 3), (9, 1),

@@ -18,26 +18,26 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load", "launch", "TILES", "SMEM_LIMIT"]
+__all__ = ["load", "launch", "sm_count", "TILES", "SMEM_LIMIT"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / name for name in (
     "fused_resize_blur_oklab.cu", "fused_blur_sharpen_morph.cu",
     "separable_u8.cu", "fused_color_chain_u8.cu"))
+_HEADERS = (_PKG / "csrc" / "tile_staging.cuh",)
 _BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the Oklab epilogue and the colour chain need IEEE
 # powf/cbrtf
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
-TILES = (32, 16, 8)     # output tile sides a kernel may take, largest first
+TILES = (32, 16, 8)     # output tile sides of K1 and K4's band kernel
 SMEM_LIMIT = 232448     # bytes of shared memory a block may use on sm_90
 
 _LIB = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 _L = ctypes.c_longlong
 
 
@@ -59,7 +59,7 @@ def _run(cmd) -> None:
 
 def _compile() -> Path:
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         digest.update(src.read_bytes())
     out_dir = _BUILD_DIR / digest.hexdigest()[:16]
     lib = out_dir / "libzt_kernels.so"
@@ -96,15 +96,18 @@ def load():
                   _I, _I, _I, _I, _I, _I,          # B H W C OH OW
                   _I, _I, _I, _I, _P])             # r tile smem oklab stream
         _declare(lib, "zt_fused_blur_sharpen_morph",
-                 [_P, _P, _P, _P, _P, _P, _P,      # src dst ty tx ey ex taps
-                  _I, _I, _I, _I, _I, _F,          # B H W rb rs thr
-                  _I, _I, _I, _P])                 # int_form tile smem stream
+                 [_P, _P, _P, _P, _P, _P])         # src dst ty tx params
+                                                   # stream
+        _declare(lib, "zt_filter_params_bytes", [])
+        _declare(lib, "zt_separable_conv_u8",
+                 [_P, _P, _P, _P, _P, _P])         # src dst ty tx params
+                                                   # stream
         _declare(lib, "zt_separable_u8",
                  [_P, _P, _P, _P, _P, _P, _P, _P,  # src dst ysrc yidx yw
-                                                   # xsrc xidx xw
-                  _I, _I, _I, _I, _I, _I,          # B H W C OH OW
-                  _I, _I, _I, _I, _I, _I, _P])     # sy ky sx kx tile smem
+                  _P, _P])                         # xsrc xidx xw params
                                                    # stream
+        _declare(lib, "zt_conv_params_bytes", [])
+        _declare(lib, "zt_band_params_bytes", [])
         _declare(lib, "zt_fused_color_chain_u8",
                  [_P, _P, _P, _L, _I, _P])         # src dst params n
                                                    # quantize stream
@@ -117,15 +120,32 @@ def load():
     return _LIB
 
 
-def launch(name: str, device, *args) -> None:
-    """Call the library's entry ``name`` with ``args`` and the current
-    stream of ``device``; raise if the launch was refused."""
+def sm_count(device) -> int:
+    """SMs of the card that holds ``device``; 132, an H100 SXM's, for a
+    CPU device, where the tile plans are only inspected."""
     import torch
 
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(*args, ctypes.c_void_p(stream))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the library's entry ``name`` with ``args`` and the current
+    stream of ``device``; raise if the launch was refused. The device is
+    switched only when it is not the current one (a switch costs more
+    host time than the launch)."""
+    import torch
+
+    lib = _LIB or load()
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is not None and index != current:
+        with torch.cuda.device(index):
+            return launch(name, torch.device("cuda", index), *args)
+    stream = torch.cuda.current_stream(current).cuda_stream
+    err = getattr(lib, name)(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.zt_error_string(err).decode()}")

@@ -23,6 +23,8 @@ summation order and TF32 would move the float result.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -100,18 +102,36 @@ def _check_overflow(bound: int):
 
 
 def _check(arr, op: str):
-    if arr.dtype != torch.uint8 and not arr.is_floating_point():
-        raise NotImplementedError(
-            f"{op} of {arr.dtype} is not ported; uint8 and float are")
+    if arr.is_complex():
+        raise NotImplementedError(f"{op} of {arr.dtype} is not ported")
     if arr.ndim < 3:
         raise ValueError(f"{op} expects a [..., H, W, C] tensor")
 
 
-def _separable_int(kernel_x, kernel_y):
+def _as_float(arr):
+    """Integer inputs other than u8 (and bool) take the JAX package's
+    float route: their taps multiply f32 weights, so the values go to f32
+    first (exactly, up to 2^24) and the result is f32."""
+    if arr.dtype == torch.uint8 or arr.is_floating_point():
+        return arr
+    return arr.to(torch.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _separable_int_cached(kernel_x: tuple, kernel_y: tuple):
     kx, ky = _kernel_to_int(kernel_x), _kernel_to_int(kernel_y)
     _check_overflow(255 * int(np.abs(kx).sum()) * int(np.abs(ky).sum())
                     + SCALE * SCALE // 2)
+    kx.flags.writeable = ky.flags.writeable = False
     return kx, ky
+
+
+def _separable_int(kernel_x, kernel_y):
+    """The 8.8 integer taps of both kernels (checked against the int32
+    bound), cached by the kernels' values: the conversion costs more host
+    time than a small launch."""
+    return _separable_int_cached(tuple(float(v) for v in kernel_x),
+                                 tuple(float(v) for v in kernel_y))
 
 
 def convolve_separable_reference(arr, kernel_x: tuple, kernel_y: tuple,
@@ -120,6 +140,7 @@ def convolve_separable_reference(arr, kernel_x: tuple, kernel_y: tuple,
     divClampU8 by 256^2 (u8); the float passes for a float input."""
     border = BorderMode(border)
     _check(arr, "convolve_separable")
+    arr = _as_float(arr)
     if arr.is_floating_point():
         kx = np.asarray(kernel_x, dtype=np.float32)
         ky = np.asarray(kernel_y, dtype=np.float32)
@@ -141,20 +162,17 @@ def convolve_separable(arr, kernel_x: tuple, kernel_y: tuple,
     """Separable convolution of a ``[..., H, W, C]`` tensor with odd 1-D
     float kernels. u8 is bit-exact with the JAX package's banded path: a
     CUDA tensor runs the separable kernel (or raises), a CPU tensor the
-    plain version. A float input runs the float passes on its device."""
+    plain version. A float input runs the float passes on its device, and
+    any other integer input too, as f32 (the JAX package's route)."""
     _check(arr, "convolve_separable")
-    if arr.device.type == "cpu" or arr.is_floating_point():
+    if arr.device.type == "cpu" or arr.dtype != torch.uint8:
         return convolve_separable_reference(arr, kernel_x, kernel_y, border)
-    border = BorderMode(border)
     kx, ky = _separable_int(kernel_x, kernel_y)
     from . import separable_conv
 
     h, w, c = arr.shape[-3:]
-    key = ("conv", h, w, kx.tobytes(), ky.tobytes(), border)
     x = arr.contiguous().view(-1, h, w, c)
-    out = separable_conv.run_cached(
-        x, key, lambda: (_band(w, kx, border), _band(h, ky, border)))
-    return out.view(arr.shape)
+    return separable_conv.run_conv(x, kx, ky, border).view(arr.shape)
 
 
 def gaussian_blur(arr, sigma: float, border: BorderMode = BorderMode.MIRROR):
@@ -178,9 +196,10 @@ def convolve2d(arr, kernel, border: BorderMode = BorderMode.MIRROR):
     kernel, taps in row-major order, zero weights skipped. u8: 8.8 integer
     weights ``round(k * 256)``, int32 sums and divClampU8 by 256 (exact in
     int32, equal to the JAX package's f32 sums of integers). Float: the
-    taps' fused multiply-adds in the input's dtype."""
+    taps' fused multiply-adds in the input's dtype; other integers as f32."""
     border = BorderMode(border)
     _check(arr, "convolve2d")
+    arr = _as_float(arr)
     k = np.asarray(kernel, dtype=np.float32)
     if k.ndim != 2 or k.shape[0] % 2 == 0 or k.shape[1] % 2 == 0:
         raise ValueError("kernel must be 2-D with odd dimensions")

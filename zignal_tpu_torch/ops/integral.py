@@ -117,13 +117,23 @@ def _box_sums_float(arr, radius: int):
 
 
 def _check(arr, radius: int, op: str):
-    if arr.dtype != torch.uint8 and not arr.is_floating_point():
-        raise NotImplementedError(
-            f"{op} of {arr.dtype} is not ported; uint8 and float are")
+    if arr.is_complex():
+        raise NotImplementedError(f"{op} of {arr.dtype} is not ported")
     if arr.ndim < 3:
         raise ValueError(f"{op} expects a [..., H, W, C] tensor")
     if radius < 0:
         raise ValueError("radius must be non-negative")
+
+
+def _as_dtype(vals, dtype):
+    """f32 ``vals`` in ``dtype`` as XLA converts: a float dtype rounded,
+    an integer one truncated toward zero and saturated at its range."""
+    if dtype.is_floating_point:
+        return vals.to(dtype)
+    if dtype == torch.bool:
+        return vals != 0
+    info = torch.iinfo(dtype)
+    return vals.double().clamp(info.min, info.max).to(dtype)
 
 
 def _quot_rem(sums, area):
@@ -134,13 +144,15 @@ def _quot_rem(sums, area):
 
 def box_blur(arr, radius: int):
     """Box blur of ``[..., H, W, C]``: the clamped-window mean, rounded
-    half up for u8, in the input's dtype for a float input."""
+    half up for u8, in the input's dtype for a float input; for another
+    integer input the f32 mean converted as XLA converts (truncated,
+    saturated), the JAX package's float route."""
     radius = int(radius)
     _check(arr, radius, "box_blur")
     if radius == 0:
         return arr
-    if arr.is_floating_point():
-        return _mean_f32(*_box_sums_float(arr, radius)).to(arr.dtype)
+    if arr.dtype != torch.uint8:  # float, and the JAX package's float route
+        return _as_dtype(_mean_f32(*_box_sums_float(arr, radius)), arr.dtype)
     sums, area = _box_sums_exact(arr, radius)
     if sums_fit_f32(arr.shape[-3], arr.shape[-2], radius):
         vals = torch.floor(_mean_f32(sums, area) + 0.5)
@@ -157,9 +169,9 @@ def sharpen(arr, radius: int):
     _check(arr, radius, "sharpen")
     if radius == 0:
         return arr
-    if arr.is_floating_point():
+    if arr.dtype != torch.uint8:  # float, and the JAX package's float route
         mean = _mean_f32(*_box_sums_float(arr, radius))
-        return (2.0 * arr.to(torch.float32) - mean).to(arr.dtype)
+        return _as_dtype(2.0 * arr.to(torch.float32) - mean, arr.dtype)
     sums, area = _box_sums_exact(arr, radius)
     if sums_fit_f32(arr.shape[-3], arr.shape[-2], radius):
         vals = 2.0 * arr.to(torch.float32) - _mean_f32(sums, area)

@@ -165,15 +165,21 @@ def resize(arr, rows: int, cols: int, method=Interpolation.BILINEAR):
     """Resize a ``[..., H, W, C]`` tensor to ``[..., rows, cols, C]`` on
     the tensor's own device (leading dims are batch). u8 inputs take the
     reference's fixed-point paths, bit-exact with the JAX package; float
-    inputs take normalized float weights. On a CUDA tensor u8 BILINEAR is
+    inputs take normalized float weights, and so do other integer inputs,
+    as f32 (nearest keeps their dtype). On a CUDA tensor u8 BILINEAR is
     the fused kernel; every other case is plain PyTorch there too."""
     method = Interpolation(method)
     if arr.shape[-3] == rows and arr.shape[-2] == cols:
         return arr
     if arr.dtype != torch.uint8:
+        if arr.is_complex():
+            raise NotImplementedError(f"resize of {arr.dtype} is not ported")
         if not arr.is_floating_point():
-            raise NotImplementedError(
-                f"resize of {arr.dtype} is not ported; uint8 and float are")
+            # the JAX package's float route: nearest keeps the dtype, the
+            # other methods weigh the values in f32
+            if method == Interpolation.NEAREST:
+                return _resize_nearest(arr, rows, cols)
+            arr = arr.to(torch.float32)
         return _resize_float(arr, rows, cols, method)
     if method == Interpolation.NEAREST:
         return _resize_nearest(arr, rows, cols)

@@ -5,33 +5,77 @@ kernel, the counterpart of zignal_tpu/ops/pallas_conv.py.
 ``My [OH, H]`` along the rows of a ``[B, H, W, C]`` u8 tensor, C <= 4, then
 divClampU8 by 256^2. A CUDA tensor launches ``csrc/separable_u8.cu``; a CPU
 tensor goes to ``separable_u8_reference``. The kernel takes any H, W, OH,
-OW >= 1, so, unlike the TPU kernel, it needs no shape gate. u8
-``convolve_separable`` on a CUDA tensor reaches the kernel through
-``run_cached``.
+OW >= 1, so, unlike the TPU kernel, it needs no shape gate.
+
+Two entries launch it. ``run_conv`` takes a convolution's 1-D taps and
+border (u8 ``convolve_separable`` on a CUDA tensor): every output has the
+same taps at consecutive offsets, and the halo tables resolve the border,
+so the kernel's ``conv_kernel`` convolves contiguous staged regions.
+``run_cached`` takes any pair of bands (``separable_u8``): ``band_kernel``
+reads per-output tap lists. Both count in ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 
 import numpy as np
 import torch
 
-from ._build import SMEM_LIMIT, TILES, launch
+from ..enums import BorderMode
+from ._build import SMEM_LIMIT, TILES, launch, load, sm_count
 from .convolution import _div_clamp_u8
-from .tables import SCALE, band_to_taps, tile_sources
+from .tables import SCALE, band_to_taps, resolve_index_np, tile_sources
 
-__all__ = ["separable_u8", "separable_u8_reference", "run_cached"]
+__all__ = ["separable_u8", "separable_u8_reference", "run_cached",
+           "run_conv", "f32_exact", "conv_tile_plan"]
 
 # kernel launches since import, read as separable_conv.LAUNCHES
 LAUNCHES = 0
 
-# device tables: (key, C, device) -> _Plan
+# device tables and parameters: key -> _BandPlan or _ConvPlan
 _TABLES: dict = {}
+
+# conv_kernel's tap tables hold this many taps an axis; longer kernels go
+# through band_kernel
+MAX_TAPS = 256
+ROWS = 8  # rows a thread of the height pass computes
+# (tile columns, tile rows) of conv_kernel in order of preference, powers
+# of two; a grid of fewer than MIN_BLOCKS_PER_SM blocks an SM takes the next.
+# The width pass's rows have the pitch of the widest, TILE_W pixels.
+CONV_TILES = ((64, 32), (64, 16), (32, 16), (32, 8), (16, 8), (8, 8),
+              (4, 8))
+TILE_W = 64
+MIN_BLOCKS_PER_SM = 4
+F32_EXACT = 1 << 24
+_CONV_FIELDS = ("B", "H", "W", "C", "kx", "ky", "ax", "ay", "th", "tw",
+                "tiles_x", "tiles_y", "lg_g", "lg_nch", "sp", "vec_in", "f32",
+                "off_t", "smem")
+_BAND_FIELDS = ("B", "H", "W", "C", "OH", "OW", "sy", "ky", "sx", "kx",
+                "tile", "off_tmp", "off_xt", "off_yt", "smem")
+
+
+def _a16(n: int) -> int:
+    return (n + 15) & ~15
 
 
 def _row_sum(M) -> int:
-    return int(np.abs(np.asarray(M, np.int64)).sum(axis=1).max(initial=0))
+    """Largest sum of |weights| of a band's rows, or of a 1-D kernel's
+    taps."""
+    M = np.abs(np.asarray(M, np.int64))
+    return int(M.sum(axis=-1).max(initial=0)) if M.ndim == 2 else int(M.sum())
+
+
+def f32_exact(Mx, My) -> bool:
+    """Whether the kernel's f32 height pass gives the int32 result: every
+    partial sum is an integer below 2^24 (255 * rowsum|Mx| * rowsum|My| <
+    2^24), or both bands are non-negative, so partial sums only rise and a
+    sum that reaches 2^24 clips to 255 either way. ``Mx``, ``My``: bands
+    ``[dst, src]`` or 1-D kernels."""
+    if (np.asarray(Mx) >= 0).all() and (np.asarray(My) >= 0).all():
+        return True
+    return 255 * _row_sum(Mx) * _row_sum(My) < F32_EXACT
 
 
 def _check(x, Mx, My):
@@ -74,60 +118,210 @@ def separable_u8_reference(x, Mx, My):
     return _div_clamp_u8(_band_pass(t, My, 1), SCALE * SCALE)
 
 
-class _Plan:
-    __slots__ = ("tile", "smem", "oh", "ow", "sy", "ky", "sx", "kx",
-                 "ysrc", "yidx", "yw", "xsrc", "xidx", "xw")
+def _buffer(fields, values, tail=()):
+    """A parameter struct as a host buffer the launch copies by value:
+    the int fields in order, then the arrays of ``tail`` (int32 or f32)."""
+    raw = np.array([values[f] for f in fields], np.int32).tobytes()
+    raw += b"".join(np.ascontiguousarray(t).tobytes() for t in tail)
+    return ctypes.create_string_buffer(raw, len(raw))
 
-    def __init__(self, Mx, My, c, device):
+
+def _check_layout(name: str, buf) -> None:
+    if getattr(load(), name)() != len(buf.raw):
+        raise RuntimeError(f"the kernel's parameter layout ({name}) differs "
+                           "from the wrapper's")
+
+
+class _BandPlan:
+    __slots__ = ("oh", "ow", "grid_y", "smem", "params", "ysrc", "yidx",
+                 "yw", "xsrc", "xidx", "xw")
+
+    def __init__(self, Mx, My, b, h, w, c, device):
         yi, yw = band_to_taps(My)
         xi, xw = band_to_taps(Mx)
+        ky, kx = yw.shape[1], xw.shape[1]
         for tile in TILES:
             ysrc, ylocal = tile_sources(yi, yw, tile)
             xsrc, xlocal = tile_sources(xi, xw, tile)
             sy, sx = ysrc.shape[1], xsrc.shape[1]
-            smem = ((sy * sx * c + 15) & ~15) + sy * tile * c * 4
+            off_tmp = _a16(sy * sx * c)
+            off_xt = off_tmp + 4 * sy * tile * c
+            off_yt = off_xt + 8 * tile * kx
+            smem = off_yt + 8 * tile * ky
             if smem <= SMEM_LIMIT:
                 break
         else:
             raise ValueError("the bands read more source rows and columns "
                              "per tile than a block's shared memory holds")
-        self.tile, self.smem = tile, smem
         self.oh, self.ow = My.shape[0], Mx.shape[0]
-        self.sy, self.ky, self.sx, self.kx = sy, yw.shape[1], sx, xw.shape[1]
+        self.grid_y, self.smem = -(-self.oh // tile), smem
+        self.params = _buffer(_BAND_FIELDS, dict(
+            B=b, H=h, W=w, C=c, OH=self.oh, OW=self.ow, sy=sy, ky=ky, sx=sx,
+            kx=kx, tile=tile, off_tmp=off_tmp, off_xt=off_xt, off_yt=off_yt,
+            smem=smem))
         self.ysrc, self.yidx, self.yw = (torch.from_numpy(t).to(device)
                                          for t in (ysrc, ylocal, yw))
         self.xsrc, self.xidx, self.xw = (torch.from_numpy(t).to(device)
                                          for t in (xsrc, xlocal, xw))
 
 
-def run_cached(x, key, bands):
-    """Launch the kernel on the CUDA u8 ``[B, H, W, C]`` tensor ``x``. The
-    device tables are cached under ``key``; on a miss ``bands()`` gives
-    ``(Mx, My)``. The caller has checked the int32 bound."""
-    global LAUNCHES
+def _check_cuda(x):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype != torch.uint8 or x.ndim != 4 or not 1 <= x.shape[3] <= 4:
         raise ValueError("the kernel needs a uint8 [B, H, W, C<=4] tensor")
     if not x.is_contiguous():
         raise ValueError("the kernel needs a contiguous batch")
+    if x.shape[0] > 65535:
+        raise ValueError("batch too large for one launch grid")
+
+
+def run_cached(x, key, bands):
+    """Launch band_kernel on the CUDA u8 ``[B, H, W, C]`` tensor ``x``.
+    The device tables are cached under ``key``; on a miss ``bands()``
+    gives ``(Mx, My)``. The caller has checked the int32 bound."""
+    global LAUNCHES
+    _check_cuda(x)
     b, h, w, c = x.shape
-    full = (key, c, x.device)
+    full = ("band", key, b, c, x.device)
     plan = _TABLES.get(full)
     if plan is None:
-        plan = _TABLES[full] = _Plan(*bands(), c, x.device)
-    if b > 65535 or -(-plan.oh // plan.tile) > 65535:
-        raise ValueError("batch or output too large for one launch grid")
+        plan = _TABLES[full] = _BandPlan(*bands(), b, h, w, c, x.device)
+        _check_layout("zt_band_params_bytes", plan.params)
+    if plan.grid_y > 65535:
+        raise ValueError("output too large for one launch grid")
     out = torch.empty((b, plan.oh, plan.ow, c), dtype=torch.uint8,
                       device=x.device)
 
     launch("zt_separable_u8", x.device, x.data_ptr(), out.data_ptr(),
            plan.ysrc.data_ptr(), plan.yidx.data_ptr(), plan.yw.data_ptr(),
            plan.xsrc.data_ptr(), plan.xidx.data_ptr(), plan.xw.data_ptr(),
-           b, h, w, c, plan.oh, plan.ow, plan.sy, plan.ky, plan.sx, plan.kx,
-           plan.tile, plan.smem)
+           plan.params)
     LAUNCHES += 1
     return out
+
+
+class ConvTilePlan:
+    """conv_kernel's tile of ``th`` x ``tw`` output pixels for ``kx`` x
+    ``ky`` taps and ``c`` channels: the staged rows' pitch ``sp`` and the
+    shared-memory layout (staged bytes, then the width pass's values,
+    int32 or f32, in rows of ``TILE_W`` pixels with ``ROWS`` rows of
+    slack)."""
+
+    __slots__ = ("th", "tw", "sp", "off_t", "smem", "blocks")
+
+    def __init__(self, tw: int, th: int, kx: int, ky: int, c: int):
+        self.tw, self.th = tw, th
+        self.sp = _a16((tw + kx - 1) * c) + 16
+        self.off_t = _a16((th + ky - 1) * self.sp + 64)
+        self.smem = self.off_t + 4 * (th + ky - 1 + ROWS) * TILE_W * c
+        self.blocks = 0
+
+
+def conv_tile_plan(kx: int, ky: int, c: int, h: int, w: int, b: int,
+                   sms: int) -> ConvTilePlan:
+    """The tile of ``B = b`` images of ``h x w x c`` on a card of ``sms``
+    SMs: the first of ``CONV_TILES`` that fits a block's shared memory and
+    gives the grid at least ``MIN_BLOCKS_PER_SM`` blocks an SM, else the
+    fitting one with the most blocks."""
+    best = None
+    for tw, th in CONV_TILES:
+        plan = ConvTilePlan(tw, th, kx, ky, c)
+        if plan.smem > SMEM_LIMIT:
+            continue
+        plan.blocks = b * -(-h // th) * -(-w // tw)
+        if plan.blocks >= MIN_BLOCKS_PER_SM * sms:
+            return plan
+        if best is None or plan.blocks > best.blocks:
+            best = plan
+    if best is None:
+        raise ValueError(f"{kx} x {ky} taps need more shared memory than a "
+                         "block has")
+    return best
+
+
+def _halo(n: int, k: int, border: BorderMode, device):
+    """Source positions of ``[-k // 2, n + k - 1 - k // 2)`` under the
+    border, int32 (-1 where a ZERO border reads 0)."""
+    pos = resolve_index_np(np.arange(n + k - 1) - k // 2, n, border)
+    return torch.from_numpy(pos.astype(np.int32)).to(device)
+
+
+class _ConvPlan:
+    __slots__ = ("tile", "ty", "tx", "fields", "tail", "params")
+
+    def __init__(self, kx, ky, border, b, h, w, c, device):
+        t = self.tile = conv_tile_plan(len(kx), len(ky), c, h, w, b,
+                                       sm_count(device))
+        self.ty = _halo(h, len(ky), border, device)
+        self.tx = _halo(w, len(kx), border, device)
+        self.fields = dict(
+            B=b, H=h, W=w, C=c, kx=len(kx), ky=len(ky), ax=len(kx) // 2,
+            ay=len(ky) // 2, th=t.th, tw=t.tw, tiles_x=-(-w // t.tw),
+            tiles_y=-(-h // t.th),
+            lg_g=(t.tw // 4).bit_length() - 1,
+            lg_nch=(t.th // ROWS).bit_length() - 1, sp=t.sp, vec_in=0,
+            f32=int(f32_exact(kx, ky)), off_t=t.off_t, smem=t.smem)
+        taps = np.zeros((3, MAX_TAPS), np.int32)
+        taps[0, :len(kx)] = kx
+        taps[1, :len(ky)] = ky
+        taps[2] = taps[1].astype(np.float32).view(np.int32)
+        self.tail = (taps,)
+        self.params = {}  # vec_in -> host buffer
+
+    def buffer(self, vec_in: bool):
+        """The kernel's ConvParams for one launch."""
+        buf = self.params.get(vec_in)
+        if buf is None:
+            buf = _buffer(_CONV_FIELDS, dict(self.fields, vec_in=int(vec_in)),
+                          self.tail)
+            _check_layout("zt_conv_params_bytes", buf)
+            self.params[vec_in] = buf
+        return buf
+
+
+def run_conv(x, kx, ky, border: BorderMode):
+    """Convolve the CUDA u8 ``[B, H, W, C]`` tensor ``x`` with the 8.8
+    integer kernels ``kx`` (along W) and ``ky`` (along H) under ``border``,
+    divClampU8 by 256^2: the result of ``separable_u8`` on their bands.
+    The caller has checked the int32 bound. Kernels of more than
+    ``MAX_TAPS`` taps, or too long for any conv tile's shared memory, run
+    through their bands."""
+    global LAUNCHES
+    _check_cuda(x)
+    b, h, w, c = x.shape
+    kx = np.ascontiguousarray(kx, np.int32)
+    ky = np.ascontiguousarray(ky, np.int32)
+    border = BorderMode(border)
+    full = ("conv", b, h, w, c, kx.tobytes(), ky.tobytes(), border, x.device)
+    plan = _TABLES.get(full)
+    if plan is None:
+        plan = None if max(len(kx), len(ky)) > MAX_TAPS else \
+            _conv_plan(kx, ky, border, b, h, w, c, x.device)
+        _TABLES[full] = plan or "bands"
+    if not isinstance(plan, _ConvPlan):
+        from .convolution import _band
+
+        return run_cached(x, ("conv", h, w, kx.tobytes(), ky.tobytes(),
+                              border),
+                          lambda: (_band(w, kx, border), _band(h, ky, border)))
+    if b * -(-h // plan.tile.th) * -(-w // plan.tile.tw) >= 2 ** 31:
+        raise ValueError("image too large for one launch grid")
+    out = torch.empty_like(x)
+    params = plan.buffer((w * c) % 16 == 0 and x.data_ptr() % 16 == 0)
+    launch("zt_separable_conv_u8", x.device, x.data_ptr(), out.data_ptr(),
+           plan.ty.data_ptr(), plan.tx.data_ptr(), params)
+    LAUNCHES += 1
+    return out
+
+
+def _conv_plan(kx, ky, border, b, h, w, c, device):
+    """The conv kernel's plan, or None where no tile of its fits a
+    block's shared memory."""
+    try:
+        return _ConvPlan(kx, ky, border, b, h, w, c, device)
+    except ValueError:
+        return None
 
 
 def separable_u8(x, Mx, My):
