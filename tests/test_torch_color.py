@@ -596,6 +596,17 @@ def test_wrapper_rejects_bad_inputs():
 # -- K3p's plain version ------------------------------------------------------
 
 
+def test_gamma_table_matches_the_jax_gamma_curve():
+    """K1's and K3's input gamma table against zignal_tpu's sRGB curve on
+    the 256 bytes, on JAX-CPU: within UNIT, and 0 and 1 exactly."""
+    table = cc.gamma_table("cpu")
+    want = np.asarray(jax_array.gamma_to_linear(
+        jnp.arange(256, dtype=jnp.float32) / 255.0))
+    assert table.dtype == torch.float32 and table.shape == (256,)
+    assert np.abs(table.numpy() - want).max() <= UNIT
+    assert float(table[0]) == 0.0 and float(table[255]) == 1.0
+
+
 def test_probe_reference_is_the_tpu_probe_expression():
     x = np.random.default_rng(15).uniform(0, 2, (8, 128)).astype(np.float32)
     x[0, :4] = [0.0, 0.5, 1.0, 2.0]

@@ -382,6 +382,16 @@ def test_integer_convolutions_match_jax(dtype, lo, hi, border):
         assert float(np.abs(got - want).max()) <= 0.0
 
 
+@pytest.mark.parametrize("channels", [5, 8])
+def test_gaussian_blur_of_more_than_four_channels_matches_jax(channels):
+    """F3: the u8 blur takes any channel count (the kernel runs groups of
+    at most 4 on the card)."""
+    x = _u8((2, 17, 19, channels), 50 + channels)
+    got = gaussian_blur(torch.from_numpy(x), 1.0)
+    want = np.asarray(jax_conv.gaussian_blur(jnp.asarray(x), 1.0))
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_separable_wrapper_on_cpu_runs_plain_without_launching():
     x = torch.from_numpy(_u8((1, 30, 20, 3), 19))
     ki = tables._kernel_to_int(GAUSS)
@@ -409,7 +419,7 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
 
 
 @pytest.mark.parametrize("shape,mx,my,err", [
-    ((1, 8, 8, 5), (8, 8), (8, 8), "channel count"),
+    ((1, 8, 8, 0), (8, 8), (8, 8), "channel count"),
     ((1, 8, 8), (8, 8), (8, 8), "uint8 \\[B, H, W, C\\]"),
     ((1, 8, 8, 3), (8, 7), (8, 8), "Mx \\[OW, W\\]"),
     ((1, 8, 8, 3), (0, 8), (8, 8), "at least 1"),

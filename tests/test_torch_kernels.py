@@ -98,6 +98,106 @@ def test_resize_of_one_image_on_the_card(cuda):
     assert torch.equal(resize(x[0], 33, 47), resize(x.cpu(), 33, 47)[0].to(cuda))
 
 
+# K1's tile plans at their edges: outputs just below, at and above the tile
+# sides (8-64) and one past 128, from a 2:1 source and from an upscale
+K1_EDGE_OUT = [(1, 130), (7, 9), (15, 17), (31, 33), (33, 47), (48, 49),
+               (63, 65), (64, 1), (127, 129)]
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("sigma", [0.0, 1.0, 1.5, 2.0, 3.5])
+def test_kernel_at_tile_edges_equals_plain(cuda, channels, sigma):
+    for i, (oh, ow) in enumerate(K1_EDGE_OUT):
+        for b in (1, 16):
+            for h, w in ((2 * oh + 1, 2 * ow + 3), (oh // 2 + 1, ow // 3 + 2)):
+                x = _u8((b, h, w, channels), 30 + i, cuda)
+                before = fp.LAUNCHES
+                got = fp.fused_resize_blur_oklab(x, oh, ow, sigma,
+                                                 oklab=False)
+                want = fp.fused_resize_blur_oklab_reference(x, oh, ow, sigma,
+                                                            oklab=False)
+                # C = 5 runs in two channel groups, one launch each
+                assert fp.LAUNCHES == before + (2 if channels == 5 else 1)
+                assert torch.equal(got, want), (b, h, w, oh, ow)
+                if channels == 3:
+                    lab = fp.fused_resize_blur_oklab(x, oh, ow, sigma)
+                    ref = fp.fused_resize_blur_oklab_reference(x, oh, ow,
+                                                               sigma)
+                    assert float((lab - ref).abs().max()) <= OKLAB_TOL
+
+
+@pytest.mark.parametrize("tile", fp.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_kernel_every_tile_equals_plain(cuda, tile, monkeypatch):
+    monkeypatch.setattr(fp, "TILES", (tile,))
+    monkeypatch.setattr(fp, "_TABLES", {})
+    for shape, oh, ow, sigma in (((3, 200, 300, 3), 100, 150, 2.0),
+                                 ((2, 130, 70, 1), 65, 35, 1.0),
+                                 ((1, 90, 250, 4), 180, 125, 3.5),
+                                 ((2, 57, 33, 3), 57, 66, 1.5),
+                                 ((2, 57, 33, 5), 20, 40, 0.0)):
+        x = _u8(shape, 27, cuda)
+        got = fp.fused_resize_blur_oklab(x, oh, ow, sigma, oklab=False)
+        assert torch.equal(got, fp.fused_resize_blur_oklab_reference(
+            x, oh, ow, sigma, oklab=False)), (shape, sigma)
+        if shape[-1] == 3:
+            lab = fp.fused_resize_blur_oklab(x, oh, ow, sigma)
+            ref = fp.fused_resize_blur_oklab_reference(x, oh, ow, sigma)
+            assert float((lab - ref).abs().max()) <= OKLAB_TOL
+
+
+def test_kernel_unaligned_batch_and_gathered_plan_equal_plain(cuda):
+    base = _u8((2 * 64 * 80 * 3 + 5,), 28, cuda)
+    x = base[5:].view(2, 64, 80, 3)   # rows not 16-byte aligned
+    for sigma in (0.0, 2.0):
+        assert torch.equal(
+            fp.fused_resize_blur_oklab(x, 33, 41, sigma, oklab=False),
+            fp.fused_resize_blur_oklab_reference(x, 33, 41, sigma,
+                                                 oklab=False))
+    # a 40:1 downscale: a tile's source span does not fit a block
+    y = _u8((1, 1600, 2000, 3), 29, cuda)
+    b, h, w, c = y.shape
+    r = tables.blur_radius(2.0)
+    plan, _, _ = fp.tile_plan(b, 40, 50, r, c, True,
+                              tables.halo_axis_table(h, 40, r),
+                              tables.halo_axis_table(w, 50, r), 132)
+    assert not plan.staged
+    assert torch.equal(
+        fp.fused_resize_blur_oklab(y, 40, 50, 2.0, oklab=False),
+        fp.fused_resize_blur_oklab_reference(y, 40, 50, 2.0, oklab=False))
+    lab = fp.fused_resize_blur_oklab(y, 40, 50, 2.0)
+    ref = fp.fused_resize_blur_oklab_reference(y, 40, 50, 2.0)
+    assert float((lab - ref).abs().max()) <= OKLAB_TOL
+
+
+@pytest.mark.parametrize("channels", [2, 5, 8])
+def test_resize_of_any_channel_count_launches_the_kernel(cuda, channels):
+    """F2: a u8 bilinear resize of C not in {1, 3, 4} runs K1 in channel
+    groups on the card."""
+    x = _u8((2, 17, 19, channels), 31, cuda)
+    before = fp.LAUNCHES
+    got = resize(x, 9, 11)
+    blurred = fp.fused_resize_blur_oklab(x, 30, 37, 1.5, oklab=False)
+    # one launch a group of at most 4 channels, for each of the two calls
+    assert fp.LAUNCHES == before + 2 * -(-channels // 4)
+    assert torch.equal(got.cpu(), resize(x.cpu(), 9, 11))
+    assert torch.equal(blurred, fp.fused_resize_blur_oklab_reference(
+        x, 30, 37, 1.5, oklab=False))
+
+
+def test_pipelines_take_strided_input(cuda):
+    """F1: the public pipelines hand the kernels contiguous tensors."""
+    x = _u8((2, 48, 40, 3), 32, cuda)
+    k1, k2 = fp.LAUNCHES, fc.LAUNCHES
+    mask = pipeline.filter_chain(x[..., 0])
+    lab = pipeline.resize_blur_oklab(x[:, ::2], 5, 6, 1.0)
+    assert (fp.LAUNCHES, fc.LAUNCHES) == (k1 + 1, k2 + 1)
+    assert torch.equal(mask, fc.fused_blur_sharpen_morph_reference(
+        x[..., 0].contiguous()))
+    want = fp.fused_resize_blur_oklab_reference(x[:, ::2].contiguous(), 5, 6,
+                                                1.0)
+    assert float((lab - want).abs().max()) <= OKLAB_TOL
+
+
 def test_kernel_rejects_non_contiguous(cuda):
     x = _u8((1, 64, 64, 3), 4, cuda)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -243,6 +343,38 @@ def test_separable_kernel_every_tile_equals_plain(cuda, tile, monkeypatch):
                                                              border))
 
 
+@pytest.mark.parametrize("channels", [5, 6, 8])
+def test_separable_kernel_of_more_than_four_channels_equals_plain(cuda,
+                                                                  channels):
+    """F3: more than 4 channels run K4 in channel groups, on the conv path
+    (f32 and int32 height passes, every border) and on the band path."""
+    x = _u8((2, 17, 19, channels), 33, cuda)
+    before = sc.LAUNCHES
+    blur = convolve_separable(x, tables.gaussian_kernel(1.0),
+                              tables.gaussian_kernel(1.0))
+    assert sc.LAUNCHES == before + 2  # two groups of at most 4 channels
+    assert torch.equal(blur, convolve_separable_reference(
+        x, tables.gaussian_kernel(1.0), tables.gaussian_kernel(1.0)))
+    y = _u8((3, 70, 90, channels), 34, cuda)
+    for kernel in (tables.gaussian_kernel(2.0), SIGNED):
+        for border in BorderMode:
+            assert torch.equal(
+                convolve_separable(y, kernel, kernel, border),
+                convolve_separable_reference(y, kernel, kernel, border)), \
+                (len(kernel), border)
+    long = tables.gaussian_kernel(43.0)   # more taps than a conv tile takes
+    assert torch.equal(convolve_separable(y, long, (1.0,)),
+                       convolve_separable_reference(y, long, (1.0,)))
+    a, b, f = tables.bilinear_axis_table(90, 45)
+    mx = tables.build_tap_matrix(np.stack([a, b], 1),
+                                 np.stack([256 - f, f], 1), 90, 45)
+    a, b, f = tables.bilinear_axis_table(70, 35)
+    my = tables.build_tap_matrix(np.stack([a, b], 1),
+                                 np.stack([256 - f, f], 1), 70, 35)
+    assert torch.equal(sc.separable_u8(y, mx, my),
+                       sc.separable_u8_reference(y, mx, my))
+
+
 def test_separable_kernel_int_route_and_long_kernels_equal_plain(cuda):
     x = _u8((2, 70, 90, 3), 25, cuda)
     k2 = tables.gaussian_kernel(2.0)
@@ -304,7 +436,12 @@ def test_new_kernels_reject_non_contiguous(cuda):
         sc.run_cached(y, "k", None)
 
 
-CHAIN_UNIT = 1e-5   # f32 max-abs, K3 vs plain on the card
+# f32 max-abs, K3 vs plain on the card. K3 takes its cube roots with the
+# card's cbrtf (1 ulp) where the plain version takes sign(x) * |x|^(1/3f);
+# the chains amplify that ulp where a channel is dark. Measured over all
+# 2^24 RGB triples of the six chains of chip_smoke.py on an H100: 9.24e-5
+# (rgb-lab-rgb-oklch-rgb-xyb-rgb), rounded up; every u8 output is equal.
+CHAIN_UNIT = 1e-4
 CHAINS = [  # test_pallas_color.py's chains, then stock hops the gate admits
     ("rgb", "lab", "rgb", "oklch", "rgb", "xyb", "rgb"),
     ("rgb", "oklab", "rgb"),
@@ -382,6 +519,28 @@ def test_histogram_ops_on_the_card_equal_the_cpu(cuda):
     want, wt = cpu.convert("gray").threshold_otsu()
     assert (t == wt).all()
     assert torch.equal(got.device_array().cpu(), want.device_array())
+
+
+def test_color_chain_kernel_unaligned_batch_equals_plain(cuda):
+    """A batch whose bytes are not 4-byte aligned takes the kernel's
+    byte-wise loads and stores; pixel counts off a multiple of 4 take its
+    one-pixel tail."""
+    base = _u8((5 * 7 * 3 * 3 + 1,), 35, cuda)
+    x = base[1:].view(3, 5, 7, 3)
+    for quantize in (True, False):
+        got = cc.fused_color_chain_u8(x, CHAINS[0], quantize)
+        want = cc.fused_color_chain_u8_reference(x, CHAINS[0], quantize)
+        assert float((got.float() - want.float()).abs().max()) <= \
+            (0 if quantize else CHAIN_UNIT)
+
+
+def test_gamma_table_on_the_card_matches_the_cpu(cuda):
+    """K1's and K3's input gamma, computed on the card, against the same
+    table computed on the CPU (which tests/test_torch_color.py holds to
+    JAX): within 1e-5 max-abs (UNIT there)."""
+    table = cc.gamma_table(cuda)
+    assert table.dtype == torch.float32 and table.shape == (256,)
+    assert float((table.cpu() - cc.gamma_table("cpu")).abs().max()) <= 1e-5
 
 
 def test_color_chain_kernel_rejects_non_contiguous(cuda):

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import zignal_tpu as jz
+from zignal_tpu import pipeline as jax_pipeline
 from zignal_tpu.color import convert_array as jax_convert
 from zignal_tpu.ops.convolution import gaussian_blur as jax_blur
 from zignal_tpu.ops.interpolation import resize as jax_resize
@@ -183,6 +184,145 @@ def test_kernel_tiling_reproduces_plain(shape, oh, ow, sigma, tile):
     assert np.array_equal(out, want.numpy())
 
 
+# the kernel's staged tile plans (ops/fused_pipeline.py:tile_plan) at the
+# sizes of these tests: a main-path downscale, an upscale wider than its
+# halo, RGBA, a 1-px axis, no blur, and channel groups (C = 2, 5)
+PLAN_CASES = [  # (shape, out_rows, out_cols, sigma)
+    ((2, 64, 64, 3), 40, 24, 2.0),
+    ((1, 37, 53, 3), 100, 9, 3.5),
+    ((1, 37, 53, 4), 100, 9, 3.5),
+    ((2, 1, 64, 1), 3, 32, 1.0),
+    ((1, 50, 40, 3), 17, 33, 0.0),
+    ((3, 130, 70, 3), 65, 35, 1.5),
+    ((2, 17, 19, 5), 9, 11, 1.0),
+    ((2, 17, 19, 2), 9, 11, 0.0),
+]
+
+
+def _emulate_plan(x, oh, ow, sigma, tw, th, sms):
+    """A numpy transcription of resize_blur_kernel over the host's plan:
+    per tile, the source span it stages (or the whole image when the plan
+    gathers), the tables as byte offsets into it, the resize, the int32
+    width pass and the height pass with (acc + 32768) >> 16, for one
+    channel group of at most 4 channels at a time."""
+    b, h, w, cs = x.shape
+    r = tables.blur_radius(sigma)
+    ty = tables.halo_axis_table(h, oh, r)
+    tx = tables.halo_axis_table(w, ow, r)
+    monkey = fp.TILES
+    fp.TILES = ((tw, th),)
+    try:
+        plan, sy, sx = fp.tile_plan(b, oh, ow, r, cs, False, ty, tx, sms)
+    finally:
+        fp.TILES = monkey
+    kint = (tables._kernel_to_int(tables.gaussian_kernel(sigma)) if r
+            else np.ones(1, np.int32)).astype(np.int64)
+    out = np.zeros((b, oh, ow, cs), np.uint8)
+    flat = x.reshape(b, -1).astype(np.int64)
+    for z in range(b):
+        for by in range(-(-oh // th)):
+            for bx in range(-(-ow // tw)):
+                y0, x0 = by * th, bx * tw
+                cth, ctw = min(th, oh - y0), min(tw, ow - x0)
+                ya, yb, fy = ty[:, y0:y0 + cth + 2 * r].astype(np.int64)
+                xa, xb, fx = tx[:, x0:x0 + ctw + 2 * r].astype(np.int64)
+                if plan.staged:
+                    ylo, ny, xlo, nx = sy[0][by], sy[1][by], sx[0][bx], \
+                        sx[1][bx]
+                    assert ylo >= 0 and ylo + ny <= h and xlo >= 0 \
+                        and xlo + nx <= w
+                    for a in (ya, yb):
+                        assert ((a >= ylo) & (a < ylo + ny)).all()
+                    for a in (xa, xb):
+                        assert ((a >= xlo) & (a < xlo + nx)).all()
+                    soff = (xlo * cs) % 16
+                    src = np.zeros((ny, plan.sp), np.int64)
+                    assert soff + nx * cs <= plan.sp
+                    src[:, soff:soff + nx * cs] = \
+                        x[z, ylo:ylo + ny, xlo:xlo + nx].reshape(ny, -1)
+                    assert ny * plan.sp <= plan.off_y - plan.off_x
+                    src = src.ravel()
+                    ra, rb = (ya - ylo) * plan.sp, (yb - ylo) * plan.sp
+                    ca, cb = (xa - xlo) * cs + soff, (xb - xlo) * cs + soff
+                else:
+                    src = flat[z]
+                    ra, rb, ca, cb = ya * w * cs, yb * w * cs, xa * cs, \
+                        xb * cs
+                for c in range(cs):
+                    top = src[ra[:, None] + ca + c] * (256 - fx) \
+                        + src[ra[:, None] + cb + c] * fx
+                    bot = src[rb[:, None] + ca + c] * (256 - fx) \
+                        + src[rb[:, None] + cb + c] * fx
+                    res = np.minimum((top * (256 - fy[:, None])
+                                      + bot * fy[:, None]) >> 16, 255)
+                    if r:
+                        t = sum(kint[k] * res[:, k:k + ctw]
+                                for k in range(2 * r + 1))
+                        acc = sum(kint[k] * t[k:k + cth]
+                                  for k in range(2 * r + 1))
+                        res = np.minimum((acc + 32768) >> 16, 255)
+                    out[z, y0:y0 + cth, x0:x0 + ctw, c] = res
+    return out, plan
+
+
+@pytest.mark.parametrize("tile", fp.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("shape,oh,ow,sigma", PLAN_CASES,
+                         ids=_ids(PLAN_CASES))
+def test_staged_tile_plan_reproduces_plain(shape, oh, ow, sigma, tile):
+    """The kernel's staged source spans and local offsets, per tile of
+    every tile shape: every position a tile reads lies in its span, the
+    span fits the region the plan gives it, and resizing from it gives
+    the plain version's u8."""
+    x = _u8(shape, 14)
+    got, plan = _emulate_plan(x, oh, ow, sigma, *tile, 132)
+    assert plan.staged == (shape[3] in (1, 3, 4) and sigma > 0)
+    assert plan.smem <= 232448
+    want = fp.fused_resize_blur_oklab_reference(torch.from_numpy(x), oh, ow,
+                                                sigma, oklab=False)
+    assert np.array_equal(got, want.numpy())
+
+
+def test_tile_plan_takes_a_smaller_tile_below_four_blocks_an_sm():
+    r = tables.blur_radius(2.0)
+    ty = tx = tables.halo_axis_table(1024, 512, r)
+    big, _, _ = fp.tile_plan(16, 512, 512, r, 3, True, ty, tx, 132)
+    one, _, _ = fp.tile_plan(1, 512, 512, r, 3, True, ty, tx, 132)
+    assert (big.tw, big.th) == fp.TILES[0] and big.staged
+    assert one.blocks >= fp.MIN_BLOCKS_PER_SM * 132 and one.staged
+    assert one.tw * one.th < big.tw * big.th
+
+
+def test_axis_spans_cover_mirrored_edges():
+    t = tables.halo_axis_table(10, 37, 11)   # upscale, radius past the axis
+    first, count = fp.axis_spans(t, 8, 5, 11)
+    for i in range(5):
+        seg = t[:2, i * 8:i * 8 + 8 + 22]
+        assert first[i] == seg.min()
+        assert first[i] + count[i] - 1 == seg.max()
+
+
+def test_filter_chain_on_a_strided_plane_matches_jax():
+    """F1: pipeline.filter_chain hands the kernel a contiguous plane, so a
+    strided view (one channel of a batch) runs on the card as here."""
+    x = _u8((2, 40, 56, 3), 15)
+    plane = torch.from_numpy(x)[..., 0]
+    assert not plane.is_contiguous()
+    got = pipeline.filter_chain(plane)
+    want = np.asarray(jax_pipeline.filter_chain(x[..., 0]))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_resize_blur_oklab_on_a_strided_batch_matches_jax():
+    """F1: the same for pipeline.resize_blur_oklab on every other row."""
+    x = _u8((2, 24, 20, 3), 16)
+    batch = torch.from_numpy(x)[:, ::2]
+    assert not batch.is_contiguous()
+    got = pipeline.resize_blur_oklab(batch, 5, 6, 1.0)
+    want = np.asarray(jax_rbo(np.ascontiguousarray(x[:, ::2]), 5, 6, 1.0))
+    assert got.shape == want.shape
+    assert float(np.abs(got.numpy() - want).max()) <= OKLAB_TOL
+
+
 def test_fused_wrapper_on_cpu_runs_plain_without_launching():
     x = torch.from_numpy(_u8((1, 40, 40, 3), 10))
     before = fp.LAUNCHES
@@ -190,6 +330,19 @@ def test_fused_wrapper_on_cpu_runs_plain_without_launching():
     want = fp.fused_resize_blur_oklab_reference(x, 20, 20, 2.0)
     assert fp.LAUNCHES == before
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("channels,k1,k4", [
+    (1, 1, 1), (2, 1, 1), (3, 1, 1), (4, 1, 1), (5, 2, 2), (8, 2, 2),
+    (9, 3, 3)])
+def test_launch_counts_follow_the_channel_groups(channels, k1, k4):
+    """K1 runs C in {1, 3, 4} in one launch and any other C, like K4 every
+    C, in groups of at most 4 channels, one launch each: LAUNCHES counts
+    launches, not calls."""
+    from zignal_tpu_torch.ops import separable_conv as sc
+
+    assert fp.launches_for(channels) == k1
+    assert sc.launches_for(channels) == k4
 
 
 def test_fused_wrapper_raises_off_cpu_without_a_kernel():
@@ -200,7 +353,7 @@ def test_fused_wrapper_raises_off_cpu_without_a_kernel():
 
 @pytest.mark.parametrize("args,err", [
     (((1, 8, 8, 4), 4, 4, 1.0, True), "Oklab epilogue needs RGB"),
-    (((1, 8, 8, 2), 4, 4, 1.0, False), "channel count"),
+    (((1, 8, 8, 0), 4, 4, 1.0, False), "channel count"),
     (((1, 8, 8, 3), 0, 4, 1.0, False), "at least 1"),
     (((1, 8, 8, 3), 4, 4, -1.0, False), "sigma"),
 ])

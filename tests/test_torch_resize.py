@@ -100,6 +100,17 @@ def test_lanczos_u8_needs_the_contracted_multiply_add(monkeypatch):
     assert int((unfused != want).sum()) == 1
 
 
+@pytest.mark.parametrize("channels", [2, 5])
+def test_u8_bilinear_resize_of_any_channel_count_matches_jax(channels):
+    """F2: u8 bilinear resize takes any channel count (the kernel runs
+    groups of at most 4 on the card)."""
+    x = _u8((2, 17, 19, channels), 40 + channels)
+    got = resize(torch.from_numpy(x), 9, 11)
+    want = _jax_resize(x, 9, 11, Interpolation.BILINEAR)
+    assert got.shape == (2, 9, 11, channels)
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_resize_same_size_returns_the_input():
     x = torch.from_numpy(_u8((1, 7, 9, 3), 6))
     for method in METHODS:

@@ -15,7 +15,7 @@ from zignal_tpu.ops import mxu_resample, pallas_filter, pallas_pipeline
 
 from zignal_tpu_torch.color import _array as port_color, _constants
 from zignal_tpu_torch.ops import tables
-from zignal_tpu_torch.ops.fused_pipeline import _tile_plan
+from zignal_tpu_torch.ops.fused_pipeline import tile_plan
 
 SIGMAS = [0.5, 1.0, 1.5, 2.0, 3.5, 7.0]
 AXES = [(256, 128), (500, 128), (37, 100), (53, 9), (1, 3), (64, 1),
@@ -186,17 +186,26 @@ def test_color_constants_equal():
     assert min(min(row) for row in port_color._RGB2OKLMS) > 0  # cbrt domain
 
 
-@pytest.mark.parametrize("c,r,tile", [(3, 0, 32), (3, 6, 32), (4, 11, 32),
-                                      (4, 40, 32), (4, 80, 16), (4, 100, 8)])
-def test_tile_plan_fits_shared_memory(c, r, tile):
-    got_tile, smem = _tile_plan(c, r)
-    assert got_tile == tile
-    assert smem <= 232448 and (smem == 0) == (r == 0)
+def _k1_plan(c, r, b=16, n=1024, o=512):
+    t = tables.halo_axis_table(n, o, r)
+    return tile_plan(b, o, o, r, c, False, t, t, 132)[0]
+
+
+# past r ~ 30 a 2:1 tile's source span no longer fits beside its halo, and
+# the plan gathers from global memory instead
+@pytest.mark.parametrize("c,r,tile,staged", [
+    (3, 0, (32, 32), False), (3, 6, (64, 32), True), (4, 11, (64, 32), True),
+    (4, 40, (64, 32), False), (4, 80, (16, 16), False),
+    (4, 100, (8, 8), False)])
+def test_tile_plan_fits_shared_memory(c, r, tile, staged):
+    plan = _k1_plan(c, r)
+    assert (plan.tw, plan.th) == tile and plan.staged == staged
+    assert plan.smem <= 232448
 
 
 def test_tile_plan_rejects_radius_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
-        _tile_plan(4, 200)
+        _k1_plan(4, 200)
 
 
 def test_more_color_constants_equal():

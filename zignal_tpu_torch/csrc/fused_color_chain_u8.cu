@@ -10,25 +10,42 @@
 // interleaved [B, H, W, 3] bytes), no exp/log + Newton roots (the card's
 // powf is IEEE), no lane-multiple gate (any B, H, W >= 1).
 //
-// What bounds it on this card: compute, not HBM. On the bench chain
-// (rgb, lab, rgb, oklch, rgb, xyb, rgb) a pixel costs 6 powf, 9 cube roots
-// (each a powf) and ~100 multiply-adds, against an HBM floor of 6 B/px (3 read, 3 written):
-// 25 MB and 7.5 us at B=4 of 1024^2 at 3.35 TB/s. The design keeps the f32
-// chain values in registers: one thread per pixel in a grid-stride loop,
-// reading 3 bytes and writing 3 (or 12 bytes of f32 when quantize == 0).
+// What bounds it on this card: its transcendentals, not HBM (6 B a pixel,
+// 25 MB and 7.5 us at B=4 of 1024^2 at 3.35 TB/s). On the bench chain (rgb,
+// lab, rgb, oklch, rgb, xyb, rgb) a pixel takes 9 cube roots, 3 channels of
+// gamma in and out and 238 f32 ops of mixes, scalings, compares and clips.
+// With every SM busy a powf costs ~166 f32 ops of issue time and a cbrtf
+// ~50 (chip_smoke.py --ops). In the first design (one thread a pixel, every
+// root a powf) a root cost ~230 and a channel's gamma ~420 (chip_smoke.py
+// --times, chains of growing length; PERF.md). So this design:
+// - takes the input gamma from a 256-entry f32 table in shared memory: the
+//   first step of every supported chain acts on u8 / 255, so it has 256
+//   values, which the wrapper computes once a device with the plain
+//   version's own ops (bit-identical by construction); a chain that does
+//   not start with it takes the computed path;
+// - takes the cube roots with the card's cbrtf (1 ulp) instead of
+//   sign(x) * powf(|x|, 1/3), for a fraction of a powf;
+// - keeps the output gamma as IEEE powf;
+// - runs kPix = 4 pixels a thread, so each thread has 4 independent root
+//   chains to interleave and reads its 12 bytes as three 32-bit words (and
+//   writes them back the same way) where the batch is 4-byte aligned.
 //
 // The chain: the host walks convert_chain's state machine and passes at most
-// kMaxSteps step codes by value (ops/color_chain.py:compile_chain). Every
-// thread runs the same steps, so warps do not diverge on them.
+// kMaxSteps step codes in the kernel's parameters (ops/color_chain.py:
+// compile_chain). Every thread runs the same steps, so warps do not diverge
+// on them, and each step runs on the thread's 4 pixels in turn.
 //
 // Exactness: the arithmetic is the plain version's (ops/color_chain.py:
 // fused_color_chain_u8_reference) as PyTorch runs it on the card, op for op,
-// because the chain is ill-conditioned where a channel is dark: a linear
-// value near 0 is a difference of matrix terms near 1, and the gamma curve
-// then multiplies its error by 12.92, so a one-ulp change in a root moves
-// the f32 output by up to ~5e-5 (PERF.md). So:
+// but for the cube root. The chain is ill-conditioned where a channel is
+// dark: a linear value near 0 is a difference of matrix terms near 1, and
+// the gamma curve then multiplies its error by 12.92, so a one-ulp change in
+// a root moves the f32 output by up to ~1e-4 (9.24e-5 over all 2^24 RGB
+// triples of the six chains chip_smoke.py checks): that is the kernel's
+// stated f32 bound against the plain version (CHAIN_UNIT in
+// tests/test_torch_kernels.py and chip_smoke.py), and every u8 output stays
+// equal to the plain version's. Otherwise:
 // - powf, IEEE (no fast math), with the f32 exponents PyTorch passes;
-// - the cube root as the plain version takes it, sign(x) * powf(|x|, 1/3f);
 // - a division by a constant is a multiplication by its reciprocal 1 / c
 //   rounded to f32, which is how PyTorch divides a CUDA tensor by a Python
 //   scalar;
@@ -45,8 +62,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // also the gamma table's length
 constexpr int kMaxSteps = 64;
+constexpr int kPix = 4;  // pixels a thread of K3
 
 enum Step : int {
   GAMMA_TO_LINEAR = 0,
@@ -136,14 +154,16 @@ __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
 __device__ __forceinline__ float pow_(float x, float p) { return powf(x, p); }
-// torch.sign(x) * x.abs().pow(1/3): the real cube root
-__device__ __forceinline__ float cbrt_(float x, const float* k) {
-  const float sign = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-  return mul(sign, pow_(fabsf(x), k[ONE_THIRD]));
-}
+// the real cube root: the card's cbrtf (1 ulp), not the plain version's
+// sign(x) * pow(|x|, f32(1/3)), which costs as much as a powf
+__device__ __forceinline__ float cbrt_(float x) { return cbrtf(x); }
 __device__ __forceinline__ float cube(float x) { return mul(mul(x, x), x); }
 __device__ __forceinline__ float clip01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
+}
+// clip(round(f * 255)) as u8, rounding half to even as torch.round does
+__device__ __forceinline__ uint8_t quantize(float f) {
+  return (uint8_t)fminf(fmaxf(rintf(mul(f, 255.0f)), 0.0f), 255.0f);
 }
 
 // out[j] = v0 * m[0][j] + v1 * m[1][j] + v2 * m[2][j], left to right
@@ -186,7 +206,7 @@ __device__ __forceinline__ float linear_to_gamma(float c, const float* k) {
 }
 
 __device__ __forceinline__ float lab_f(float t, const float* k) {
-  return t > k[LAB_EPSILON] ? cbrt_(t, k)
+  return t > k[LAB_EPSILON] ? cbrt_(t)
                             : add(mul(k[LAB_KAPPA_DIV_116], t), k[LAB_DELTA]);
 }
 
@@ -218,9 +238,9 @@ __device__ __forceinline__ void lab_to_xyz(float v[3], const float* k) {
 // lms -> cbrt -> Oklab (the second half of rgb_to_oklab_fused/xyz_to_oklab)
 __device__ __forceinline__ void oklms_to_oklab(float v[3],
                                                const ChainParams& p) {
-  v[0] = cbrt_(v[0], p.k);
-  v[1] = cbrt_(v[1], p.k);
-  v[2] = cbrt_(v[2], p.k);
+  v[0] = cbrt_(v[0]);
+  v[1] = cbrt_(v[1]);
+  v[2] = cbrt_(v[2]);
   mix3(v, p.m[OKLMS2LAB]);
 }
 
@@ -230,7 +250,7 @@ __device__ __forceinline__ void linrgb_to_xyb(float v[3],
   float d[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    d[c] = sub(cbrt_(fmaxf(add(v[c], p.k[XYB_BIAS]), 0.0f), p.k),
+    d[c] = sub(cbrt_(fmaxf(add(v[c], p.k[XYB_BIAS]), 0.0f)),
                p.k[XYB_CBRT_BIAS_ENCODE]);
   v[0] = mul(0.5f, sub(d[0], d[1]));
   v[1] = mul(0.5f, add(d[0], d[1]));
@@ -247,115 +267,262 @@ __device__ __forceinline__ void xyb_to_linrgb(float v[3],
   mix3(v, p.m[XYBMIX2LINRGB]);
 }
 
-__device__ __forceinline__ void run_step(int step, float v[3],
+// One step of the chain on P pixels: each case runs the step on every
+// pixel, so a thread's P chains are independent work to interleave.
+template <int P>
+__device__ __forceinline__ void run_step(int step, float (&vs)[P][3],
                                          const ChainParams& p) {
   const float* k = p.k;
   switch (step) {
     case GAMMA_TO_LINEAR:
 #pragma unroll
-      for (int c = 0; c < 3; ++c) v[c] = gamma_to_linear(v[c], k);
+      for (int q = 0; q < P; ++q)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) vs[q][c] = gamma_to_linear(vs[q][c], k);
       break;
     case LINEAR_TO_GAMMA:
 #pragma unroll
-      for (int c = 0; c < 3; ++c) v[c] = clip01(linear_to_gamma(v[c], k));
+      for (int q = 0; q < P; ++q)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          vs[q][c] = clip01(linear_to_gamma(vs[q][c], k));
       break;
     case LIN_TO_XYZ:
-      mix3(v, p.m[RGB2XYZ]);
-      scale3(v, 100.0f);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        mix3(v, p.m[RGB2XYZ]);
+        scale3(v, 100.0f);
+      }
       break;
     case LIN_TO_LAB:
-      mix3(v, p.m[RGB2XYZ]);
-      scale3(v, 100.0f);
-      xyz_to_lab(v, k);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        mix3(v, p.m[RGB2XYZ]);
+        scale3(v, 100.0f);
+        xyz_to_lab(v, k);
+      }
       break;
     case LIN_TO_OKLAB:
-      mix3(v, p.m[RGB2OKLMS]);
-      oklms_to_oklab(v, p);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        mix3(v, p.m[RGB2OKLMS]);
+        oklms_to_oklab(v, p);
+      }
       break;
     case LIN_TO_XYB:
-      linrgb_to_xyb(v, p);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        linrgb_to_xyb(v, p);
+      }
       break;
     case XYZ_TO_LIN:
-      scale3(v, k[INV_100]);
-      mix3(v, p.m[XYZ2RGB]);
-      clip3(v);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        scale3(v, k[INV_100]);
+        mix3(v, p.m[XYZ2RGB]);
+        clip3(v);
+      }
       break;
     case LAB_TO_LIN:
-      lab_to_xyz(v, k);
-      scale3(v, k[INV_100]);
-      mix3(v, p.m[XYZ2RGB]);
-      clip3(v);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        lab_to_xyz(v, k);
+        scale3(v, k[INV_100]);
+        mix3(v, p.m[XYZ2RGB]);
+        clip3(v);
+      }
       break;
     case OKLAB_TO_LIN:
-      mix3(v, p.m[OKLAB2LMS]);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) v[c] = cube(v[c]);
-      mix3(v, p.m[OKLMS2RGB]);
-      clip3(v);
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        mix3(v, p.m[OKLAB2LMS]);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v[c] = cube(v[c]);
+        mix3(v, p.m[OKLMS2RGB]);
+        clip3(v);
+      }
       break;
     case XYB_TO_LIN:
-      xyb_to_linrgb(v, p);
-      clip3(v);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        xyb_to_linrgb(v, p);
+        clip3(v);
+      }
       break;
     case SHADOW:  // entering lch/oklch: the cartesian values stay as they are
       break;
     case XYZ_TO_LAB:
-      xyz_to_lab(v, k);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        xyz_to_lab(v, k);
+      }
       break;
     case LAB_TO_XYZ:
-      lab_to_xyz(v, k);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        lab_to_xyz(v, k);
+      }
       break;
     case XYZ_TO_OKLAB:
-      scale3(v, k[INV_100]);
-      mix3(v, p.m[XYZ2OKLMS]);
-      oklms_to_oklab(v, p);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        scale3(v, k[INV_100]);
+        mix3(v, p.m[XYZ2OKLMS]);
+        oklms_to_oklab(v, p);
+      }
       break;
     case OKLAB_TO_XYZ:
-      mix3(v, p.m[OKLAB2LMS]);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) v[c] = cube(v[c]);
-      mix3(v, p.m[OKLMS2XYZ]);
-      scale3(v, 100.0f);
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        mix3(v, p.m[OKLAB2LMS]);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v[c] = cube(v[c]);
+        mix3(v, p.m[OKLMS2XYZ]);
+        scale3(v, 100.0f);
+      }
       break;
     case XYZ_TO_XYB:
-      mix3(v, p.m[XYZ2RGB]);
-      scale3(v, k[INV_100]);
-      linrgb_to_xyb(v, p);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        mix3(v, p.m[XYZ2RGB]);
+        scale3(v, k[INV_100]);
+        linrgb_to_xyb(v, p);
+      }
       break;
     case XYB_TO_XYZ:
-      xyb_to_linrgb(v, p);
-      mix3(v, p.m[RGB2XYZ]);
-      scale3(v, 100.0f);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* v = vs[q];
+        xyb_to_linrgb(v, p);
+        mix3(v, p.m[RGB2XYZ]);
+        scale3(v, 100.0f);
+      }
       break;
     default:  // the host validates the codes; an unknown one poisons the pixel
-      v[0] = v[1] = v[2] = __int_as_float(0x7fc00000);
+#pragma unroll
+      for (int q = 0; q < P; ++q)
+        vs[q][0] = vs[q][1] = vs[q][2] = __int_as_float(0x7fc00000);
       break;
   }
 }
 
-// K3: one thread per pixel, grid-stride over the B * H * W pixels.
+// Loads pixel q of a group from 3 bytes at s, through the gamma table when
+// the chain's first step is the input gamma (LUT), else as u8 / 255.
+template <bool LUT>
+__device__ __forceinline__ void load_px(const uint8_t* s, float v[3],
+                                        const float* lut,
+                                        const ChainParams& p) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    v[c] = LUT ? lut[s[c]] : mul((float)s[c], p.k[INV_255]);
+}
+
 template <bool QUANTIZE>
+__device__ __forceinline__ void store_px(void* dst, long long i,
+                                         const float v[3]) {
+  if constexpr (QUANTIZE) {
+    uint8_t* d = static_cast<uint8_t*>(dst) + 3 * i;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) d[c] = quantize(v[c]);
+  } else {
+    float* d = static_cast<float*>(dst) + 3 * i;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) d[c] = v[c];
+  }
+}
+
+// K3: kPix pixels a thread, grid-stride over the groups of kPix pixels of
+// the B * H * W; the last n % kPix pixels go one at a time. With `vec`
+// (src 4-byte and dst 16-byte aligned) a group's 12 bytes are read as
+// three 32-bit words and written back the same way (or as three float4).
+template <bool QUANTIZE, bool LUT>
 __global__ void __launch_bounds__(kThreads)
 color_chain_kernel(const uint8_t* __restrict__ src, void* __restrict__ dst,
-                   long long n, const ChainParams p) {
+                   const float* __restrict__ lut_g, long long n, int vec,
+                   const __grid_constant__ ChainParams p) {
+  __shared__ float lut[256];
+  if constexpr (LUT) {
+    lut[threadIdx.x] = lut_g[threadIdx.x];
+    __syncthreads();
+  }
+  const int first = LUT ? 1 : 0;  // the table took the first step
+  const long long groups = n / kPix;
   const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const uint8_t* s = src + 3 * i;
-    float v[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) v[c] = mul((float)s[c], p.k[INV_255]);
-    for (int t = 0; t < p.n_steps; ++t) run_step(p.step[t], v, p);
-    if constexpr (QUANTIZE) {
-      uint8_t* d = static_cast<uint8_t*>(dst) + 3 * i;
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        d[c] = (uint8_t)fminf(fmaxf(rintf(mul(v[c], 255.0f)), 0.0f), 255.0f);
+  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+       g < groups; g += stride) {
+    union {
+      uint32_t w[3];
+      uint8_t b[12];
+    } in;
+    const uint8_t* s = src + 12 * g;
+    if (vec) {
+      const uint32_t* s4 = reinterpret_cast<const uint32_t*>(s);
+      in.w[0] = s4[0];
+      in.w[1] = s4[1];
+      in.w[2] = s4[2];
     } else {
-      float* d = static_cast<float*>(dst) + 3 * i;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) d[c] = v[c];
+      for (int j = 0; j < 12; ++j) in.b[j] = s[j];
     }
+    float v[kPix][3];
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) load_px<LUT>(in.b + 3 * q, v[q], lut, p);
+    for (int t = first; t < p.n_steps; ++t) run_step<kPix>(p.step[t], v, p);
+    if constexpr (QUANTIZE) {
+      union {
+        uint32_t w[3];
+        uint8_t b[12];
+      } out;
+#pragma unroll
+      for (int q = 0; q < kPix; ++q)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out.b[3 * q + c] = quantize(v[q][c]);
+      uint8_t* d = static_cast<uint8_t*>(dst) + 12 * g;
+      if (vec) {
+        uint32_t* d4 = reinterpret_cast<uint32_t*>(d);
+        d4[0] = out.w[0];
+        d4[1] = out.w[1];
+        d4[2] = out.w[2];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 12; ++j) d[j] = out.b[j];
+      }
+    } else {
+      float* d = static_cast<float*>(dst) + 12 * g;
+      if (vec) {
+        float4* d4 = reinterpret_cast<float4*>(d);
+        d4[0] = make_float4(v[0][0], v[0][1], v[0][2], v[1][0]);
+        d4[1] = make_float4(v[1][1], v[1][2], v[2][0], v[2][1]);
+        d4[2] = make_float4(v[2][2], v[3][0], v[3][1], v[3][2]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kPix; ++q)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) d[3 * q + c] = v[q][c];
+      }
+    }
+  }
+  // the tail: one thread a pixel
+  const long long tail = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (tail < n - groups * kPix) {
+    const long long i = groups * kPix + tail;
+    float v[1][3];
+    load_px<LUT>(src + 3 * i, v[0], lut, p);
+    for (int t = first; t < p.n_steps; ++t) run_step<1>(p.step[t], v, p);
+    store_px<QUANTIZE>(dst, i, v[0]);
   }
 }
 
@@ -363,19 +530,33 @@ color_chain_kernel(const uint8_t* __restrict__ src, void* __restrict__ dst,
 // helpers, so it checks the card's transcendentals exactly as K3 runs them.
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(const float* __restrict__ x, float* __restrict__ y, long long n,
-             const ChainParams p) {
+             const __grid_constant__ ChainParams p) {
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += stride) {
     const float v = x[i];
-    y[i] = v > 0.5f ? add(cbrt_(v, p.k), pow_(v, p.k[SRGB_GAMMA_EXPONENT]))
+    y[i] = v > 0.5f ? add(cbrt_(v), pow_(v, p.k[SRGB_GAMMA_EXPONENT]))
                     : add(pow_(v, p.k[SRGB_INV_GAMMA_EXPONENT]), cube(v));
   }
 }
 
 unsigned blocks_for(long long n) {
   const long long b = (n + kThreads - 1) / kThreads;
-  return (unsigned)(b < (1LL << 20) ? b : (1LL << 20));
+  return (unsigned)(b < 1 ? 1 : (b < (1LL << 20) ? b : (1LL << 20)));
+}
+
+template <bool QUANTIZE>
+int launch_chain(const uint8_t* src, void* dst, const float* lut,
+                 long long n, int vec, const ChainParams& p,
+                 cudaStream_t s) {
+  const unsigned blocks = blocks_for(n / kPix);
+  if (lut)
+    color_chain_kernel<QUANTIZE, true><<<blocks, kThreads, 0, s>>>(
+        src, dst, lut, n, vec, p);
+  else
+    color_chain_kernel<QUANTIZE, false><<<blocks, kThreads, 0, s>>>(
+        src, dst, lut, n, vec, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -385,21 +566,25 @@ extern "C" {
 int zt_color_chain_params_bytes() { return (int)sizeof(ChainParams); }
 
 // Returns a cudaError_t: 0 when the launch was accepted. The caller checks
-// dtype, shape and contiguity, allocates dst and compiles the chain.
-int zt_fused_color_chain_u8(const void* src, void* dst, const void* params,
-                            long long n, int quantize, void* stream) {
+// dtype, shape and contiguity, allocates dst and compiles the chain. lut:
+// the 256 f32 values of the chain's first step, the input gamma, on the
+// bytes 0..255 (the wrapper computes them with the plain version's ops),
+// or null when the chain does not start with it; vec: src is 4-byte and
+// dst 16-byte aligned.
+int zt_fused_color_chain_u8(const void* src, void* dst, const void* lut,
+                            const void* params, long long n, int quantize,
+                            int vec, void* stream) {
   ChainParams p;
   memcpy(&p, params, sizeof(p));
   if (p.n_steps < 0 || p.n_steps > kMaxSteps) return cudaErrorInvalidValue;
+  if (lut && (p.n_steps < 1 || p.step[0] != GAMMA_TO_LINEAR))
+    return cudaErrorInvalidValue;
   if (n < 1) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* in = static_cast<const uint8_t*>(src);
-  if (quantize)
-    color_chain_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(in, dst, n, p);
-  else
-    color_chain_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(in, dst, n,
-                                                                 p);
-  return cudaGetLastError();
+  const auto* table = static_cast<const float*>(lut);
+  if (quantize) return launch_chain<true>(in, dst, table, n, vec, p, s);
+  return launch_chain<false>(in, dst, table, n, vec, p, s);
 }
 
 int zt_transcendentals_probe(const void* x, void* y, const void* params,

@@ -41,6 +41,11 @@
 // stages its tile's taps in shared memory once, gathers the source rows x
 // columns, and runs both passes in int32.
 //
+// Channels: C in 1..4 is a template argument. An image of more channels
+// runs in groups of at most 4 (one launch a group, each reading and writing
+// its channels at the pixel stride C): conv_kernel with runtime taps,
+// staged through the halo tables, or band_kernel.
+//
 // Exactness: |pass 1| <= 255 * max_row sum|Mx|, |pass 2| <= that times
 // max_row sum|My|; the wrapper raises unless that plus 2^15 is below 2^31.
 // f32 pass 2 is exact when that bound is below 2^24, or when both bands are
@@ -74,6 +79,7 @@ struct ConvParams {
   int vec_in;          // rows of src are 16-byte aligned
   int f32;             // the height pass in f32 is exact
   int off_t, smem;     // shared-memory layout, bytes
+  int cs, c0;          // pixel stride of src and dst, first channel (C > 4)
   int xt[kMaxTaps], yt[kMaxTaps];
   float yf[kMaxTaps];
 };
@@ -84,6 +90,7 @@ struct BandParams {
   int sy, ky, sx, kx;  // per tile: source rows, row taps, columns, col taps
   int tile;
   int off_tmp, off_xt, off_yt, smem;  // shared-memory layout, bytes
+  int cs, c0;  // pixel stride of src and dst, first channel of this launch
 };
 
 template <bool F32>
@@ -211,22 +218,24 @@ __device__ __forceinline__ void stage_async(const uint8_t* src, const Tile& g,
 
 // Any other tile, through the halo tables: entry y0 + r is source row
 // y0 - ay + r (-1 where a ZERO border reads 0). A warp gathers
-// kStageRows rows at a time with all their loads in flight.
-template <int C>
+// kStageRows rows at a time with all their loads in flight. A channel group
+// (GROUP: C of the image's cs channels from c0) is staged as C channels.
+template <int C, bool GROUP>
 __device__ __forceinline__ void stage_gather(const uint8_t* src,
                                              const int* ty, const int* tx,
                                              const Tile& g,
                                              const ConvParams& p,
                                              uint8_t* in) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint8_t* img = src + (size_t)g.z * p.H * p.W * C;
+  const int cs = GROUP ? p.cs : C;
+  const uint8_t* img = src + (size_t)g.z * p.H * p.W * cs + (GROUP ? p.c0 : 0);
   for (int r0 = warp; r0 < g.sh; r0 += kWarps * kStageRows) {
     int gy[kStageRows];
     const uint8_t* rows[kStageRows];
 #pragma unroll
     for (int i = 0; i < kStageRows; ++i) {
       gy[i] = ty[g.y0 + min(r0 + i * kWarps, g.sh - 1)];
-      rows[i] = img + (size_t)max(gy[i], 0) * p.W * C;
+      rows[i] = img + (size_t)max(gy[i], 0) * p.W * cs;
     }
     for (int j = lane; j < g.sw; j += 32) {
       const int gx = tx[g.x0 + j];
@@ -234,7 +243,7 @@ __device__ __forceinline__ void stage_gather(const uint8_t* src,
 #pragma unroll
       for (int i = 0; i < kStageRows; ++i)
 #pragma unroll
-        for (int c = 0; c < C; ++c) v[i][c] = rows[i][max(gx, 0) * C + c];
+        for (int c = 0; c < C; ++c) v[i][c] = rows[i][max(gx, 0) * cs + c];
 #pragma unroll
       for (int i = 0; i < kStageRows; ++i) {
         const int r = r0 + i * kWarps;
@@ -247,8 +256,9 @@ __device__ __forceinline__ void stage_gather(const uint8_t* src,
   }
 }
 
-// One block: the output tile blockIdx.x, th x tw pixels of one image.
-template <int C, int K, bool F32>
+// One block: the output tile blockIdx.x, th x tw pixels of one image; with
+// GROUP, channels c0 .. c0 + C of an image of cs channels.
+template <int C, int K, bool F32, bool GROUP>
 __global__ void __launch_bounds__(kThreads)
 conv_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
             const int* __restrict__ ty, const int* __restrict__ tx,
@@ -265,12 +275,12 @@ conv_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
 
   // 1. the source region; pixel j of row r at in[r * sp + off + j * C]
   const Tile cur = tile_at<C, K>(blockIdx.x, p);
-  if (cur.vec) {
+  if (!GROUP && cur.vec) {
     stage_async<C>(src, cur, p, in);
     cp_async_commit();
     cp_async_wait_all();
   } else {
-    stage_gather<C>(src, ty, tx, cur, p, in);
+    stage_gather<C, GROUP>(src, ty, tx, cur, p, in);
   }
   __syncthreads();
 
@@ -298,9 +308,10 @@ conv_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   // height pass and divClampU8, stored to the image: a warp takes 8 rows x
   // 32 values, 32 consecutive bytes of a row a store
   const int nv = cur.tw * C, th = cur.th;
-  const size_t pitch = (size_t)p.W * C;
+  const int cs = GROUP ? p.cs : C;
+  const size_t pitch = (size_t)p.W * cs;
   uint8_t* out = dst + ((size_t)cur.z * p.H + cur.y0) * pitch +
-                 (size_t)cur.x0 * C;
+                 (size_t)cur.x0 * cs + (GROUP ? p.c0 : 0);
   const int nchunk = 1 << p.lg_nch, ncb = (nv + 31) >> 5;
   for (int u = warp; u < (ncb << p.lg_nch); u += kWarps) {
     const int r0 = (u & (nchunk - 1)) * kRows;
@@ -308,7 +319,8 @@ conv_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     if (r0 >= th || v >= nv) continue;
     T acc[kRows];
     col_pass<K, F32>(mid + r0 * tp + v, tp, p, acc);
-    uint8_t* o = out + r0 * pitch + v;
+    // value v is channel v % C of pixel v / C
+    uint8_t* o = out + r0 * pitch + (GROUP ? (v / C) * cs + v % C : v);
     if (r0 + kRows <= th) {
 #pragma unroll
       for (int j = 0; j < kRows; ++j) o[j * pitch] = div_clamp_u8(acc[j]);
@@ -335,8 +347,9 @@ band_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   const int sy = p.sy, sx = p.sx, kx = p.kx, ky = p.ky;
   const int tp = p.tile * C;  // pitch of the pass-1 rows, values
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint8_t* img = src + (size_t)blockIdx.z * p.H * p.W * C;
-  uint8_t* out = dst + (size_t)blockIdx.z * p.OH * p.OW * C;
+  const int cs = p.cs;  // C channels of cs from c0
+  const uint8_t* img = src + (size_t)blockIdx.z * p.H * p.W * cs + p.c0;
+  uint8_t* out = dst + (size_t)blockIdx.z * p.OH * p.OW * cs + p.c0;
   const int* rows = ysrc + (size_t)blockIdx.y * sy;
   const int* cols = xsrc + (size_t)blockIdx.x * sx;
 
@@ -359,10 +372,10 @@ band_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
       yt[o * ky + k] = make_int2(yidx[t] * tp, yw[t]);
     }
   for (int r = warp; r < sy; r += kWarps) {
-    const uint8_t* srow = img + (size_t)rows[r] * p.W * C;
+    const uint8_t* srow = img + (size_t)rows[r] * p.W * cs;
     uint8_t* d = in + r * sx * C;
     for (int j = lane; j < sx; j += 32) {
-      const uint8_t* s = srow + cols[j] * C;
+      const uint8_t* s = srow + cols[j] * cs;
 #pragma unroll
       for (int c = 0; c < C; ++c) d[j * C + c] = s[c];
     }
@@ -389,7 +402,7 @@ band_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   // 3. row pass (contract H), divClampU8 by 256^2, u8 store
   for (int r = warp; r < th; r += kWarps) {
     const int2* t = yt + r * ky;
-    uint8_t* orow = out + ((size_t)(oy0 + r) * p.OW + ox0) * C;
+    uint8_t* orow = out + ((size_t)(oy0 + r) * p.OW + ox0) * cs;
     for (int o = lane; o < tw; o += 32) {
       int acc[C] = {};
       for (int k = 0; k < ky; ++k) {
@@ -399,7 +412,7 @@ band_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
         for (int c = 0; c < C; ++c) acc[c] += tk.y * s[c];
       }
 #pragma unroll
-      for (int c = 0; c < C; ++c) orow[o * C + c] = div_clamp_u8(acc[c]);
+      for (int c = 0; c < C; ++c) orow[o * cs + c] = div_clamp_u8(acc[c]);
     }
   }
 }
@@ -411,10 +424,10 @@ int prepare(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int C, int K, bool F32>
+template <int C, int K, bool F32, bool GROUP = false>
 int launch_conv(const void* src, void* dst, const void* ty, const void* tx,
                 const ConvParams& p, cudaStream_t stream) {
-  auto kernel = conv_kernel<C, K, F32>;
+  auto kernel = conv_kernel<C, K, F32, GROUP>;
   int e = prepare(kernel, p.smem);
   if (e != cudaSuccess) return e;
   const long long grid = (long long)p.tiles_x * p.tiles_y * p.B;
@@ -446,6 +459,15 @@ int conv_form(const void* src, void* dst, const void* ty, const void* tx,
               const ConvParams& p, cudaStream_t s) {
   if (p.f32) return conv_taps<C, true>(src, dst, ty, tx, p, s);
   return conv_taps<C, false>(src, dst, ty, tx, p, s);
+}
+
+// C of an image's cs channels from c0: the runtime-tap kernel, staged
+// through the halo tables
+template <int C>
+int conv_group(const void* src, void* dst, const void* ty, const void* tx,
+               const ConvParams& p, cudaStream_t s) {
+  if (p.f32) return launch_conv<C, 0, true, true>(src, dst, ty, tx, p, s);
+  return launch_conv<C, 0, false, true>(src, dst, ty, tx, p, s);
 }
 
 template <int C>
@@ -484,6 +506,7 @@ int zt_separable_conv_u8(const void* src, void* dst, const void* ty,
   memcpy(&p, params, sizeof(p));
   if (p.kx < 1 || p.ky < 1 || p.kx > kMaxTaps || p.ky > kMaxTaps)
     return cudaErrorInvalidValue;
+  if (p.C < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p.C) {
     case 1:
@@ -494,9 +517,32 @@ int zt_separable_conv_u8(const void* src, void* dst, const void* ty,
       return conv_form<3>(src, dst, ty, tx, p, s);
     case 4:
       return conv_form<4>(src, dst, ty, tx, p, s);
-    default:
-      return cudaErrorInvalidValue;
   }
+  // C > 4: one launch a group of at most 4 channels, pixel stride C
+  for (int c0 = 0; c0 < p.C; c0 += 4) {
+    ConvParams q = p;
+    q.C = p.C - c0 < 4 ? p.C - c0 : 4;
+    q.cs = p.C;
+    q.c0 = c0;
+    q.vec_in = 0;
+    int e;
+    switch (q.C) {
+      case 1:
+        e = conv_group<1>(src, dst, ty, tx, q, s);
+        break;
+      case 2:
+        e = conv_group<2>(src, dst, ty, tx, q, s);
+        break;
+      case 3:
+        e = conv_group<3>(src, dst, ty, tx, q, s);
+        break;
+      default:
+        e = conv_group<4>(src, dst, ty, tx, q, s);
+        break;
+    }
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 int zt_separable_u8(const void* src, void* dst, const void* ysrc,
@@ -505,19 +551,32 @@ int zt_separable_u8(const void* src, void* dst, const void* ysrc,
                     void* stream) {
   BandParams p;
   memcpy(&p, params, sizeof(p));
+  if (p.C < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.C) {
-    case 1:
-      return launch_band<1>(src, dst, ysrc, yidx, yw, xsrc, xidx, xw, p, s);
-    case 2:
-      return launch_band<2>(src, dst, ysrc, yidx, yw, xsrc, xidx, xw, p, s);
-    case 3:
-      return launch_band<3>(src, dst, ysrc, yidx, yw, xsrc, xidx, xw, p, s);
-    case 4:
-      return launch_band<4>(src, dst, ysrc, yidx, yw, xsrc, xidx, xw, p, s);
-    default:
-      return cudaErrorInvalidValue;
+  // one launch a group of at most 4 channels, pixel stride C
+  for (int c0 = 0; c0 < p.C; c0 += 4) {
+    BandParams q = p;
+    q.C = p.C - c0 < 4 ? p.C - c0 : 4;
+    q.cs = p.C;
+    q.c0 = c0;
+    int e;
+    switch (q.C) {
+      case 1:
+        e = launch_band<1>(src, dst, ysrc, yidx, yw, xsrc, xidx, xw, q, s);
+        break;
+      case 2:
+        e = launch_band<2>(src, dst, ysrc, yidx, yw, xsrc, xidx, xw, q, s);
+        break;
+      case 3:
+        e = launch_band<3>(src, dst, ysrc, yidx, yw, xsrc, xidx, xw, q, s);
+        break;
+      default:
+        e = launch_band<4>(src, dst, ysrc, yidx, yw, xsrc, xidx, xw, q, s);
+        break;
+    }
+    if (e != cudaSuccess) return e;
   }
+  return cudaSuccess;
 }
 
 }  // extern "C"

@@ -31,7 +31,7 @@ _BUILD_DIR = _PKG / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
-TILES = (32, 16, 8)     # output tile sides of K1 and K4's band kernel
+TILES = (32, 16, 8)     # output tile sides of K4's band kernel
 SMEM_LIMIT = 232448     # bytes of shared memory a block may use on sm_90
 
 _LIB = None
@@ -92,9 +92,9 @@ def load():
     if _LIB is None:
         lib = ctypes.CDLL(str(_compile()))
         _declare(lib, "zt_fused_resize_blur_oklab",
-                 [_P, _P, _P, _P, _P, _P,          # src dst ty tx taps mix
-                  _I, _I, _I, _I, _I, _I,          # B H W C OH OW
-                  _I, _I, _I, _I, _P])             # r tile smem oklab stream
+                 [_P, _P, _P, _P, _P, _P, _P,      # src dst ty tx sy sx lut
+                  _P, _P])                         # params stream
+        _declare(lib, "zt_resize_params_bytes", [])
         _declare(lib, "zt_fused_blur_sharpen_morph",
                  [_P, _P, _P, _P, _P, _P])         # src dst ty tx params
                                                    # stream
@@ -109,8 +109,8 @@ def load():
         _declare(lib, "zt_conv_params_bytes", [])
         _declare(lib, "zt_band_params_bytes", [])
         _declare(lib, "zt_fused_color_chain_u8",
-                 [_P, _P, _P, _L, _I, _P])         # src dst params n
-                                                   # quantize stream
+                 [_P, _P, _P, _P, _L, _I, _I, _P])  # src dst lut params n
+                                                    # quantize vec stream
         _declare(lib, "zt_transcendentals_probe",
                  [_P, _P, _P, _L, _P])             # x y params n stream
         _declare(lib, "zt_color_chain_params_bytes", [])

@@ -13,7 +13,12 @@ Every chain the kernel accepts is the identity on u8 (the f32 values lie
 within 0.14/255 of the input bytes), so a u8 comparison alone would pass a
 kernel that copied its input: ``quantize=False`` returns the f32 values
 before the quantization, and the tests and ``chip_smoke.py`` hold those
-to the plain version too.
+to the plain version too. The kernel reads the chain's first step, the
+input gamma, from a table the wrapper computes with the plain version's
+own ops (``gamma_table``), and takes its cube roots with the card's
+``cbrtf`` where the plain version takes ``sign(x) * |x|^(1/3)``: its f32
+values are within 1e-4 of the plain version's (``CHAIN_UNIT`` in the
+tests), its u8 outputs equal.
 
 ``transcendentals_probe`` is K3p: the probe expression of the TPU's
 ``mosaic_transcendentals_ok`` through the same device helpers as K3. The
@@ -33,8 +38,9 @@ from ..color._path import conversion_path
 from ._build import launch, load
 
 __all__ = ["chain_supported", "compile_chain", "fused_color_chain_u8",
-           "fused_color_chain_u8_reference", "transcendentals_probe",
-           "transcendentals_probe_reference", "PROBE_TOL"]
+           "fused_color_chain_u8_reference", "gamma_table",
+           "transcendentals_probe", "transcendentals_probe_reference",
+           "PROBE_TOL"]
 
 # kernel launches since import, read as color_chain.LAUNCHES and
 # color_chain.PROBE_LAUNCHES: a run shows with them that the main path
@@ -225,6 +231,23 @@ def fused_color_chain_u8_reference(batch, spaces, quantize: bool = True):
     return _quantize(f) if quantize else f
 
 
+_GAMMA: dict = {}
+
+
+def gamma_table(device):
+    """The 256 f32 values of a chain's first step, the input gamma, on the
+    bytes 0..255: the plain version's own expression
+    (``gamma_to_linear(x.to(int32).to(float32) / 255.0)``) computed once a
+    device with PyTorch's ops there, so the kernel's table lookup equals
+    the plain version's first step bit for bit."""
+    table = _GAMMA.get(device)
+    if table is None:
+        x = torch.arange(256, dtype=torch.int32, device=device)
+        table = _GAMMA[device] = A.gamma_to_linear(
+            x.to(torch.float32) / 255.0).contiguous()
+    return table
+
+
 _PROBED: set = set()
 
 
@@ -257,13 +280,17 @@ def fused_color_chain_u8(batch, spaces, quantize: bool = True):
         raise ValueError(f"no kernel for device {batch.device}")
     if not batch.is_contiguous():
         raise ValueError("the kernel needs a contiguous batch")
-    params = _params(compile_chain(spaces))
+    codes = compile_chain(spaces)
+    params = _params(codes)
     _probe_once(batch.device)
     out = torch.empty(batch.shape, device=batch.device,
                       dtype=torch.uint8 if quantize else torch.float32)
     n = batch.numel() // 3
+    lut = gamma_table(batch.device).data_ptr() \
+        if codes and codes[0] == _CODE["GAMMA_TO_LINEAR"] else None
+    vec = batch.data_ptr() % 4 == 0 and out.data_ptr() % 16 == 0
     launch("zt_fused_color_chain_u8", batch.device, batch.data_ptr(),
-           out.data_ptr(), params, n, int(quantize))
+           out.data_ptr(), lut, params, n, int(quantize), int(vec))
     LAUNCHES += 1
     return out
 

@@ -2,8 +2,9 @@
 kernel, the counterpart of zignal_tpu/ops/pallas_conv.py.
 
 ``separable_u8(x, Mx, My)`` applies ``Mx [OW, W]`` along the columns and
-``My [OH, H]`` along the rows of a ``[B, H, W, C]`` u8 tensor, C <= 4, then
-divClampU8 by 256^2. A CUDA tensor launches ``csrc/separable_u8.cu``; a CPU
+``My [OH, H]`` along the rows of a ``[B, H, W, C]`` u8 tensor, then
+divClampU8 by 256^2; the kernel runs more than 4 channels in groups of at
+most 4. A CUDA tensor launches ``csrc/separable_u8.cu``; a CPU
 tensor goes to ``separable_u8_reference``. The kernel takes any H, W, OH,
 OW >= 1, so, unlike the TPU kernel, it needs no shape gate.
 
@@ -31,7 +32,8 @@ from .tables import SCALE, band_to_taps, resolve_index_np, tile_sources
 __all__ = ["separable_u8", "separable_u8_reference", "run_cached",
            "run_conv", "f32_exact", "conv_tile_plan"]
 
-# kernel launches since import, read as separable_conv.LAUNCHES
+# kernel launches since import, read as separable_conv.LAUNCHES (a call of
+# C channels launches launches_for(C) times)
 LAUNCHES = 0
 
 # device tables and parameters: key -> _BandPlan or _ConvPlan
@@ -51,9 +53,18 @@ MIN_BLOCKS_PER_SM = 4
 F32_EXACT = 1 << 24
 _CONV_FIELDS = ("B", "H", "W", "C", "kx", "ky", "ax", "ay", "th", "tw",
                 "tiles_x", "tiles_y", "lg_g", "lg_nch", "sp", "vec_in", "f32",
-                "off_t", "smem")
+                "off_t", "smem", "cs", "c0")
 _BAND_FIELDS = ("B", "H", "W", "C", "OH", "OW", "sy", "ky", "sx", "kx",
-                "tile", "off_tmp", "off_xt", "off_yt", "smem")
+                "tile", "off_tmp", "off_xt", "off_yt", "smem", "cs", "c0")
+# the kernels run at most this many channels a launch (shared memory is
+# planned for a group of GROUP channels when an image has more)
+GROUP = 4
+
+
+def launches_for(c: int) -> int:
+    """Launches of one call on ``c`` channels: one a group of at most
+    ``GROUP`` channels."""
+    return -(-c // GROUP)
 
 
 def _a16(n: int) -> int:
@@ -84,8 +95,8 @@ def _check(x, Mx, My):
     if x.dtype != torch.uint8 or x.ndim != 4:
         raise ValueError("expected a uint8 [B, H, W, C] tensor")
     b, h, w, c = x.shape
-    if not 1 <= c <= 4:
-        raise ValueError("channel count must be 1 to 4")
+    if c < 1:
+        raise ValueError("channel count must be at least 1")
     if min(b, h, w) < 1:
         raise ValueError("every dimension must be at least 1")
     if Mx.ndim != 2 or My.ndim != 2 or Mx.shape[1] != w or My.shape[1] != h:
@@ -140,6 +151,7 @@ class _BandPlan:
         yi, yw = band_to_taps(My)
         xi, xw = band_to_taps(Mx)
         ky, kx = yw.shape[1], xw.shape[1]
+        cs, c = c, min(c, GROUP)
         for tile in TILES:
             ysrc, ylocal = tile_sources(yi, yw, tile)
             xsrc, xlocal = tile_sources(xi, xw, tile)
@@ -156,9 +168,9 @@ class _BandPlan:
         self.oh, self.ow = My.shape[0], Mx.shape[0]
         self.grid_y, self.smem = -(-self.oh // tile), smem
         self.params = _buffer(_BAND_FIELDS, dict(
-            B=b, H=h, W=w, C=c, OH=self.oh, OW=self.ow, sy=sy, ky=ky, sx=sx,
+            B=b, H=h, W=w, C=cs, OH=self.oh, OW=self.ow, sy=sy, ky=ky, sx=sx,
             kx=kx, tile=tile, off_tmp=off_tmp, off_xt=off_xt, off_yt=off_yt,
-            smem=smem))
+            smem=smem, cs=cs, c0=0))
         self.ysrc, self.yidx, self.yw = (torch.from_numpy(t).to(device)
                                          for t in (ysrc, ylocal, yw))
         self.xsrc, self.xidx, self.xw = (torch.from_numpy(t).to(device)
@@ -168,8 +180,8 @@ class _BandPlan:
 def _check_cuda(x):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype != torch.uint8 or x.ndim != 4 or not 1 <= x.shape[3] <= 4:
-        raise ValueError("the kernel needs a uint8 [B, H, W, C<=4] tensor")
+    if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[3] < 1:
+        raise ValueError("the kernel needs a uint8 [B, H, W, C] tensor")
     if not x.is_contiguous():
         raise ValueError("the kernel needs a contiguous batch")
     if x.shape[0] > 65535:
@@ -197,7 +209,7 @@ def run_cached(x, key, bands):
            plan.ysrc.data_ptr(), plan.yidx.data_ptr(), plan.yw.data_ptr(),
            plan.xsrc.data_ptr(), plan.xidx.data_ptr(), plan.xw.data_ptr(),
            plan.params)
-    LAUNCHES += 1
+    LAUNCHES += launches_for(c)
     return out
 
 
@@ -251,8 +263,8 @@ class _ConvPlan:
     __slots__ = ("tile", "ty", "tx", "fields", "tail", "params")
 
     def __init__(self, kx, ky, border, b, h, w, c, device):
-        t = self.tile = conv_tile_plan(len(kx), len(ky), c, h, w, b,
-                                       sm_count(device))
+        t = self.tile = conv_tile_plan(len(kx), len(ky), min(c, GROUP), h,
+                                       w, b, sm_count(device))
         self.ty = _halo(h, len(ky), border, device)
         self.tx = _halo(w, len(kx), border, device)
         self.fields = dict(
@@ -261,7 +273,8 @@ class _ConvPlan:
             tiles_y=-(-h // t.th),
             lg_g=(t.tw // 4).bit_length() - 1,
             lg_nch=(t.th // ROWS).bit_length() - 1, sp=t.sp, vec_in=0,
-            f32=int(f32_exact(kx, ky)), off_t=t.off_t, smem=t.smem)
+            f32=int(f32_exact(kx, ky)), off_t=t.off_t, smem=t.smem, cs=c,
+            c0=0)
         taps = np.zeros((3, MAX_TAPS), np.int32)
         taps[0, :len(kx)] = kx
         taps[1, :len(ky)] = ky
@@ -311,7 +324,7 @@ def run_conv(x, kx, ky, border: BorderMode):
     params = plan.buffer((w * c) % 16 == 0 and x.data_ptr() % 16 == 0)
     launch("zt_separable_conv_u8", x.device, x.data_ptr(), out.data_ptr(),
            plan.ty.data_ptr(), plan.tx.data_ptr(), params)
-    LAUNCHES += 1
+    LAUNCHES += launches_for(c)
     return out
 
 

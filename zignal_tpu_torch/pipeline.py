@@ -59,8 +59,8 @@ def resize_blur_oklab(batch, out_rows: int, out_cols: int, sigma: float = 2.0,
     separable kernel blurs on the card).
     """
     if Interpolation(method) == Interpolation.BILINEAR:
-        return fused_resize_blur_oklab(batch, out_rows, out_cols,
-                                       float(sigma))
+        return fused_resize_blur_oklab(batch.contiguous(), out_rows,
+                                       out_cols, float(sigma))
     small = resize_op(batch, out_rows, out_cols, method)
     blurred = gaussian_blur(small, float(sigma))
     return convert_array(blurred.to(torch.float32) / 255.0, "rgb", "oklab")
@@ -72,5 +72,5 @@ def filter_chain(plane, sigma: float = 2.0, sharpen_radius: int = 2,
     a [H, W] or [B, H, W] u8 plane (the BASELINE config-3 chain), one
     fused kernel on the card at any shape. Returns a u8 0/255 mask of the
     same shape, bit-exact with the JAX package's chain."""
-    return fused_blur_sharpen_morph(plane, float(sigma), int(sharpen_radius),
-                                    float(thr))
+    return fused_blur_sharpen_morph(plane.contiguous(), float(sigma),
+                                    int(sharpen_radius), float(thr))
