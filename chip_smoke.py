@@ -15,7 +15,8 @@ POWF_OPS in the bounds.
 
 Phases (any failure raises and exits non-zero):
 1. device facts: torch/CUDA versions, the card's name and power limit,
-   the time nvcc took to build the kernels from csrc/;
+   the time nvcc took to build the kernels from csrc/ and g++ the host
+   codec library from csrc/host/ (it must load);
 2. K1 (fused resize -> blur -> Oklab) vs plain PyTorch on the card over
    the oracle shapes of tests/test_pallas_pipeline.py (C in {1, 3, 4},
    upscales, odd outputs, sigma in {0, 0.5, 1, 1.5, 2, 3.5}, Oklab on and
@@ -56,10 +57,11 @@ Phases (any failure raises and exits non-zero):
    config-2 step of bench.py (color_chain_u8 -> equalize(u8[0]) ->
    autocontrast(u8[1])), and ImageBatch of [16, 1024, 1024, 3] RGB through
    .resize((512, 512)).gaussian_blur(1.5).autocontrast(0.01)
-   .convert("gray").equalize() (K1, K4) and .convert("gray")
+   .convert(Gray).equalize() (K1, K4) and .convert(Gray)
    .threshold_otsu();
-10. K3p (the transcendental probe) vs plain on (8, 128) and on 1M values in
-   [0, 2]: max relative error <= 1e-6;
+10. K3p (the transcendental probe) vs plain on (8, 128), on 1M values in
+   [0, 2], on n in {1, 3, 5, 1023, 2^20 + 3} and on views offset by 4
+   bytes (its scalar head and scalar stores): max relative error <= 1e-6;
 11. K3 (the fused colour chain) vs plain on all 2^24 RGB triples for each of
    the six chains of tests/test_pallas_color.py: u8 equal, and f32 before
    the quantization within 1e-4 max-abs (CHAIN_UNIT; every such chain is
@@ -83,7 +85,26 @@ Phases (any failure raises and exits non-zero):
    the float resize, Sobel gradients, the float Gaussian and the ISEF
    within 1e-4 max-abs on 0-255 data (the CPU tests' bound); and a
    [2, 3, H, W, 3] resize on the card against the CPU;
-15. each phase-13 call timed with CUDA events after a warm-up.
+15. each phase-13 call timed with CUDA events after a warm-up;
+16. BASELINE config 1 (bench.py:199-260): 12 seeded JPEGs of 1200x1600
+   through Image.load_from_bytes(..., device="cuda").resize((600, 800))
+   and PNG encode, K1 read around each image, every PNG equal to the same
+   flow on the CPU; single-image latency, sustained MPix/s and the split
+   into decode, H2D, resize, D2H and encode; Image.gaussian_blur (K4);
+17. the north star from files: 16 files of 1024^2 RGB (PNG and JPEG) ->
+   ImageBatch.from_paths(..., device="cuda") -> .resize_blur_oklab((512,
+   512), sigma=2), K1 once a call, Oklab within 5e-6 of the same call on
+   the CPU (first 4 files) and the saved u8 resize equal to the CPU's;
+   host-to-host ms from the pinned loader and from a pageable
+   ImageBatch(np_array, device="cuda"), in turns;
+18. BatchLoader over 64 files of mixed sizes (36 letterboxed on the card),
+   batch 16, shape (1024, 1024), each batch through resize_blur_oklab:
+   every batch equal to the CPU's; ms a batch with one batch in flight and
+   loaded one after another, in turns;
+19. ImageBatch's item-10 members on [16, 1024, 1024, 3] (invert, the
+   flips, fill, set_border, convert(Gray), blend in every mode) against
+   the same calls on the CPU on image 0, to_images / from_images on the
+   whole batch, and their times.
 The last two lines are a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
@@ -277,7 +298,7 @@ def _k3_bound(x):
     returns every byte to itself). A root at CBRTF_OPS, a curve at
     POWF_OPS, the cheapest exact-enough forms, which the kernel uses."""
     from zignal_tpu_torch.color._array import convert_array
-    from zignal_tpu_torch.color._constants import D65_X, D65_Y, D65_Z, \
+    from zignal_tpu_torch.color._scalar import D65_X, D65_Y, D65_Z, \
         LAB_EPSILON, SRGB_LINEAR_THRESHOLD
     from zignal_tpu_torch.ops.color_chain import gamma_table
 
@@ -559,7 +580,7 @@ def _check_chain(label, x, spaces):
 
 def _color_phases(card, rng):
     """Phases 9-12: K3 and K3p. Returns their entries of the kernels line."""
-    from zignal_tpu_torch import ImageBatch, pipeline
+    from zignal_tpu_torch import Gray, ImageBatch, pipeline
     from zignal_tpu_torch.ops import color_chain as cc
     from zignal_tpu_torch.ops import enhancement
     from zignal_tpu_torch.ops import fused_pipeline as fp
@@ -616,8 +637,8 @@ def _color_phases(card, rng):
     fp.LAUNCHES = sc.LAUNCHES = 0
     ib = ImageBatch(x16, device="cuda")
     out = (ib.resize((512, 512)).gaussian_blur(1.5).autocontrast(0.01)
-           .convert("gray").equalize())
-    binary, thresholds = ib.convert("gray").threshold_otsu()
+           .convert(Gray).equalize())
+    binary, thresholds = ib.convert(Gray).threshold_otsu()
     torch.cuda.synchronize()
     k1_ex, k4_ex = fp.LAUNCHES, sc.LAUNCHES
     print(f"ImageBatch example chain: K1 {k1_ex} launches, K4 {k4_ex}")
@@ -629,32 +650,40 @@ def _color_phases(card, rng):
                                                  oklab=False)
     plain = ImageBatch(convolve_separable_reference(small, k, k).cpu(),
                        device="cpu")
-    want = plain.autocontrast(0.01).convert("gray").equalize()
+    want = plain.autocontrast(0.01).convert(Gray).equalize()
     _check_equal("ImageBatch example chain vs plain",
                  out.device_array().cpu(), want.device_array())
     want_bin, want_t = ImageBatch(x16.cpu(), device="cpu") \
-        .convert("gray").threshold_otsu()
+        .convert(Gray).threshold_otsu()
     if not np.array_equal(thresholds, want_t):
         raise AssertionError("threshold_otsu thresholds differ from the CPU")
     _check_equal(f"ImageBatch.threshold_otsu (thresholds {thresholds[:4]}"
                  "...) vs the CPU", binary.device_array().cpu(),
                  want_bin.device_array())
 
-    # 10. K3p vs plain
+    # 10. K3p vs plain: the TPU's tile, 1M values, sizes around its 4-value
+    #     groups and a view 4 bytes past a 16-byte boundary (scalar head,
+    #     scalar stores)
     probe_rel = probe_abs = 0.0
-    for x in (torch.linspace(0.0, 2.0, 1024, device="cuda").reshape(8, 128),
-              torch.from_numpy(rng.uniform(0, 2, 1 << 20).astype(
-                  np.float32)).cuda()):
+    big = torch.from_numpy(rng.uniform(0, 2, (1 << 20) + 4).astype(
+        np.float32)).cuda()
+    cases = [("(8, 128) linspace",
+              torch.linspace(0.0, 2.0, 1024, device="cuda").reshape(8, 128)),
+             ("1M values", big[:1 << 20])]
+    cases += [(f"n={n}", big[:n]) for n in (1, 3, 5, 1023, (1 << 20) + 3)]
+    cases += [("1M values, a view offset by 4 bytes", big[1:(1 << 20) + 1]),
+              ("n=5, a view offset by 4 bytes", big[1:6])]
+    for label, x in cases:
         got = cc.transcendentals_probe(x)
         want = cc.transcendentals_probe_reference(x)
         torch.cuda.synchronize()
         rel = cc.probe_error(got, want)
         probe_rel = max(probe_rel, rel)
         probe_abs = max(probe_abs, float((got - want).abs().max()))
-        print(f"K3p {tuple(x.shape)}: max_rel_err={rel} "
-              f"{'ok' if rel <= cc.PROBE_TOL else 'FAIL'}")
-        if not rel <= cc.PROBE_TOL:
-            raise AssertionError("K3p != plain")
+        print(f"K3p {label} (x at {x.data_ptr() % 16} mod 16): "
+              f"max_rel_err={rel} {'ok' if rel <= cc.PROBE_TOL else 'FAIL'}")
+        if not rel <= cc.PROBE_TOL or got.shape != x.shape:
+            raise AssertionError(f"K3p != plain: {label}")
 
     # 11. K3 vs plain on every RGB triple, then odd shapes
     allx = _all_triples()
@@ -808,7 +837,7 @@ def _time_events(fn) -> float:
 
 def _slice4_phases(card, rng):
     """Phases 13-15. Returns the K1 and K4 launches of phase 13."""
-    from zignal_tpu_torch import ImageBatch, Interpolation
+    from zignal_tpu_torch import Gray, ImageBatch, Interpolation
     from zignal_tpu_torch.ops import color_chain as cc
     from zignal_tpu_torch.ops import edges
     from zignal_tpu_torch.ops import filter_chain as fc
@@ -827,7 +856,7 @@ def _slice4_phases(card, rng):
     x = np.clip(blocks + rng.integers(-12, 13, (b, n, n, 3)), 0, 255) \
         .astype(np.uint8)
     ib = ImageBatch(x, device="cuda")
-    gray = ib.convert("gray").device_array()[0, ..., 0]
+    gray = ib.convert(Gray).device_array()[0, ..., 0]
     calls = _slice4_calls()
 
     # 13. every path once, launch counts zeroed just before
@@ -851,7 +880,7 @@ def _slice4_phases(card, rng):
 
     # 14. image 0 against the same calls on the CPU
     cpu = ImageBatch(x[:1], device="cpu")
-    cpu_gray = cpu.convert("gray").device_array()[0, ..., 0]
+    cpu_gray = cpu.convert(Gray).device_array()[0, ..., 0]
     for name, fn, _ in calls:
         t0 = time.perf_counter()
         want = _planes(fn(cpu, cpu_gray))
@@ -874,7 +903,7 @@ def _slice4_phases(card, rng):
         print(f"phase 14 {name}: equal to the CPU on image 0{extra} "
               f"({time.perf_counter() - t0:.2f} s)")
     x0 = ib.device_array()[:1].float()
-    g0 = ib.convert("gray").device_array()[:1, ..., 0].float()
+    g0 = ib.convert(Gray).device_array()[:1, ..., 0].float()
     k = gaussian_kernel(1.4)
     floats = [(f"float resize 512^2 {m.name}",
                lambda a, m=m: resize(a[0], 512, 512, m))
@@ -907,6 +936,329 @@ def _slice4_phases(card, rng):
         ms = _time_events(lambda: fn(ib, gray))
         print(f"[{card}] phase 15 {name}: {ms:.4f} ms")
     return k1_launches, k4_launches
+
+
+# -- the file paths: the Image container, the host codecs, the loader ---------
+
+CONFIG1 = dict(count=12, rows=1200, cols=1600)  # bench.py:199-260
+FILES = dict(count=16, side=1024)               # the north star from files
+LOADER = dict(count=64, batch=16, side=1024)
+# the loader's inputs: the north star's 1024^2 files and three other
+# sizes, so that 3 of 4 files take the letterbox, each through one K1
+# resize (no size here letterboxes to itself, which resizes nothing)
+LOADER_SIZES = ((1024, 1024), (900, 1200), (1200, 900), (640, 960))
+
+
+def synth_photo(h, w, seed=0):
+    """A seeded photo-like RGB image (smooth structure and grain), the
+    synthetic input of bench.py's config 1 (its ``synth_photo``)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    yy = yy.astype(np.float32)
+    xx = xx.astype(np.float32)
+    base = np.stack([
+        128 + 90 * np.sin(xx / 97.0) * np.cos(yy / 53.0),
+        128 + 80 * np.cos(xx / 61.0 + yy / 41.0),
+        128 + 70 * np.sin((xx + yy) / 151.0),
+    ], axis=-1)
+    noise = rng.normal(0.0, 12.0, (h, w, 3))
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def _launched(fn, mod, label: str, times: int = 1):
+    """``fn()`` with ``mod.LAUNCHES`` read around it; raises unless the
+    kernel launched ``times`` times."""
+    torch.cuda.synchronize()
+    before = mod.LAUNCHES
+    out = fn()
+    torch.cuda.synchronize()
+    if mod.LAUNCHES - before != times:
+        raise AssertionError(f"{label}: {mod.LAUNCHES - before} launches, "
+                             f"not {times}")
+    return out
+
+
+def _config1(card):
+    """Phase 16: BASELINE config 1 on the card. Returns K1's and K4's
+    launches."""
+    from zignal_tpu_torch import Image
+    from zignal_tpu_torch.codecs import jpeg, png
+    from zignal_tpu_torch.ops import fused_pipeline as fp
+    from zignal_tpu_torch.ops import separable_conv as sc
+
+    n, h, w = CONFIG1["count"], CONFIG1["rows"], CONFIG1["cols"]
+    corpus = [jpeg.encode(synth_photo(h, w, seed=100 + k), quality=90)
+              for k in range(n)]
+
+    def once(jpg, device):
+        img = Image.load_from_bytes(jpg, device=device)
+        return png.encode(img.resize((img.rows // 2, img.cols // 2))
+                          .to_numpy())
+
+    torch.cuda.synchronize()
+    fp.LAUNCHES = sc.LAUNCHES = 0
+    outs = [_launched(lambda j=jpg: once(j, "cuda"), fp,
+                      f"config 1 image {k}") for k, jpg in enumerate(corpus)]
+    img = Image.load_from_bytes(corpus[0], device="cuda")
+    blurred = _launched(lambda: img.gaussian_blur(2.0), sc,
+                        "Image.gaussian_blur")
+    k1, k4 = fp.LAUNCHES, sc.LAUNCHES
+    for k, (jpg, out) in enumerate(zip(corpus, outs)):
+        if out != once(jpg, "cpu"):
+            raise AssertionError(f"config 1 image {k}: PNG bytes differ "
+                                 "from the same flow on the CPU")
+    cpu = Image.load_from_bytes(corpus[0], device="cpu").gaussian_blur(2.0)
+    if not np.array_equal(blurred.to_numpy(), cpu.to_numpy()):
+        raise AssertionError("Image.gaussian_blur on the card != the CPU")
+    print(f"config 1: {n} JPEGs of {h}x{w} -> Image.load_from_bytes(..., "
+          f"device='cuda').resize(({h // 2}, {w // 2})) -> PNG: K1 {k1} "
+          f"launches (1 an image), every PNG equal to the CPU's "
+          f"({sum(map(len, outs)) / n / 1e3:.0f} KB each); "
+          f"Image.gaussian_blur(2.0): K4 1 launch, equal to the CPU")
+
+    once(corpus[0], "cuda")  # warm
+    lat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        once(corpus[0], "cuda")
+        lat.append(time.perf_counter() - t0)
+    stream = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for jpg in corpus:
+            once(jpg, "cuda")
+        stream.append(time.perf_counter() - t0)
+    mpix = h * w / 1e6
+    print(f"[{card}] config 1: single-image latency {1e3 * min(lat):.2f} ms "
+          f"(best of 3: {', '.join(f'{1e3 * t:.2f}' for t in lat)}); "
+          f"sustained {n * mpix / min(stream):.2f} MPix/s over {n} images "
+          f"(passes {', '.join(f'{n * mpix / t:.2f}' for t in stream)})")
+
+    # the split, each stage alone with a synchronize after it
+    split = {k: [] for k in ("decode", "H2D", "resize", "D2H", "encode")}
+    for jpg in corpus:
+        t0 = time.perf_counter()
+        arr = jpeg.load_from_bytes(jpg)
+        t1 = time.perf_counter()
+        dev = torch.from_numpy(arr).to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = Image._from_device(dev, "rgb").resize((h // 2, w // 2))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host = out.to_numpy()
+        t4 = time.perf_counter()
+        png.encode(host)
+        t5 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                   t5 - t4)):
+            split[key].append(1e3 * dt)
+    print(f"[{card}] config 1 split, median ms an image: " + ", ".join(
+        f"{k} {np.median(v):.3f}" for k, v in split.items())
+        + f" (sum {sum(np.median(v) for v in split.values()):.2f})")
+    return k1, k4
+
+
+def _host_to_host(fn, reps: int = 3):
+    """ms of each of ``reps`` calls of ``fn`` on the host clock."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def _files(card, tmp):
+    """Phases 17-18: the north star from files and the loader. Returns
+    K1's launches."""
+    from zignal_tpu_torch import BatchLoader, ImageBatch, load_image_batch
+    from zignal_tpu_torch.codecs import save_array
+    from zignal_tpu_torch.ops import fused_pipeline as fp
+
+    side, n = FILES["side"], FILES["count"]
+    paths = []
+    for i in range(LOADER["count"]):
+        h, w = LOADER_SIZES[0] if i < n else LOADER_SIZES[i % 4]
+        paths.append(f"{tmp}/in{i:02d}.{('png', 'jpg')[i % 2]}")
+        save_array(paths[-1], synth_photo(h, w, seed=300 + i))
+    ns_paths = paths[:n]
+
+    # 17. the north star from files
+    torch.cuda.synchronize()
+    fp.LAUNCHES = 0
+    ib = _launched(lambda: ImageBatch.from_paths(ns_paths, device="cuda"),
+                   fp, "from_paths of 1024^2 files", 0)
+    lab = _launched(lambda: ib.resize_blur_oklab((512, 512), sigma=2.0), fp,
+                    "resize_blur_oklab")
+    small = _launched(lambda: ib.resize((512, 512)), fp, "resize")
+    k1 = fp.LAUNCHES
+    out_gpu = [f"{tmp}/gpu{i:02d}.png" for i in range(n)]
+    small.save(out_gpu)
+    m = 4  # the same call on the CPU, on the first 4 files
+    cpu = ImageBatch.from_paths(ns_paths[:m], device="cpu")
+    want = cpu.resize_blur_oklab((512, 512), sigma=2.0)
+    if tuple(lab.shape) != (n, 512, 512, 3) or not bool(
+            torch.isfinite(lab).all()):
+        raise AssertionError(f"bad north-star output {tuple(lab.shape)}")
+    err = float((lab[:m].cpu() - want).abs().max())
+    out_cpu = [f"{tmp}/cpu{i:02d}.png" for i in range(m)]
+    cpu.resize((512, 512)).save(out_cpu)
+    same = all(open(a, "rb").read() == open(b, "rb").read()
+               for a, b in zip(out_gpu, out_cpu))
+    print(f"north star from files: {n} files of {side}^2 RGB (PNG, JPEG) "
+          f"-> ImageBatch.from_paths(..., device='cuda') -> "
+          f".resize_blur_oklab((512, 512), sigma=2): K1 {k1} launches "
+          f"(rbo + resize); Oklab vs the CPU on images 0-{m - 1}: "
+          f"max_abs_err={err} {'ok' if err <= OKLAB_TOL else 'FAIL'}; "
+          f"saved PNGs equal to the CPU's: {same}")
+    if err > OKLAB_TOL or not same:
+        raise AssertionError("the north star from files != the CPU")
+
+    def pinned():
+        return ImageBatch.from_paths(ns_paths, device="cuda") \
+            .resize_blur_oklab((512, 512), sigma=2.0).cpu()
+
+    def pageable():
+        arr = load_image_batch(ns_paths, device="cpu").numpy()
+        return ImageBatch(arr, device="cuda") \
+            .resize_blur_oklab((512, 512), sigma=2.0).cpu()
+
+    pinned()
+    pageable()
+    a, b, c, d = (_host_to_host(pinned), _host_to_host(pageable),
+                  _host_to_host(pageable), _host_to_host(pinned))
+    arr = load_image_batch(ns_paths, device="cpu").numpy()
+    e = _host_to_host(lambda: ImageBatch(arr, device="cuda")
+                      .resize_blur_oklab((512, 512), sigma=2.0).cpu())
+    host = torch.empty(arr.shape, dtype=torch.uint8, pin_memory=True)
+    host.numpy()[:] = arr
+    f = _host_to_host(lambda: ImageBatch(host.to("cuda", non_blocking=True),
+                                         device="cuda")
+                      .resize_blur_oklab((512, 512), sigma=2.0).cpu())
+    print(f"[{card}] north star from files, host to host at B={n}: "
+          f"from_paths (pinned, copy stream) -> rbo -> .cpu() "
+          f"{min(a + d):.2f} ms (runs {', '.join(f'{t:.2f}' for t in a + d)}"
+          f"); decode then ImageBatch(np_array, device='cuda') (pageable) "
+          f"{min(b + c):.2f} ms (runs {', '.join(f'{t:.2f}' for t in b + c)}"
+          f"); from the decoded array: pageable {min(e):.2f} ms, pinned "
+          f"{min(f):.2f} ms")
+
+    # 18. the loader: 64 files of mixed sizes, batch 16, letterboxed
+    bs, shape = LOADER["batch"], (LOADER["side"], LOADER["side"])
+    chunks = [paths[i:i + bs] for i in range(0, len(paths), bs)]
+    lettered = sum(1 for i in range(len(paths))
+                   if i >= n and LOADER_SIZES[i % 4] != shape)
+    torch.cuda.synchronize()
+    before = fp.LAUNCHES
+    got = []
+    for batch in BatchLoader(paths, batch_size=bs, shape=shape,
+                             device="cuda"):
+        got.append(batch)
+        ImageBatch(batch, device="cuda").resize_blur_oklab((512, 512), 2.0)
+    torch.cuda.synchronize()
+    loader_k1 = fp.LAUNCHES - before
+    if loader_k1 != lettered + len(chunks):
+        raise AssertionError(f"the loader launched K1 {loader_k1} times, "
+                             f"not {lettered} letterboxes + {len(chunks)}")
+    k1 += loader_k1
+    want = list(BatchLoader(paths, batch_size=bs, shape=shape,
+                            device="cpu"))
+    if len(got) != len(want) or not all(
+            torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("the loader's batches on the card != the CPU's")
+    print(f"BatchLoader: {len(paths)} files ({lettered} letterboxed), "
+          f"batch {bs}, shape {shape} -> resize_blur_oklab each batch: K1 "
+          f"{loader_k1} launches; every batch equal to the CPU's")
+    del got, want
+
+    def prefetched():
+        for batch in BatchLoader(paths, batch_size=bs, shape=shape,
+                                 device="cuda"):
+            ImageBatch(batch, device="cuda").resize_blur_oklab((512, 512),
+                                                               2.0)
+
+    def sequential():
+        for chunk in chunks:
+            batch = load_image_batch(chunk, shape=shape, device="cuda")
+            ImageBatch(batch, device="cuda").resize_blur_oklab((512, 512),
+                                                               2.0)
+            torch.cuda.synchronize()
+
+    a, b, c, d = (_host_to_host(prefetched, 1), _host_to_host(sequential, 1),
+                  _host_to_host(sequential, 1), _host_to_host(prefetched, 1))
+    a, b, c, d = a[0], b[0], c[0], d[0]
+    nb = len(chunks)
+    print(f"[{card}] BatchLoader ms a batch: one batch in flight "
+          f"{min(a, d) / nb:.2f} (runs {a / nb:.2f}, {d / nb:.2f}); loaded "
+          f"one after another {min(b, c) / nb:.2f} (runs {b / nb:.2f}, "
+          f"{c / nb:.2f})")
+    return k1
+
+
+def _batch_members(card, rng):
+    """Phase 19: ImageBatch's item-10 members on [16, 1024, 1024, 3]
+    against the same calls on the CPU (image 0; to_images / from_images
+    on the whole batch)."""
+    from zignal_tpu_torch import Blending, Gray, ImageBatch
+
+    n, b = MAIN["size"], FILTER_BATCH
+    x = rng.integers(0, 256, (b, n, n, 3), np.uint8)
+    over = rng.integers(0, 256, (b, n, n, 4), np.uint8)
+    ib, ov = ImageBatch(x, device="cuda"), ImageBatch(over, device="cuda")
+    cpu = ImageBatch(x[:1], device="cpu")
+    cov = ImageBatch(over[:1], device="cpu")
+    calls = [("invert", lambda t, o: t.invert()),
+             ("flip_left_right", lambda t, o: t.flip_left_right()),
+             ("flip_top_bottom", lambda t, o: t.flip_top_bottom()),
+             ("fill", lambda t, o: t.fill((12, 34, 56))),
+             ("set_border", lambda t, o: t.set_border((100, 50, 900, 1000),
+                                                      (9, 8, 7))),
+             ("convert(Gray)", lambda t, o: t.convert(Gray))]
+    calls += [(f"blend {m.name}", lambda t, o, m=m: t.blend(o, m))
+              for m in Blending]
+    for name, fn in calls:
+        got = fn(ib, ov)
+        torch.cuda.synchronize()
+        want = fn(cpu, cov)
+        if got.dtype is not want.dtype or got.batch_size != b or \
+                not torch.equal(got.device_array()[:1].cpu(),
+                                want.device_array()):
+            raise AssertionError(f"ImageBatch.{name} on the card != CPU")
+    images = ib.to_images()
+    back = ImageBatch.from_images(images, device="cuda")
+    if len(images) != b or not torch.equal(back.device_array(),
+                                           ib.device_array()) \
+            or not np.array_equal(images[-1].to_numpy(), x[-1]):
+        raise AssertionError("to_images / from_images do not round-trip")
+    print(f"ImageBatch members on [{b}, {n}, {n}, 3]: {len(calls)} calls "
+          "(invert, the flips, fill, set_border, convert(Gray), blend in "
+          "every mode) equal to the CPU on image 0; to_images -> "
+          "from_images round-trips")
+    for name, fn in calls[:6] + [calls[7]]:
+        ms = _time_events(lambda: fn(ib, ov))
+        print(f"[{card}] phase 19 ImageBatch.{name}: {ms:.4f} ms")
+
+
+def _file_phases(card, rng):
+    """Phases 16-19. Returns (K1, K4) launches."""
+    import tempfile
+
+    from zignal_tpu_torch import native
+
+    t0 = time.perf_counter()
+    k1, k4 = _config1(card)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        k1 += _files(card, tmp)
+    t2 = time.perf_counter()
+    _batch_members(card, rng)
+    t3 = time.perf_counter()
+    print(f"phases 16-19: config 1 {t1 - t0:.1f} s, files and loader "
+          f"{t2 - t1:.1f} s, ImageBatch members {t3 - t2:.1f} s; the codec "
+          f"library built in {native.BUILD_SECONDS:.1f} s")
+    return k1, k4
 
 
 # K1 at the edges of its tile plans: outputs just below, at and above the
@@ -965,23 +1317,13 @@ def _fault_cases(rng) -> float:
         gaussian_blur
     from zignal_tpu_torch.ops.interpolation import resize
 
-    def launched(fn, mod, label, times=1):
-        torch.cuda.synchronize()
-        before = mod.LAUNCHES
-        out = fn()
-        torch.cuda.synchronize()
-        if mod.LAUNCHES != before + times:
-            raise AssertionError(f"{label} did not launch its kernel "
-                                 f"{times} times")
-        return out
-
     x = _u8(rng, (4, 512, 384, 3))
-    mask = launched(lambda: pipeline.filter_chain(x[..., 0]), fc,
+    mask = _launched(lambda: pipeline.filter_chain(x[..., 0]), fc,
                     "F1 filter_chain on a strided plane")
     _check_equal("F1 filter_chain(x[..., 0]) on [4, 512, 384, 3] (K2)", mask,
                  fc.fused_blur_sharpen_morph_reference(
                      x[..., 0].contiguous()))
-    lab = launched(lambda: pipeline.resize_blur_oklab(x[:, ::2], 128, 96,
+    lab = _launched(lambda: pipeline.resize_blur_oklab(x[:, ::2], 128, 96,
                                                       1.0), fp,
                    "F1 resize_blur_oklab on a strided batch")
     err = float((lab - fp.fused_resize_blur_oklab_reference(
@@ -992,14 +1334,14 @@ def _fault_cases(rng) -> float:
         raise AssertionError("F1 resize_blur_oklab != plain")
     for c in (2, 5, 8):
         y = _u8(rng, (4, 300, 250, c))
-        got = launched(lambda: resize(y, 149, 163), fp, f"F2 resize C={c}",
+        got = _launched(lambda: resize(y, 149, 163), fp, f"F2 resize C={c}",
                        fp.launches_for(c))
         _check_equal(f"F2 resize [4, 300, 250, {c}] -> 149x163 (K1, channel "
                      "groups)", got, fp.fused_resize_blur_oklab_reference(
                          y, 149, 163, 0.0, oklab=False))
         if c > 4:
             k = tables.gaussian_kernel(1.0)
-            got = launched(lambda: gaussian_blur(y, 1.0), sc,
+            got = _launched(lambda: gaussian_blur(y, 1.0), sc,
                            f"F3 gaussian_blur C={c}", sc.launches_for(c))
             _check_equal(f"F3 gaussian_blur [4, 300, 250, {c}] sigma=1 (K4, "
                          "channel groups)", got,
@@ -1010,7 +1352,7 @@ def _fault_cases(rng) -> float:
         a, b, f = tables.bilinear_axis_table(m, m // 2)
         bands.append(tables.build_tap_matrix(
             np.stack([a, b], 1), np.stack([256 - f, f], 1), m, m // 2))
-    got = launched(lambda: sc.separable_u8(y, *bands), sc, "F3 band C=6",
+    got = _launched(lambda: sc.separable_u8(y, *bands), sc, "F3 band C=6",
                    sc.launches_for(6))
     _check_equal("F3 separable_u8 [2, 300, 250, 6] bilinear band (K4 band "
                  "kernel, channel groups)", got,
@@ -1211,7 +1553,7 @@ def main() -> int:
     if "--times" in sys.argv[1:]:
         rest = sys.argv[sys.argv.index("--times") + 1:]
         return kernel_times(rest[0] if rest else None)
-    from zignal_tpu_torch import ImageBatch
+    from zignal_tpu_torch import ImageBatch, native
     from zignal_tpu_torch.ops import _build, fused_pipeline as fp
 
     # 1. device facts and the build
@@ -1222,6 +1564,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    if native.get_lib() is None:
+        raise AssertionError("the host codec library did not build (g++)")
+    print(f"codec library build: {native.BUILD_SECONDS:.1f} s "
+          f"({native.get_lib()._name})")
     rng = np.random.default_rng(0)
 
     # 2. kernel vs plain on the oracle shapes
@@ -1313,8 +1659,9 @@ def main() -> int:
     k3, k3p, (k1_ex, k4_ex) = _color_phases(card, rng)
     k1["bound_ms"], k1["bound_by"] = _k1_bound(16, n, o)
     k1_s4, k4_s4 = _slice4_phases(card, rng)
-    k1["launches"] += k1_ex + k1_s4
-    k4["launches"] += k4_ex + k4_s4
+    k1_s7, k4_s7 = _file_phases(card, rng)
+    k1["launches"] += k1_ex + k1_s4 + k1_s7
+    k4["launches"] += k4_ex + k4_s4 + k4_s7
     print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

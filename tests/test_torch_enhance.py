@@ -204,7 +204,7 @@ def test_image_batch_example_chain_matches_jax():
     """examples/image_batch.py:38-42 without the mesh."""
     x = _example_batch()
     got = (zp.ImageBatch(x, device="cpu").resize((64, 64))
-           .gaussian_blur(1.5).autocontrast(0.01).convert("gray").equalize())
+           .gaussian_blur(1.5).autocontrast(0.01).convert(zp.Gray).equalize())
     want = (jz.ImageBatch(x).resize((64, 64)).gaussian_blur(1.5)
             .autocontrast(0.01).convert(jz.Gray).equalize())
     assert got.channels == 1
@@ -214,7 +214,7 @@ def test_image_batch_example_chain_matches_jax():
 def test_image_batch_otsu_matches_jax():
     """examples/image_batch.py:63 without the mesh."""
     x = _example_batch()
-    got, t = zp.ImageBatch(x, device="cpu").convert("gray").threshold_otsu()
+    got, t = zp.ImageBatch(x, device="cpu").convert(zp.Gray).threshold_otsu()
     want, wt = jz.ImageBatch(x).convert(jz.Gray).threshold_otsu()
     assert t.dtype == np.int32 and t.shape == (2,)
     assert np.array_equal(t, wt)
@@ -236,14 +236,19 @@ def test_image_batch_histogram_equalize_autocontrast_match_jax(c):
 
 
 CONVERSIONS = [(a, b) for a in (1, 3, 4) for b in ("gray", "rgb", "rgba")]
+_DTYPES = {"gray": "Gray", "rgb": "Rgb", "rgba": "Rgba"}
 
 
 @pytest.mark.parametrize("c,space", CONVERSIONS,
                          ids=[f"{c}-{s}" for c, s in CONVERSIONS])
 def test_image_batch_convert_matches_jax(c, space):
     x = _u8((2, 9, 11, c), 16)
-    jspace = {"gray": jz.Gray, "rgb": jz.Rgb, "rgba": jz.Rgba}[space]
-    got = zp.ImageBatch(x, device="cpu").convert(space)
+    jspace = getattr(jz, _DTYPES[space])
+    got = zp.ImageBatch(x, device="cpu").convert(getattr(zp, _DTYPES[space]))
+    assert got.dtype is getattr(zp, _DTYPES[space])
+    # ops keep the tag; a gray result of an op on a colour batch is Gray
+    assert got.box_blur(1).dtype is got.dtype
+    assert got.sobel().dtype is zp.Gray
     assert np.array_equal(got.to_numpy(),
                           jz.ImageBatch(x).convert(jspace).to_numpy())
 
@@ -257,7 +262,7 @@ def test_image_batch_validation_matches_jax():
         with pytest.raises(ValueError, match="cutoff"):
             jb.autocontrast(cutoff)
     with pytest.raises(TypeError):
-        ib.convert("lab")
+        ib.convert(zp.Lab)
     with pytest.raises(TypeError):
         jb.convert(jz.Lab)
 

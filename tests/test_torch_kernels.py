@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from zignal_tpu_torch import BorderMode, ImageBatch, pipeline
+from zignal_tpu_torch import BorderMode, Gray, ImageBatch, pipeline
 from zignal_tpu_torch.color import convert_chain
 from zignal_tpu_torch.ops import color_chain as cc
 from zignal_tpu_torch.ops import filter_chain as fc
@@ -495,6 +495,31 @@ def test_transcendentals_probe_equals_plain(cuda):
     assert err <= cc.PROBE_TOL
 
 
+# K3p's redesign: 4 values a thread through float4 loads, a scalar head up
+# to x's 16-byte boundary and a scalar tail; an offset view leaves y's
+# stores scalar too
+@pytest.mark.parametrize("n", [1, 3, 5, 1023, 1024, (1 << 20) + 3])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_transcendentals_probe_at_any_size_and_alignment(cuda, n, offset):
+    rng = np.random.default_rng(n + offset)
+    buf = torch.from_numpy(rng.uniform(0, 2, n + offset).astype(
+        np.float32)).to(cuda)
+    x = buf[offset:]
+    assert x.data_ptr() % 16 == 4 * offset % 16
+    got = cc.transcendentals_probe(x)
+    assert got.shape == x.shape
+    assert cc.probe_error(got, cc.transcendentals_probe_reference(x)) \
+        <= cc.PROBE_TOL
+
+
+def test_transcendentals_probe_on_the_tpu_tile(cuda):
+    x = torch.linspace(0.0, 2.0, 8 * 128, device=cuda).reshape(8, 128)
+    got = cc.transcendentals_probe(x)
+    assert got.shape == (8, 128)
+    assert cc.probe_error(got, cc.transcendentals_probe_reference(x)) \
+        <= cc.PROBE_TOL
+
+
 def test_color_chain_u8_launches_the_kernel(cuda):
     x = _u8((2, 32, 48, 3), 13, cuda)
     spaces = CHAINS[0]
@@ -515,8 +540,8 @@ def test_histogram_ops_on_the_card_equal_the_cpu(cuda):
                        cpu.equalize().device_array())
     assert torch.equal(ib.autocontrast(0.01).device_array().cpu(),
                        cpu.autocontrast(0.01).device_array())
-    got, t = ib.convert("gray").threshold_otsu()
-    want, wt = cpu.convert("gray").threshold_otsu()
+    got, t = ib.convert(Gray).threshold_otsu()
+    want, wt = cpu.convert(Gray).threshold_otsu()
     assert (t == wt).all()
     assert torch.equal(got.device_array().cpu(), want.device_array())
 
@@ -617,3 +642,116 @@ def test_float_paths_on_the_card_are_within_bound_of_the_cpu(cuda):
                   edges.isef_filter(x[..., 0].cpu(), 0.9)))
     for got, want in pairs:
         assert float((got.cpu() - want).abs().max()) <= F255_TOL
+
+
+# -- the Image container and the pinned loader on the card --------------------
+
+def test_image_resize_and_gaussian_blur_launch_k1_and_k4(cuda):
+    from zignal_tpu_torch import Image
+
+    arr = np.random.default_rng(70).integers(0, 256, (96, 128, 3), np.uint8)
+    img = Image.from_numpy(arr, device=cuda)
+    cpu = Image.from_numpy(arr.copy(), device="cpu")
+    k1, k4 = fp.LAUNCHES, sc.LAUNCHES
+    small = img.resize((48, 64))
+    assert (fp.LAUNCHES, sc.LAUNCHES) == (k1 + 1, k4)
+    blurred = img.gaussian_blur(2.0)
+    assert (fp.LAUNCHES, sc.LAUNCHES) == (k1 + 1, k4 + 1)
+    boxed = img.letterbox((80, 80))
+    assert fp.LAUNCHES == k1 + 2
+    assert small.device.type == "cuda"
+    assert np.array_equal(small.to_numpy(),
+                          cpu.resize((48, 64)).to_numpy())
+    assert np.array_equal(blurred.to_numpy(),
+                          cpu.gaussian_blur(2.0).to_numpy())
+    assert np.array_equal(boxed.to_numpy(),
+                          cpu.letterbox((80, 80)).to_numpy())
+    # the borrowed array is uploaded anew by every op
+    arr[:8] = 0
+    assert np.array_equal(img.resize((48, 64)).to_numpy(),
+                          Image.from_numpy(arr.copy(), device="cpu")
+                          .resize((48, 64)).to_numpy())
+
+
+def test_pinned_loader_batches_equal_the_cpu(cuda, tmp_path):
+    from zignal_tpu_torch import BatchLoader, codecs, load_image_batch
+
+    rng = np.random.default_rng(71)
+    paths = []
+    for i, (h, w) in enumerate([(64, 64), (48, 80), (90, 60), (64, 64),
+                                (33, 47)]):
+        p = str(tmp_path / f"f{i}.{('png', 'jpg')[i % 2]}")
+        codecs.save_array(p, rng.integers(0, 256, (h, w, 3), np.uint8))
+        paths.append(p)
+    k1 = fp.LAUNCHES
+    got = load_image_batch(paths, shape=(64, 64), device=cuda)
+    assert got.device.type == "cuda"
+    assert fp.LAUNCHES == k1 + 3   # the three letterboxed files
+    want = load_image_batch(paths, shape=(64, 64), device="cpu")
+    assert torch.equal(got.cpu(), want)
+    batches = list(BatchLoader(paths, batch_size=2, shape=(64, 64),
+                               device=cuda))
+    cpu = list(BatchLoader(paths, batch_size=2, shape=(64, 64),
+                           device="cpu"))
+    assert len(batches) == len(cpu) == 3
+    for g, w in zip(batches, cpu):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    ib = ImageBatch.from_paths(paths, shape=(64, 64), device=cuda)
+    lab = ib.resize_blur_oklab((32, 32), 2.0)
+    ref = ImageBatch.from_paths(paths, shape=(64, 64), device="cpu") \
+        .resize_blur_oklab((32, 32), 2.0)
+    assert float((lab.cpu() - ref).abs().max()) <= OKLAB_TOL
+
+
+def test_image_batch_new_members_on_the_card_equal_the_cpu(cuda):
+    from zignal_tpu_torch import Blending, Gray
+
+    x = _u8((2, 40, 56, 3), 72, cuda)
+    over = _u8((2, 40, 56, 4), 73, cuda)
+    ib, cpu = ImageBatch(x, device=cuda), ImageBatch(x.cpu(), device="cpu")
+    calls = [("invert", ()), ("flip_left_right", ()),
+             ("flip_top_bottom", ()), ("fill", ((1, 2, 3),)),
+             ("set_border", ((3, 4, 30, 20), (9, 9, 9))),
+             ("convert", (Gray,))]
+    for name, args in calls:
+        got, want = getattr(ib, name)(*args), getattr(cpu, name)(*args)
+        assert got.dtype is want.dtype
+        assert torch.equal(got.device_array().cpu(), want.device_array())
+    for mode in Blending:
+        got = ib.blend(ImageBatch(over, device=cuda), mode)
+        want = cpu.blend(ImageBatch(over.cpu(), device="cpu"), mode)
+        assert torch.equal(got.device_array().cpu(), want.device_array()), \
+            mode
+    images = ib.to_images()
+    back = ImageBatch.from_images(images, device=cuda)
+    assert torch.equal(back.device_array(), x)
+
+
+def test_launch_counts_hold_under_threads(cuda):
+    """The loader's decode threads launch K1 at once: no count is lost."""
+    import sys
+    import threading
+
+    x = _u8((1, 64, 80, 3), 74, cuda)
+    n, calls = 16, 20
+    gate = threading.Barrier(n)
+
+    def work():
+        gate.wait(timeout=60)
+        for _ in range(calls):
+            fp.fused_resize_blur_oklab(x, 32, 40, 0.0, oklab=False)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        before = fp.LAUNCHES
+        threads = [threading.Thread(target=work) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES == before + n * calls

@@ -1,5 +1,5 @@
 """The port's host-side tables and constants equal the JAX package's own
-table functions (zignal_tpu_torch/ops/tables.py, color/_constants.py,
+table functions (zignal_tpu_torch/ops/tables.py, color/_scalar.py,
 color/_array.py); the compact tap tables of the separable kernel rebuild
 the bands they come from."""
 
@@ -13,7 +13,8 @@ from zignal_tpu.ops import interpolation as jax_interp
 from zignal_tpu.ops import integral as jax_integral
 from zignal_tpu.ops import mxu_resample, pallas_filter, pallas_pipeline
 
-from zignal_tpu_torch.color import _array as port_color, _constants
+from zignal_tpu_torch.color import _array as port_color
+from zignal_tpu_torch.color import _scalar as port_scalar
 from zignal_tpu_torch.ops import tables
 from zignal_tpu_torch.ops.fused_pipeline import tile_plan
 
@@ -180,7 +181,7 @@ def test_color_constants_equal():
                  "SRGB_LINEAR_THRESHOLD", "SRGB_GAMMA_THRESHOLD",
                  "SRGB_GAMMA_OFFSET", "SRGB_GAMMA_SCALE",
                  "SRGB_LINEAR_SLOPE", "SRGB_GAMMA_EXPONENT"):
-        assert getattr(_constants, name) == getattr(_scalar, name)
+        assert getattr(port_scalar, name) == getattr(_scalar, name)
     assert port_color._RGB2OKLMS == jax_color._RGB2OKLMS
     assert port_color._OKLMS2LAB == jax_color._OKLMS2LAB
     assert min(min(row) for row in port_color._RGB2OKLMS) > 0  # cbrt domain
@@ -212,7 +213,7 @@ def test_more_color_constants_equal():
     for name in ("XYB_BIAS", "XYB_CBRT_BIAS_ENCODE", "XYB_CBRT_BIAS_DECODE",
                  "D65_X", "D65_Y", "D65_Z", "LAB_EPSILON",
                  "LAB_KAPPA_DIV_116", "LAB_DELTA"):
-        assert getattr(_constants, name) == getattr(_scalar, name)
+        assert getattr(port_scalar, name) == getattr(_scalar, name)
     assert port_color._OKLMS2RGB == jax_color._OKLMS2RGB
 
 

@@ -1,8 +1,11 @@
-"""zignal-tpu's PyTorch/CUDA port: the resize -> blur -> Oklab batch path,
-the config-3 filter chain and the windowed filters, the config-2 colour
-chain with the colour-conversion graph, the histogram ops, every resize
-method, the convolutions, the order-statistic blurs, the edge detectors
-and the image pyramid.
+"""zignal-tpu's PyTorch/CUDA port: the Image container and ImageBatch, the
+colour classes, Histogram, Rectangle and the blend modes, the PNG, JPEG
+and BMP codecs with their native host library, the pinned-memory file
+loader, the resize -> blur -> Oklab batch path, the config-3 filter chain
+and the windowed filters, the config-2 colour chain with the
+colour-conversion graph, the histogram ops, every resize method, the
+convolutions, the order-statistic blurs, the edge detectors and the image
+pyramid.
 
 Imports torch and numpy only (never jax, never ``zignal_tpu``). Every
 entry that places data takes an explicit ``device=``; functions on
@@ -14,6 +17,19 @@ a CPU tensor it is the plain PyTorch version of the same arithmetic.
 __version__ = "0.1.0"
 
 from .batch import ImageBatch
+from .blending import Blending
+from .color._classes import (Gray, Hsl, Hsv, Lab, Lch, Lms, Oklab, Oklch,
+                             Rgb, Rgba, Xyb, Xyz, Ycbcr)
 from .enums import BorderMode, Interpolation
+from .histogram import Histogram
+from .image import Image, PixelIterator
+from .io_pipeline import BatchLoader, load_image_batch
+from .rectangle import Rectangle
 
-__all__ = ["ImageBatch", "Interpolation", "BorderMode", "__version__"]
+__all__ = [
+    "Image", "PixelIterator", "ImageBatch", "BatchLoader",
+    "load_image_batch", "Histogram", "Rectangle", "Blending",
+    "Interpolation", "BorderMode",
+    "Gray", "Rgb", "Rgba", "Hsl", "Hsv", "Lab", "Lch", "Lms", "Oklab",
+    "Oklch", "Xyb", "Xyz", "Ycbcr", "__version__",
+]

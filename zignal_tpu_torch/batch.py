@@ -1,11 +1,12 @@
 """ImageBatch — a batch of same-shape u8 images ``[B, H, W, C]`` held as a
-torch tensor on one explicit device, the counterpart of
-zignal_tpu/batch.py as far as resize and letterbox, the resize -> blur ->
-Oklab path, the windowed filters (convolutions, clamped-window and
-order-statistic blurs, morphology), the edge detectors, colour conversion
-among gray/rgb/rgba and the histogram and threshold ops need it. The ops
-take ``[B, H, W, C]`` (or the ``[B, H, W]`` gray plane) directly: nothing
-is mapped image by image.
+torch tensor on one explicit device with a dtype tag (Gray, Rgb or Rgba),
+the counterpart of zignal_tpu/batch.py: construction (from arrays,
+Images and files), interop with ``Image``, save, resize and letterbox, the
+resize -> blur -> Oklab path, the windowed filters (convolutions,
+clamped-window and order-statistic blurs, morphology), the edge detectors,
+the pointwise ops (convert, invert, flips, fill, set_border, blend) and
+the histogram and threshold ops. The ops take ``[B, H, W, C]`` (or the
+``[B, H, W]`` gray plane) directly: nothing is mapped image by image.
 
 The device is always the caller's choice (``device=``); nothing here
 picks one. There is no mesh yet (ROADMAP item 15).
@@ -18,9 +19,14 @@ from functools import partial
 import numpy as np
 import torch
 
+from .blending import Blending, blend_arrays
 from .color._array import convert_u8_array, rgb_to_gray_u8
+from .color._classes import CLASS_BY_SPACE
 from .enums import BorderMode, Interpolation
+from .image import (_CHANNELS_SPACE, _SPACE_CHANNELS, Image, _dtype_space,
+                    _parse_color)
 from .ops import binary, edges, enhancement, integral, order_stat
+from .ops.fma import fma
 from .ops.convolution import convolve2d, sobel_magnitude
 from .ops.convolution import convolve_separable as convolve_separable_op
 from .ops.convolution import gaussian_blur as gaussian_blur_op
@@ -28,9 +34,6 @@ from .ops.interpolation import resize as resize_op
 from .pipeline import resize_blur_oklab as _chain
 
 __all__ = ["ImageBatch", "resize_blur_oklab_fn"]
-
-_CHANNELS_SPACE = {1: "gray", 3: "rgb", 4: "rgba"}  # the count is the space
-_CHANNELS = tuple(_CHANNELS_SPACE)
 
 
 def resize_blur_oklab_fn(rows: int, cols: int, sigma: float, method):
@@ -43,9 +46,9 @@ def resize_blur_oklab_fn(rows: int, cols: int, sigma: float, method):
 class ImageBatch:
     """A batch of same-shape images: u8 [B, H, W, C] on ``device``."""
 
-    __slots__ = ("_dev",)
+    __slots__ = ("_dev", "_space")
 
-    def __init__(self, array, *, device):
+    def __init__(self, array, dtype=None, *, device, _space=None):
         if isinstance(array, np.ndarray):
             is_u8 = array.dtype == np.uint8
         elif isinstance(array, torch.Tensor):
@@ -55,13 +58,24 @@ class ImageBatch:
                             "tensor")
         if array.ndim != 4:
             raise ValueError("ImageBatch expects a [B, H, W, C] array")
-        if array.shape[-1] not in _CHANNELS:
-            raise ValueError("channel count must be 1, 3, or 4")
+        space = _space if _space is not None else (
+            _dtype_space(dtype) if dtype is not None else None)
+        c = array.shape[-1]
+        if space is None:
+            if c not in _CHANNELS_SPACE:
+                raise ValueError("channel count must be 1, 3, or 4")
+            space = _CHANNELS_SPACE[c]
+        elif _SPACE_CHANNELS[space] != c:
+            raise ValueError(f"dtype {space} expects {_SPACE_CHANNELS[space]}"
+                             f" channels, array has {c}")
         if not is_u8:
             raise TypeError("ImageBatch requires uint8 pixel data")
         if isinstance(array, np.ndarray):
             array = torch.from_numpy(np.ascontiguousarray(array))
         self._dev = array.to(torch.device(device)).contiguous()
+        self._space = space
+
+    # -- construction --------------------------------------------------------
 
     @classmethod
     def from_numpy(cls, array, *, device) -> "ImageBatch":
@@ -69,7 +83,41 @@ class ImageBatch:
             raise TypeError("from_numpy expects a numpy.ndarray")
         return cls(array, device=device)
 
+    @classmethod
+    def from_images(cls, images, *, device) -> "ImageBatch":
+        """Stack a list of same-shape, same-dtype Images."""
+        if not images:
+            raise ValueError("from_images requires at least one image")
+        if not all(isinstance(im, Image) for im in images):
+            raise TypeError("from_images expects a list of Image")
+        space = images[0]._space
+        shape = (images[0].rows, images[0].cols)
+        for im in images[1:]:
+            if im._space != space or (im.rows, im.cols) != shape:
+                raise ValueError(
+                    "all images must share shape and dtype (use "
+                    ".convert()/.resize() first)")
+        arr = np.stack([im.to_numpy() for im in images])
+        return cls(arr, device=device, _space=space)
+
+    @classmethod
+    def from_paths(cls, paths, shape=None, interpolation=None, *, device,
+                   workers: int = 8) -> "ImageBatch":
+        """Decode files in parallel (io_pipeline) into one batch on
+        ``device`` (through pinned memory on the card); pass ``shape`` to
+        letterbox each image so the batch is uniform."""
+        from .io_pipeline import load_image_batch
+
+        return cls(load_image_batch(paths, shape=shape,
+                                    interpolation=interpolation,
+                                    workers=workers, device=device),
+                   device=device)
+
     # -- metadata / interop --------------------------------------------------
+
+    @property
+    def batch_size(self) -> int:
+        return self._dev.shape[0]
 
     @property
     def rows(self) -> int:
@@ -83,12 +131,73 @@ class ImageBatch:
     def channels(self) -> int:
         return self._dev.shape[3]
 
+    @property
+    def dtype(self):
+        return CLASS_BY_SPACE[self._space]
+
+    @property
+    def device(self) -> torch.device:
+        return self._dev.device
+
+    def __len__(self) -> int:
+        return self.batch_size
+
+    def __repr__(self):
+        return (f"ImageBatch({self.batch_size}x{self.rows}x{self.cols}, "
+                f"dtype={self.dtype.__name__})")
+
     def to_numpy(self) -> np.ndarray:
         return self._dev.cpu().numpy()
 
     def device_array(self) -> torch.Tensor:
         """The underlying [B, H, W, C] tensor (no copy)."""
         return self._dev
+
+    def block_until_ready(self) -> "ImageBatch":
+        if self._dev.device.type == "cuda":
+            torch.cuda.current_stream(self._dev.device).synchronize()
+        return self
+
+    def __getitem__(self, i) -> Image:
+        i = int(i)
+        if not -self.batch_size <= i < self.batch_size:
+            raise IndexError("batch index out of range")
+        return Image._from_host(self._dev[i].to("cpu", copy=True).numpy(),
+                                self._space, self.device)
+
+    def to_images(self):
+        arr = self.to_numpy()
+        return [Image._from_host(arr[i].copy(), self._space, self.device)
+                for i in range(arr.shape[0])]
+
+    def copy(self) -> "ImageBatch":
+        """Same pixels and device (no op writes a batch in place, so the
+        tensor is shared)."""
+        return self._wrap(self._dev)
+
+    def get_rectangle(self):
+        from .rectangle import Rectangle
+
+        return Rectangle(0, 0, self.cols, self.rows)
+
+    def save(self, paths, workers: int = 8, **options) -> None:
+        """Encode every image to its path (codec picked by extension,
+        like Image.save; reference: src/image.zig:279) on worker threads:
+        the codecs' native hot loops release the interpreter lock, so
+        encodes overlap."""
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .codecs import save_array
+
+        paths = [os.fspath(p) for p in paths]
+        if len(paths) != self.batch_size:
+            raise ValueError(
+                f"need {self.batch_size} paths, got {len(paths)}")
+        arr = self.to_numpy()
+        with ThreadPoolExecutor(max_workers=max(1, int(workers))) as ex:
+            list(ex.map(lambda i: save_array(paths[i], arr[i], **options),
+                        range(len(paths))))
 
     # -- geometry ------------------------------------------------------------
 
@@ -157,8 +266,13 @@ class ImageBatch:
 
     # -- windowed filters ----------------------------------------------------
 
-    def _wrap(self, arr) -> "ImageBatch":
-        return ImageBatch(arr, device=self._dev.device)
+    def _wrap(self, arr, space=None) -> "ImageBatch":
+        """A batch of ``arr`` on this batch's device: in ``space``, else
+        in this batch's space where the channel count is its own, else in
+        the space of the count."""
+        if space is None and arr.shape[-1] == self.channels:
+            space = self._space
+        return ImageBatch(arr, device=self._dev.device, _space=space)
 
     def _gray_plane(self) -> torch.Tensor:
         """u8 [B, H, W] luminance plane (BT.709 fixed point)."""
@@ -312,17 +426,83 @@ class ImageBatch:
     def close_binary(self, kernel_size: int = 3, iterations: int = 1):
         return self._morph(binary.close_morph, kernel_size, iterations)
 
-    # -- colour --------------------------------------------------------------
+    # -- pointwise ops -------------------------------------------------------
 
-    def convert(self, space: str) -> "ImageBatch":
-        """Colour conversion among ``"gray"``, ``"rgb"`` and ``"rgba"``
-        (the spaces an ImageBatch holds), exact u8 fixed point."""
-        if space not in _CHANNELS_SPACE.values():
-            raise TypeError("space must be 'gray', 'rgb', or 'rgba'")
-        src = _CHANNELS_SPACE[self.channels]
-        if space == src:
+    def convert(self, dtype) -> "ImageBatch":
+        """Conversion among Gray, Rgb and Rgba (the dtype classes), exact
+        u8 fixed point."""
+        space = _dtype_space(dtype)
+        if space == self._space:
             return self._wrap(self._dev)
-        return self._wrap(convert_u8_array(self._dev, src, space))
+        return self._wrap(convert_u8_array(self._dev, self._space, space),
+                          space)
+
+    def invert(self) -> "ImageBatch":
+        """Photographic negative; alpha preserved."""
+        out = 255 - self._dev
+        if self._space == "rgba":
+            out[..., 3] = self._dev[..., 3]
+        return self._wrap(out)
+
+    def flip_left_right(self) -> "ImageBatch":
+        return self._wrap(torch.flip(self._dev, (2,)))
+
+    def flip_top_bottom(self) -> "ImageBatch":
+        return self._wrap(torch.flip(self._dev, (1,)))
+
+    def blend(self, overlay: "ImageBatch", mode=None) -> "ImageBatch":
+        """Alpha-composite ``overlay`` over every image; unlike the
+        mutating ``Image.blend``, returns a new batch in self's dtype. f32
+        on the device with the JAX package's device rounding (fused
+        multiply-adds): equal to its ``ImageBatch.blend`` for the
+        arithmetic modes, within 1 u8 step of it for the others."""
+        if not isinstance(overlay, ImageBatch):
+            raise TypeError("overlay must be an ImageBatch")
+        if overlay._dev.shape[:3] != self._dev.shape[:3]:
+            raise ValueError("overlay batch dimensions must match")
+        mode = Blending.NORMAL if mode is None else Blending(mode)
+        # XLA divides by a constant as a multiplication by its f32
+        # reciprocal
+        inv = np.float32(1.0 / 255.0)
+        base = convert_u8_array(self._dev, self._space, "rgba") \
+            .to(torch.float32) * inv
+        over = convert_u8_array(overlay._dev.to(self._dev.device),
+                                overlay._space, "rgba") \
+            .to(torch.float32) * inv
+        out = torch.clamp(blend_arrays(base, over, mode, fused=True), 0.0,
+                          1.0)
+        u8 = torch.floor(fma(out, torch.full((), 255.0, device=out.device),
+                             torch.full((), 0.5, device=out.device))) \
+            .to(torch.uint8)
+        return self._wrap(convert_u8_array(u8, "rgba", self._space))
+
+    def fill(self, color) -> "ImageBatch":
+        """Every image becomes the constant ``color`` (the functional
+        mirror of Image.fill)."""
+        px = torch.tensor(_parse_color(color, self._space), dtype=torch.uint8,
+                          device=self._dev.device)
+        return self._wrap(px.expand(self._dev.shape).contiguous())
+
+    def set_border(self, rect, color=None) -> "ImageBatch":
+        """Fill everything outside ``rect`` with ``color`` (default zero),
+        the functional mirror of Image.set_border."""
+        from .rectangle import Rectangle
+
+        if isinstance(rect, (tuple, list)):
+            rect = Rectangle(*rect)
+        if not isinstance(rect, Rectangle):
+            raise TypeError("set_border requires a Rectangle or 4-tuple")
+        px = (np.zeros(self.channels, dtype=np.uint8) if color is None
+              else np.array(_parse_color(color, self._space),
+                            dtype=np.uint8))
+        out = torch.from_numpy(px).to(self._dev.device) \
+            .expand(self._dev.shape).clone()
+        clipped = rect.intersect(self.get_rectangle())
+        if clipped is not None:
+            l, t = int(clipped.left), int(clipped.top)
+            r, b = int(clipped.right), int(clipped.bottom)
+            out[:, t:b, l:r] = self._dev[:, t:b, l:r]
+        return self._wrap(out)
 
     # -- histogram-based global ops ------------------------------------------
 

@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from ._constants import (
+from ._scalar import (
     D65_X, D65_Y, D65_Z,
     LAB_DELTA, LAB_EPSILON, LAB_KAPPA_DIV_116,
     LUMA_B, LUMA_G, LUMA_R,

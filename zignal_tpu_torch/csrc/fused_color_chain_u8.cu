@@ -528,16 +528,78 @@ color_chain_kernel(const uint8_t* __restrict__ src, void* __restrict__ dst,
 
 // K3p: where(x > 0.5, cbrt(x) + x^2.4, x^(1/2.4) + x^3) through K3's
 // helpers, so it checks the card's transcendentals exactly as K3 runs them.
+// It replaces zignal_tpu/ops/pallas_color.py: mosaic_transcendentals_ok.
+//
+// What bounds it: a value costs one powf (~166 f32 ops of issue time) and,
+// above 0.5, a cbrtf (~50), against 8 bytes moved, so the transcendentals
+// bound it, and at 1M values (~3 us of work) a launch that is not one full
+// wave leaves SMs idle behind its last blocks. So a thread takes kProbe = 4
+// values, four independent powf chains for the scheduler to interleave,
+// read (and written, where y allows it) as one float4: the first values up
+// to x's 16-byte boundary (the head, at most 3) and the last whole group's
+// remainder (the tail, at most 3) go one a thread. The grid is one resident
+// wave, SMs x the blocks a SM holds, looping over the groups beyond it.
+// Both branches take one powf, so the exponent is selected and the powf
+// runs on every lane; the sum is the same either way round (IEEE addition
+// commutes).
+constexpr int kProbe = 4;
+
+// e_hi, e_lo: the exponents 2.4 and 1 / 2.4 as ChainParams holds them
+__device__ __forceinline__ float probe_value(float v, float e_hi, float e_lo) {
+  const bool hi = v > 0.5f;
+  const float pw = pow_(v, hi ? e_hi : e_lo);
+  return add(hi ? cbrt_(v) : cube(v), pw);
+}
+
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(const float* __restrict__ x, float* __restrict__ y, long long n,
-             const __grid_constant__ ChainParams p) {
+             int head, int vec_y, const __grid_constant__ ChainParams p) {
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const float v = x[i];
-    y[i] = v > 0.5f ? add(cbrt_(v), pow_(v, p.k[SRGB_GAMMA_EXPONENT]))
-                    : add(pow_(v, p.k[SRGB_INV_GAMMA_EXPONENT]), cube(v));
+  const long long groups = (n - head) / kProbe;
+  const float4* x4 = reinterpret_cast<const float4*>(x + head);
+  const float e_hi = p.k[SRGB_GAMMA_EXPONENT];
+  const float e_lo = p.k[SRGB_INV_GAMMA_EXPONENT];
+  for (long long g = tid; g < groups; g += stride) {
+    const float4 v = x4[g];
+    const float4 r = make_float4(
+        probe_value(v.x, e_hi, e_lo), probe_value(v.y, e_hi, e_lo),
+        probe_value(v.z, e_hi, e_lo), probe_value(v.w, e_hi, e_lo));
+    float* d = y + head + kProbe * g;
+    if (vec_y) {
+      *reinterpret_cast<float4*>(d) = r;
+    } else {
+      d[0] = r.x;
+      d[1] = r.y;
+      d[2] = r.z;
+      d[3] = r.w;
+    }
   }
+  const long long tail = n - head - kProbe * groups;
+  if (tid < head + tail) {
+    const long long i = tid < head ? tid : tid + kProbe * groups;
+    y[i] = probe_value(x[i], e_hi, e_lo);
+  }
+}
+
+// the blocks of one resident wave of probe_kernel on the current device
+cudaError_t probe_wave(unsigned* blocks) {
+  static unsigned cached[64];  // by device ordinal; 0 until asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!cached[dev]) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, probe_kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    cached[dev] = (unsigned)(sms * (per_sm < 1 ? 1 : per_sm));
+  }
+  *blocks = cached[dev];
+  return cudaSuccess;
 }
 
 unsigned blocks_for(long long n) {
@@ -592,9 +654,23 @@ int zt_transcendentals_probe(const void* x, void* y, const void* params,
   ChainParams p;
   memcpy(&p, params, sizeof(p));
   if (n < 1) return cudaSuccess;
-  probe_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(
-                                                 stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), n, p);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t ya = reinterpret_cast<uintptr_t>(y);
+  if (xa % 4 || ya % 4) return cudaErrorMisalignedAddress;
+  long long head = (long long)((16 - xa % 16) % 16 / 4);
+  if (head > n) head = n;
+  const int vec_y = (ya + 4 * head) % 16 == 0;
+  const long long groups = (n - head) / kProbe;
+  // one wave at most, and no more blocks than the groups (and the head and
+  // tail values, at most 6) need
+  const long long need = blocks_for(groups > 6 ? groups : 6);
+  unsigned wave = 0;
+  const cudaError_t err = probe_wave(&wave);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)(need < wave ? need : wave);
+  probe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), n, (int)head,
+      vec_y, p);
   return cudaGetLastError();
 }
 

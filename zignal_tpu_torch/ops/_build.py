@@ -15,10 +15,12 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load", "launch", "sm_count", "TILES", "SMEM_LIMIT"]
+__all__ = ["load", "launch", "sm_count", "TILES", "SMEM_LIMIT",
+           "COUNT_LOCK"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / name for name in (
@@ -35,6 +37,10 @@ TILES = (32, 16, 8)     # output tile sides of K4's band kernel
 SMEM_LIMIT = 232448     # bytes of shared memory a block may use on sm_90
 
 _LIB = None
+# held around every wrapper's ``LAUNCHES += n``: threads launch at once
+# (the loader's decode threads letterbox through K1), and an unguarded +=
+# after a ctypes call loses counts
+COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -35,7 +35,7 @@ import torch
 from ..color import _array as A
 from ..color._chain import _CYL_OF, _LINEAR_SPACES, convert_chain
 from ..color._path import conversion_path
-from ._build import launch, load
+from ._build import COUNT_LOCK, launch, load
 
 __all__ = ["chain_supported", "compile_chain", "fused_color_chain_u8",
            "fused_color_chain_u8_reference", "gamma_table",
@@ -291,7 +291,8 @@ def fused_color_chain_u8(batch, spaces, quantize: bool = True):
     vec = batch.data_ptr() % 4 == 0 and out.data_ptr() % 16 == 0
     launch("zt_fused_color_chain_u8", batch.device, batch.data_ptr(),
            out.data_ptr(), lut, params, n, int(quantize), int(vec))
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 
@@ -324,5 +325,6 @@ def transcendentals_probe(x):
     out = torch.empty_like(x)
     launch("zt_transcendentals_probe", x.device, x.data_ptr(),
            out.data_ptr(), _params(()), x.numel())
-    PROBE_LAUNCHES += 1
+    with COUNT_LOCK:
+        PROBE_LAUNCHES += 1
     return out

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..enums import BorderMode
-from ._build import SMEM_LIMIT, launch, load, sm_count
+from ._build import COUNT_LOCK, SMEM_LIMIT, launch, load, sm_count
 from .binary import dilate, erode, threshold_apply
 from .convolution import gaussian_blur_reference
 from .integral import sharpen, sums_fit_f32
@@ -226,5 +226,6 @@ def fused_blur_sharpen_morph(x, sigma: float = 2.0, sharpen_radius: int = 2,
                      w % 4 == 0 and out.data_ptr() % 4 == 0)
     launch("zt_fused_blur_sharpen_morph", x.device, planes.data_ptr(),
            out.data_ptr(), plan.ty.data_ptr(), plan.tx.data_ptr(), params)
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out.view(x.shape)

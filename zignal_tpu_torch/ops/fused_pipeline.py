@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..color._array import _OKLMS2LAB, _RGB2OKLMS, convert_array
-from ._build import SMEM_LIMIT, launch, load, sm_count
+from ._build import COUNT_LOCK, SMEM_LIMIT, launch, load, sm_count
 from .color_chain import gamma_table
 from .convolution import gaussian_blur_reference
 from .interpolation import _resize_bilinear_u8
@@ -270,5 +270,6 @@ def fused_resize_blur_oklab(batch, out_rows: int, out_cols: int,
     launch("zt_fused_resize_blur_oklab", batch.device, batch.data_ptr(),
            out.data_ptr(), plan.ty.data_ptr(), plan.tx.data_ptr(),
            plan.sy.data_ptr(), plan.sx.data_ptr(), lut, params)
-    LAUNCHES += launches_for(c)
+    with COUNT_LOCK:
+        LAUNCHES += launches_for(c)
     return out

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..enums import BorderMode
-from ._build import SMEM_LIMIT, TILES, launch, load, sm_count
+from ._build import COUNT_LOCK, SMEM_LIMIT, TILES, launch, load, sm_count
 from .convolution import _div_clamp_u8
 from .tables import SCALE, band_to_taps, resolve_index_np, tile_sources
 
@@ -209,7 +209,8 @@ def run_cached(x, key, bands):
            plan.ysrc.data_ptr(), plan.yidx.data_ptr(), plan.yw.data_ptr(),
            plan.xsrc.data_ptr(), plan.xidx.data_ptr(), plan.xw.data_ptr(),
            plan.params)
-    LAUNCHES += launches_for(c)
+    with COUNT_LOCK:
+        LAUNCHES += launches_for(c)
     return out
 
 
@@ -324,7 +325,8 @@ def run_conv(x, kx, ky, border: BorderMode):
     params = plan.buffer((w * c) % 16 == 0 and x.data_ptr() % 16 == 0)
     launch("zt_separable_conv_u8", x.device, x.data_ptr(), out.data_ptr(),
            plan.ty.data_ptr(), plan.tx.data_ptr(), params)
-    LAUNCHES += launches_for(c)
+    with COUNT_LOCK:
+        LAUNCHES += launches_for(c)
     return out
 
 
