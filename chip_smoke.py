@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --times [TREE]   # every kernel's times alone
     python3 chip_smoke.py --ops            # cbrtf's and powf's costs
+    python3 chip_smoke.py --profile        # phase 20's calls, profiled
 
 ``--times`` runs on the package found first on TREE (a checkout of another
 commit, e.g. the parent's ``git archive``) or on this one: K1 at B 16, 4
@@ -12,6 +13,9 @@ the kernel (a diagnostic), and each tile of K1, K2 and K4 alone at B=16.
 ``--ops`` builds csrc/measure/transcendental_rate.cu and prints what a
 cbrtf and a powf cost with every SM busy, the basis of CBRTF_OPS and
 POWF_OPS in the bounds.
+``--profile`` runs each phase-20 call (the geometric ops, motion blurs and
+metrics at B=16 of 1024^2) under torch.profiler and prints its device
+time a call and the five kernels or copies that take the most.
 
 Phases (any failure raises and exits non-zero):
 1. device facts: torch/CUDA versions, the card's name and power limit,
@@ -105,6 +109,19 @@ Phases (any failure raises and exits non-zero):
    flips, fill, set_border, convert(Gray), blend in every mode) against
    the same calls on the CPU on image 0, to_images / from_images on the
    whole batch, and their times.
+20. the geometric sampling, motion blur and metrics through ImageBatch of
+   [16, 1024, 1024, 3] RGB on the card: .rotate(0.5), .rotate(pi / 2),
+   .extract(rect, 0.3, (512, 512)), .crop (partly outside), .warp of a
+   ProjectiveTransform with BILINEAR and BICUBIC, .insert of an RGBA Image
+   with OVERLAY, .motion_blur of linear(0, 9), linear(0.7, 9),
+   radial_zoom() and radial_spin() (with the seconds their coordinates
+   take to build), then .psnr, .ssim, .mean_pixel_error and .diff against
+   the linear(0, 9) copy; the launch counts are read around each call:
+   K4 launches once for linear(0, 9) and nowhere else, K1-K3 never;
+21. each phase-20 output on image 0 against the same call on the CPU: u8
+   equal, the diff equal, the f32 metrics within 1e-5 relative (the CPU
+   tests' bound);
+22. each phase-20 call timed with CUDA events after a warm-up.
 The last two lines are a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
@@ -1261,6 +1278,208 @@ def _file_phases(card, rng):
     return k1, k4
 
 
+# -- geometric sampling, motion blur and the metrics (phases 20-22) ----------
+
+GEO = dict(batch=16, side=1024)
+METRIC_REL = 1e-5  # the CPU tests' bound on the f32 metrics (and SSIM abs)
+
+
+def _geometry_calls(n):
+    """(name, call, K4 launches) of every phase-20 path on an ImageBatch of
+    n x n RGB images; the RGBA source of the insert is an Image on the
+    card."""
+    import math
+
+    from zignal_tpu_torch import (Blending, Image, Interpolation,
+                                  MotionBlur, ProjectiveTransform)
+
+    c = n - 1
+    proj = ProjectiveTransform(
+        [(0, 0), (c, 0), (0, c), (c, c)],
+        [(0.05 * n, 0.02 * n), (0.93 * n, 0.04 * n), (-0.03 * n, 0.95 * n),
+         (1.02 * n, 0.9 * n)])
+    src = Image.from_numpy(np.random.default_rng(20).integers(
+        0, 256, (n // 4, n // 3, 4), np.uint8), device="cuda")
+    rect = (0.1 * n, 0.15 * n, 0.88 * n, 0.83 * n)
+    return [
+        ("rotate(0.5)", lambda ib: ib.rotate(0.5), 0),
+        ("rotate(pi / 2)", lambda ib: ib.rotate(math.pi / 2), 0),
+        (f"extract(rect, 0.3, ({n // 2}, {n // 2}))",
+         lambda ib: ib.extract(rect, 0.3, (n // 2, n // 2)), 0),
+        ("crop (partly outside)",
+         lambda ib: ib.crop((-n // 16, n // 5, 0.7 * n, 1.07 * n)), 0),
+        ("warp(ProjectiveTransform) BILINEAR", lambda ib: ib.warp(proj), 0),
+        ("warp(ProjectiveTransform) BICUBIC",
+         lambda ib: ib.warp(proj, None, Interpolation.BICUBIC), 0),
+        ("insert(RGBA Image, OVERLAY)",
+         lambda ib: ib.insert(src, (0.2 * n, 0.3 * n, 0.8 * n, 0.7 * n),
+                              0.25, Interpolation.BILINEAR, Blending.OVERLAY),
+         0),
+        ("motion_blur(linear(0, 9))",
+         lambda ib: ib.motion_blur(MotionBlur.linear(0.0, 9)), 1),
+        ("motion_blur(linear(0.7, 9))",
+         lambda ib: ib.motion_blur(MotionBlur.linear(0.7, 9)), 0),
+        ("motion_blur(radial_zoom())",
+         lambda ib: ib.motion_blur(MotionBlur.radial_zoom()), 0),
+        ("motion_blur(radial_spin())",
+         lambda ib: ib.motion_blur(MotionBlur.radial_spin()), 0),
+    ]
+
+
+def _metric_calls(blurred):
+    return [("psnr", lambda ib: ib.psnr(blurred)),
+            ("ssim", lambda ib: ib.ssim(blurred)),
+            ("mean_pixel_error", lambda ib: ib.mean_pixel_error(blurred)),
+            ("diff", lambda ib: ib.diff(blurred, threshold=2, scale=1.7))]
+
+
+def _counted_modules():
+    """The modules of K1, K2, K3 and K4, whose LAUNCHES count launches."""
+    from zignal_tpu_torch.ops import color_chain as cc
+    from zignal_tpu_torch.ops import filter_chain as fc
+    from zignal_tpu_torch.ops import fused_pipeline as fp
+    from zignal_tpu_torch.ops import separable_conv as sc
+
+    return fp, fc, cc, sc
+
+
+def _counts():
+    return tuple(m.LAUNCHES for m in _counted_modules())
+
+
+def _geometry_phases(card, rng) -> int:
+    """Phases 20-22. Returns K4's launches of phase 20."""
+    from zignal_tpu_torch import ImageBatch
+    from zignal_tpu_torch.ops import motion_blur_ops
+
+    n, b = GEO["side"], GEO["batch"]
+    x = rng.integers(0, 256, (b, n, n, 3), np.uint8)
+    ib = ImageBatch(x, device="cuda")
+    calls = _geometry_calls(n)
+
+    # 20. every path once, each with the launch counts read around it
+    torch.cuda.synchronize()
+    for m in _counted_modules():
+        m.LAUNCHES = 0
+    outs = {}
+    for name, fn, k4 in calls:
+        before = _counts()
+        extra = ""
+        if "radial" in name:
+            t0 = time.perf_counter()
+            motion_blur_ops.radial_coords(n, n, 0.5, 0.5, 0.5,
+                                          "zoom" in name, ib.device)
+            extra = (f", coordinates built in "
+                     f"{time.perf_counter() - t0:.2f} s before it")
+        t0 = time.perf_counter()
+        outs[name] = fn(ib)
+        torch.cuda.synchronize()
+        got = tuple(a - c for a, c in zip(_counts(), before))
+        print(f"phase 20 {name}: K1-K3 {got[:3]}, K4 {got[3]} launches, "
+              f"{tuple(outs[name].device_array().shape)} "
+              f"({time.perf_counter() - t0:.2f} s first call{extra})")
+        if got != (0, 0, 0, k4):
+            raise AssertionError(f"{name} launched (K1, K2, K3, K4) {got}, "
+                                 f"not (0, 0, 0, {k4})")
+    blurred = outs["motion_blur(linear(0, 9))"]
+    metrics = _metric_calls(blurred)
+    before = _counts()
+    for name, fn in metrics:
+        outs[name] = fn(ib)
+    torch.cuda.synchronize()
+    if _counts() != before:
+        raise AssertionError("the metrics launched a kernel")
+    for name in ("psnr", "ssim", "mean_pixel_error"):
+        v = outs[name]
+        if tuple(v.shape) != (b,) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{name}: {v.shape} {v}")
+    print(f"phase 20 metrics against the blurred copy, image 0: psnr "
+          f"{float(outs['psnr'][0]):.4f} dB, ssim "
+          f"{float(outs['ssim'][0]):.6f}, mean_pixel_error "
+          f"{float(outs['mean_pixel_error'][0]):.6f}, diff counts "
+          f"{outs['diff'][1][:4].tolist()}...")
+    k4_launches = _counts()[3]
+    print(f"phase 20: K4 {k4_launches} launches, K1-K3 none")
+
+    # 21. image 0 against the same calls on the CPU
+    cpu = ImageBatch(x[:1], device="cpu")
+    for name, fn, _ in calls:
+        t0 = time.perf_counter()
+        want = fn(cpu).device_array()
+        got = outs[name].device_array()[:1].cpu()
+        if got.shape != want.shape or not torch.equal(got, want):
+            bad = int((got != want).sum()) if got.shape == want.shape \
+                else f"shape {tuple(got.shape)} vs {tuple(want.shape)}"
+            raise AssertionError(f"{name}: {bad} values differ from the CPU")
+        print(f"phase 21 {name}: equal to the CPU on image 0 "
+              f"({time.perf_counter() - t0:.2f} s)")
+    cpu_ib = ImageBatch(x[:1], device="cpu")
+    cpu_blurred = ImageBatch(blurred.device_array()[:1].cpu(), device="cpu")
+    for name, fn in _metric_calls(cpu_blurred):
+        want = fn(cpu_ib)
+        if name == "diff":
+            ok = torch.equal(outs[name][0].device_array()[:1].cpu(),
+                             want[0].device_array()) and \
+                torch.equal(outs[name][1][:1].cpu(), want[1])
+            print(f"phase 21 diff: visualisation and count equal to the "
+                  f"CPU on image 0 {'ok' if ok else 'FAIL'}")
+        else:
+            got, ref = float(outs[name][0]), float(want[0])
+            err = abs(got - ref)
+            ok = err <= METRIC_REL * max(abs(ref), 1.0)
+            print(f"phase 21 {name}: {got} on the card, {ref} on the CPU, "
+                  f"err {err:.3g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} on the card differs from the CPU")
+
+    # 22. times
+    print(f"phase 22: ImageBatch of [{b}, {n}, {n}, 3] u8")
+    for name, fn, _ in calls:
+        ms = _time_events(lambda: fn(ib))
+        print(f"[{card}] phase 22 {name}: {ms:.4f} ms")
+    for name, fn in metrics:
+        ms = _time_events(lambda: fn(ib))
+        print(f"[{card}] phase 22 {name} against the blurred copy: "
+              f"{ms:.4f} ms")
+    return k4_launches
+
+
+def geometry_profile() -> int:
+    """--profile: where each phase-20 call's device time goes, from
+    torch.profiler over 3 calls after a warm-up: device ms a call (all its
+    kernels and copies), the host clock beside it, and the five rows with
+    the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zignal_tpu_torch import ImageBatch
+
+    card = _card()
+    print(card)
+    n, b, reps = GEO["side"], GEO["batch"], 3
+    x = np.random.default_rng(0).integers(0, 256, (b, n, n, 3), np.uint8)
+    ib = ImageBatch(x, device="cuda")
+    calls = [(name, fn) for name, fn, _ in _geometry_calls(n)]
+    calls += _metric_calls(calls[7][1](ib))  # against linear(0, 9)
+    for name, fn in calls:
+        fn(ib)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(ib)
+            torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        rows = sorted(((e.device_time_total, e.count, e.key)
+                       for e in prof.key_averages()), reverse=True)
+        total = sum(r[0] for r in rows) / reps / 1e3
+        print(f"[{card}] profile {name}: {total:.3f} ms of device time a "
+              f"call, {host:.3f} ms on the host clock (profiled)")
+        for us, count, key in rows[:5]:
+            print(f"    {us / reps / 1e3:8.3f} ms {count // reps:4d} a call "
+                  f"{key[:100]}")
+    return 0
+
+
 # K1 at the edges of its tile plans: outputs just below, at and above the
 # tile sides (8-64) and past 128, from a 2:1 source and from an upscale
 K1_EDGE_OUT = ((1, 130), (7, 9), (15, 17), (31, 33), (33, 47), (48, 49),
@@ -1548,6 +1767,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--profile" in sys.argv[1:]:
+        return geometry_profile()
     if "--ops" in sys.argv[1:]:
         return transcendental_rates()
     if "--times" in sys.argv[1:]:
@@ -1660,8 +1881,11 @@ def main() -> int:
     k1["bound_ms"], k1["bound_by"] = _k1_bound(16, n, o)
     k1_s4, k4_s4 = _slice4_phases(card, rng)
     k1_s7, k4_s7 = _file_phases(card, rng)
+    t0 = time.perf_counter()
+    k4_s8 = _geometry_phases(card, rng)
+    print(f"phases 20-22: {time.perf_counter() - t0:.1f} s")
     k1["launches"] += k1_ex + k1_s4 + k1_s7
-    k4["launches"] += k4_ex + k4_s4 + k4_s7
+    k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8
     print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -755,3 +755,95 @@ def test_launch_counts_hold_under_threads(cuda):
     assert not any(t.is_alive() for t in threads)
     torch.cuda.synchronize()
     assert fp.LAUNCHES == before + n * calls
+
+
+def test_axis_aligned_linear_motion_blur_launches_the_separable_kernel(cuda):
+    """An axis-aligned u8 linear motion blur is the box filter under
+    REPLICATE: one K4 launch a call (C <= 4), equal to the plain version;
+    an oblique one launches nothing."""
+    import math
+
+    from zignal_tpu_torch import MotionBlur
+
+    x = _u8((2, 48, 60, 3), 75, cuda)
+    ib = ImageBatch(x, device=cuda)
+    for angle, distance in ((0.0, 9), (math.pi / 2, 4), (math.pi, 10)):
+        k = (1.0 / distance,) * distance
+        kx, ky = (k, (1.0,)) if abs(math.sin(angle)) < 0.5 else ((1.0,), k)
+        before = sc.LAUNCHES
+        got = ib.motion_blur(MotionBlur.linear(angle, distance))
+        assert sc.LAUNCHES == before + 1
+        want = convolve_separable_reference(x, kx, ky, BorderMode.REPLICATE)
+        assert torch.equal(got.device_array(), want)
+    counts = (fp.LAUNCHES, fc.LAUNCHES, cc.LAUNCHES, sc.LAUNCHES)
+    ib.motion_blur(MotionBlur.linear(0.7, 9))
+    torch.cuda.synchronize()
+    assert (fp.LAUNCHES, fc.LAUNCHES, cc.LAUNCHES, sc.LAUNCHES) == counts
+
+
+def test_geometric_and_blur_members_on_the_card_equal_the_cpu(cuda):
+    """Every item-11 member on a CUDA batch equals the same call on the
+    CPU: the coordinates are the same host f32 arrays, and the device
+    arithmetic is the same f32 (fused multiply-adds through ops/fma.py);
+    no kernel of csrc/ launches but K4 for the axis-aligned blur."""
+    import math
+
+    from zignal_tpu_torch import (Blending, Image, Interpolation, MotionBlur,
+                                  ProjectiveTransform, SimilarityTransform)
+
+    x = _u8((2, 40, 56, 3), 76, cuda)
+    src = Image.from_numpy(_u8((12, 15, 4), 77, "cpu").numpy(), device=cuda)
+    proj = ProjectiveTransform([(0, 0), (55, 0), (0, 39), (55, 39)],
+                               [(3, 2), (50, 4), (-2, 36), (58, 35)])
+    sim = SimilarityTransform([(2, 3), (40, 30)], [(5, 1), (44, 33)])
+    calls = [("rotate 0.5", lambda t: t.rotate(0.5)),
+             ("rotate pi/2", lambda t: t.rotate(math.pi / 2)),
+             ("rotate LANCZOS WRAP", lambda t: t.rotate(
+                 -1.1, Interpolation.LANCZOS, BorderMode.WRAP)),
+             ("extract", lambda t: t.extract((4, 3, 40, 30), 0.3, (20, 24))),
+             ("crop", lambda t: t.crop((-5, 10, 30, 45))),
+             ("warp BILINEAR", lambda t: t.warp(proj)),
+             ("warp BICUBIC", lambda t: t.warp(proj, None,
+                                               Interpolation.BICUBIC)),
+             ("warp MITCHELL", lambda t: t.warp(sim, (30, 30),
+                                                Interpolation.MITCHELL)),
+             ("insert", lambda t: t.insert(src, (5, 5, 30, 25), 0.2,
+                                           Interpolation.BILINEAR,
+                                           Blending.OVERLAY)),
+             ("linear 0.7", lambda t: t.motion_blur(MotionBlur.linear(0.7,
+                                                                      9))),
+             ("zoom", lambda t: t.motion_blur(MotionBlur.radial_zoom())),
+             ("spin", lambda t: t.motion_blur(MotionBlur.radial_spin()))]
+    ib, cpu = ImageBatch(x, device=cuda), ImageBatch(x.cpu(), device="cpu")
+    counts = (fp.LAUNCHES, fc.LAUNCHES, cc.LAUNCHES, sc.LAUNCHES)
+    for name, fn in calls:
+        got, want = fn(ib), fn(cpu)
+        assert got.device.type == "cuda" and got.dtype is want.dtype, name
+        assert torch.equal(got.device_array().cpu(), want.device_array()), \
+            name
+    torch.cuda.synchronize()
+    assert (fp.LAUNCHES, fc.LAUNCHES, cc.LAUNCHES, sc.LAUNCHES) == counts
+    # Image members run the same ops on a batch of one
+    img = Image.from_numpy(x[0].cpu().numpy(), device=cuda)
+    assert np.array_equal(img.rotate(0.5).to_numpy(),
+                          cpu.rotate(0.5).device_array()[0].numpy())
+
+
+def test_metrics_on_the_card_are_within_bounds_of_the_cpu(cuda):
+    from zignal_tpu_torch import MotionBlur
+
+    x = _u8((3, 40, 48, 3), 78, cuda)
+    ib = ImageBatch(x, device=cuda)
+    blurred = ib.motion_blur(MotionBlur.linear(0.4, 5))
+    cpu, cpu_b = (ImageBatch(t.device_array().cpu(), device="cpu")
+                  for t in (ib, blurred))
+    for name in ("psnr", "mean_pixel_error", "ssim"):
+        got = getattr(ib, name)(blurred)
+        want = getattr(cpu, name)(cpu_b)
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+    vis, counts = ib.diff(blurred, threshold=2, scale=1.7)
+    cvis, ccounts = cpu.diff(cpu_b, threshold=2, scale=1.7)
+    assert torch.equal(vis.device_array().cpu(), cvis.device_array())
+    assert torch.equal(counts.cpu(), ccounts)

@@ -4,8 +4,9 @@ and BMP codecs with their native host library, the pinned-memory file
 loader, the resize -> blur -> Oklab batch path, the config-3 filter chain
 and the windowed filters, the config-2 colour chain with the
 colour-conversion graph, the histogram ops, every resize method, the
-convolutions, the order-statistic blurs, the edge detectors and the image
-pyramid.
+convolutions, the order-statistic blurs, the edge detectors, the image
+pyramid, the geometric transforms and warps (rotate, crop, extract,
+insert, warp), motion blur and the image-quality metrics.
 
 Imports torch and numpy only (never jax, never ``zignal_tpu``). Every
 entry that places data takes an explicit ``device=``; functions on
@@ -21,15 +22,20 @@ from .blending import Blending
 from .color._classes import (Gray, Hsl, Hsv, Lab, Lch, Lms, Oklab, Oklch,
                              Rgb, Rgba, Xyb, Xyz, Ycbcr)
 from .enums import BorderMode, Interpolation
+from .geometry import (AffineTransform, ConvexHull, ProjectiveTransform,
+                       SimilarityTransform)
 from .histogram import Histogram
 from .image import Image, PixelIterator
 from .io_pipeline import BatchLoader, load_image_batch
+from .motion_blur import MotionBlur
 from .rectangle import Rectangle
+from .stats import RunningStats
 
 __all__ = [
     "Image", "PixelIterator", "ImageBatch", "BatchLoader",
     "load_image_batch", "Histogram", "Rectangle", "Blending",
-    "Interpolation", "BorderMode",
+    "Interpolation", "BorderMode", "SimilarityTransform", "AffineTransform",
+    "ProjectiveTransform", "ConvexHull", "MotionBlur", "RunningStats",
     "Gray", "Rgb", "Rgba", "Hsl", "Hsv", "Lab", "Lch", "Lms", "Oklab",
     "Oklch", "Xyb", "Xyz", "Ycbcr", "__version__",
 ]

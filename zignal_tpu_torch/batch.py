@@ -4,9 +4,12 @@ the counterpart of zignal_tpu/batch.py: construction (from arrays,
 Images and files), interop with ``Image``, save, resize and letterbox, the
 resize -> blur -> Oklab path, the windowed filters (convolutions,
 clamped-window and order-statistic blurs, morphology), the edge detectors,
-the pointwise ops (convert, invert, flips, fill, set_border, blend) and
-the histogram and threshold ops. The ops take ``[B, H, W, C]`` (or the
-``[B, H, W]`` gray plane) directly: nothing is mapped image by image.
+the pointwise ops (convert, invert, flips, fill, set_border, blend), the
+histogram and threshold ops, the geometric ops (rotate, crop, extract,
+warp, insert), motion blur and the metrics (psnr, ssim, mean_pixel_error,
+diff). The ops take ``[B, H, W, C]`` (or the ``[B, H, W]`` gray plane)
+directly: nothing is mapped image by image, and the geometric ops' host
+coordinates are shared by the batch.
 
 The device is always the caller's choice (``device=``); nothing here
 picks one. There is no mesh yet (ROADMAP item 15).
@@ -25,13 +28,15 @@ from .color._classes import CLASS_BY_SPACE
 from .enums import BorderMode, Interpolation
 from .image import (_CHANNELS_SPACE, _SPACE_CHANNELS, Image, _dtype_space,
                     _parse_color)
-from .ops import binary, edges, enhancement, integral, order_stat
+from .ops import (binary, edges, enhancement, integral, metrics,
+                  motion_blur_ops, order_stat, warp)
 from .ops.fma import fma
 from .ops.convolution import convolve2d, sobel_magnitude
 from .ops.convolution import convolve_separable as convolve_separable_op
 from .ops.convolution import gaussian_blur as gaussian_blur_op
 from .ops.interpolation import resize as resize_op
 from .pipeline import resize_blur_oklab as _chain
+from .rectangle import Rectangle
 
 __all__ = ["ImageBatch", "resize_blur_oklab_fn"]
 
@@ -263,6 +268,109 @@ class ImageBatch:
         fn = resize_blur_oklab_fn(rows, cols, float(sigma),
                                   Interpolation(method))
         return fn(self._dev)
+
+    def rotate(self, angle, method: Interpolation = Interpolation.BILINEAR,
+               border: BorderMode = BorderMode.ZERO) -> "ImageBatch":
+        """Rotate every image around its centre (radians, CCW), sized to
+        fit; the coordinates are host f32, shared by the batch."""
+        angle = float(angle)
+        if not np.isfinite(angle):
+            raise ValueError("angle must be finite")
+        rows, cols = warp.rotate_bounds(self.rows, self.cols, angle)
+        return self._wrap(warp.rotate(self._dev, angle, rows, cols,
+                                      Interpolation(method),
+                                      BorderMode(border)))
+
+    def crop(self, rect) -> "ImageBatch":
+        """Crop a rectangle of every image; out of bounds is black."""
+        if isinstance(rect, (tuple, list)):
+            rect = Rectangle(*rect)
+        return self.extract(rect, 0.0, None, Interpolation.NEAREST)
+
+    def extract(self, rect, angle: float = 0.0, size=None,
+                method: Interpolation = Interpolation.BILINEAR,
+                border: BorderMode = BorderMode.ZERO) -> "ImageBatch":
+        """Sample a rotated rect of every image into ``size`` (default: the
+        rect's own size)."""
+        from .image import _round_half_away_f32
+
+        if isinstance(rect, (tuple, list)):
+            rect = Rectangle(*rect)
+        if size is None:
+            rows = max(1, int(_round_half_away_f32(rect.height)))
+            cols = max(1, int(_round_half_away_f32(rect.width)))
+        elif isinstance(size, (int, float)):
+            rows = cols = int(size)
+        else:
+            rows, cols = int(size[0]), int(size[1])
+        if rows <= 0 or cols <= 0:
+            raise ValueError("size must be positive")
+        return self._wrap(warp.extract(
+            self._dev, (rect.left, rect.top, rect.right, rect.bottom),
+            float(angle), rows, cols, Interpolation(method),
+            BorderMode(border)))
+
+    def warp(self, transform, shape=None,
+             method: Interpolation = Interpolation.BILINEAR) -> "ImageBatch":
+        """Backward-map every image through a Similarity, Affine or
+        Projective transform (MIRROR border), host f32 coordinates."""
+        from .geometry.transforms import (AffineTransform,
+                                          ProjectiveTransform,
+                                          SimilarityTransform)
+
+        if not isinstance(transform, (SimilarityTransform, AffineTransform,
+                                      ProjectiveTransform)):
+            raise TypeError("transform must be a Similarity/Affine/"
+                            "Projective transform")
+        rows, cols = ((self.rows, self.cols) if shape is None
+                      else (int(shape[0]), int(shape[1])))
+        return self._wrap(warp.warp(self._dev, transform.homogeneous(), rows,
+                                    cols, Interpolation(method)))
+
+    def insert(self, source, rect, angle: float = 0.0,
+               method: Interpolation = Interpolation.BILINEAR,
+               blend_mode=None) -> "ImageBatch":
+        """Insert ``source`` at a rotated rect into every image, the
+        functional mirror of the mutating Image.insert (reference:
+        transforms.zig:293-380). ``source`` is an Image, shared by the
+        batch, or an ImageBatch of the same length, one an image. An Rgba
+        source blends with ``blend_mode``, rounded as the JAX package's
+        compiled batch op rounds it (fused multiply-adds)."""
+        if isinstance(rect, (tuple, list)):
+            rect = Rectangle(*rect)
+        if not isinstance(rect, Rectangle):
+            raise TypeError("expected a Rectangle or (l, t, r, b) tuple")
+        mode = Blending.NONE if blend_mode is None else Blending(blend_mode)
+        per_image = isinstance(source, ImageBatch)
+        if not per_image and not isinstance(source, Image):
+            raise TypeError("source must be an Image or an ImageBatch")
+        if per_image and source.batch_size != self.batch_size:
+            raise ValueError("source batch length must match")
+        if mode == Blending.NONE or source._space != "rgba":
+            source = source.convert(self.dtype)
+            mode = Blending.NONE
+        src = source._dev if per_image else source._device()
+        return self._wrap(warp.insert_region(
+            self._dev, src.to(self._dev.device),
+            (rect.left, rect.top, rect.right, rect.bottom), float(angle),
+            Interpolation(method), mode, compiled=True))
+
+    def motion_blur(self, config) -> "ImageBatch":
+        """Linear or radial motion blur of every image: an axis-aligned
+        linear blur is the separable kernel on the card; the others gather
+        at host coordinates (the radial ones cached on the device)."""
+        from .motion_blur import MotionBlur
+
+        if not isinstance(config, MotionBlur):
+            raise TypeError("motion_blur expects a MotionBlur configuration")
+        if config.kind == "linear":
+            out = motion_blur_ops.linear_motion_blur(self._dev, config.angle,
+                                                     config.distance)
+        else:
+            out = motion_blur_ops.radial_blur(
+                self._dev, config.center_x, config.center_y, config.strength,
+                config.kind == "zoom")
+        return self._wrap(out)
 
     # -- windowed filters ----------------------------------------------------
 
@@ -535,3 +643,62 @@ class ImageBatch:
         t = torch.from_numpy(thresholds).to(plane.device)
         out = (plane > t[:, None, None]).to(torch.uint8) * 255
         return self._wrap(out[..., None]), thresholds
+
+    # -- metrics (one value an image) ------------------------------------------
+
+    def _check_same(self, other):
+        if not isinstance(other, ImageBatch):
+            raise TypeError("expected an ImageBatch")
+        if other._dev.shape != self._dev.shape:
+            raise ValueError("batch shapes must match")
+        if other._space != self._space:
+            raise ValueError("batch dtypes must match")
+
+    def _other(self, other) -> torch.Tensor:
+        self._check_same(other)
+        return other._dev.to(self._dev.device)
+
+    def diff(self, other: "ImageBatch", threshold: float = 0.0,
+             scale: float = 1.0, binary: bool = False,
+             force_opaque: bool = False):
+        """Per-pixel difference visualisation of every image -> (ImageBatch,
+        [B] int32 counts of differing pixels) on the device; the same
+        visualisation as the JAX package's ``ImageBatch.diff`` (the strict ``>
+        threshold`` on integer differences is the integer cut ``>=
+        floor(threshold) + 1``). The RunningStats summary stays
+        ``Image.diff``'s."""
+        b = self._other(other)
+        cut = float(int(np.floor(float(threshold))) + 1)
+        a = self._dev
+        d = torch.abs(a.to(torch.float32) - b.to(torch.float32))
+        differs = (d >= cut).any(dim=-1)
+        counts = differs.sum(dim=(-2, -1), dtype=torch.int32)
+        if binary:
+            vis = (differs[..., None].to(torch.uint8) * 255).expand(a.shape)
+        else:
+            # the JAX package's compiled d * scale + 0.5 is one fused
+            # multiply-add
+            scl = torch.full((), float(np.float32(scale)), device=d.device)
+            half = torch.full((), 0.5, device=d.device)
+            vis = torch.clamp(torch.floor(fma(d, scl, half)), 0, 255) \
+                .to(torch.uint8)
+        vis = vis.contiguous()
+        if force_opaque and a.shape[-1] == 4:
+            vis[..., 3] = 255
+        return self._wrap(vis), counts
+
+    def psnr(self, other: "ImageBatch") -> torch.Tensor:
+        """[B] PSNR in dB, f32 on the device (``Image.psnr``'s host f64 is
+        the per-image oracle)."""
+        return metrics.psnr(self._dev, self._other(other))
+
+    def mean_pixel_error(self, other: "ImageBatch") -> torch.Tensor:
+        """[B] mean absolute error in [0, 1], f32 on the device."""
+        return metrics.mean_pixel_error(self._dev, self._other(other))
+
+    def ssim(self, other: "ImageBatch") -> torch.Tensor:
+        """[B] mean SSIM over valid 11x11 windows, f32 on the device."""
+        b = self._other(other)
+        if self.rows < 11 or self.cols < 11:
+            raise ValueError("images must be at least 11x11 for SSIM")
+        return metrics.ssim(self._dev, b)

@@ -15,13 +15,16 @@ Design (as the JAX package's): the pixel data lives in one of two homes.
 Every constructor takes an explicit ``device=``: the device ops run there
 (on the card, u8 bilinear ``resize`` and ``letterbox`` are K1 and
 ``gaussian_blur`` / ``convolve_separable`` K4), through the same batched
-ops as ``ImageBatch`` on a batch of one. ``resize`` always runs on the
-device: the JAX package's host placement is not ported. The host ops
-(``fill``, ``set_border``, ``invert``, the flips, ``blend``, the host
-``convert``) are the JAX package's numpy code.
+ops as ``ImageBatch`` on a batch of one (``insert`` too, written back into
+the host array). ``resize`` always runs on the device: the JAX package's
+host placement is not ported. The host ops (``fill``, ``set_border``,
+``invert``, the flips, ``blend``, the host ``convert``, ``psnr``,
+``mean_pixel_error``, ``diff``) are the JAX package's numpy code.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -36,6 +39,12 @@ __all__ = ["Image", "PixelIterator"]
 
 _SPACE_CHANNELS = {"gray": 1, "rgb": 3, "rgba": 4}
 _CHANNELS_SPACE = {1: "gray", 3: "rgb", 4: "rgba"}
+
+
+def _round_half_away_f32(x) -> float:
+    """Round ``f32(x)`` half away from zero (rect sizes of crop/extract)."""
+    x = float(np.float32(x))
+    return math.floor(x + 0.5) if x >= 0 else math.ceil(x - 0.5)
 
 
 def _dtype_space(dtype) -> str:
@@ -491,6 +500,70 @@ class Image:
         return self._first(self._batch().letterbox((rows, cols),
                                                    Interpolation(method)))
 
+    def rotate(self, angle, method: Interpolation = Interpolation.BILINEAR,
+               border: BorderMode = BorderMode.ZERO) -> "Image":
+        """Rotate around the centre (radians, CCW); the output is sized to
+        fit (reference: image.zig:558; transforms.zig:112-213)."""
+        angle = float(angle)
+        if not np.isfinite(angle) or abs(angle) > 3.4e38:
+            raise ValueError("Angle must be a finite number")
+        return self._first(self._batch().rotate(angle, method, border))
+
+    def crop(self, rect) -> "Image":
+        """Crop a rectangle; out of bounds is black
+        (reference: transforms.zig:216-222)."""
+        rect = self._coerce_rect(rect)
+        rows = int(_round_half_away_f32(rect.height))
+        cols = int(_round_half_away_f32(rect.width))
+        if rows == 0 or cols == 0:
+            raise ValueError("crop rectangle is empty")
+        return self.extract(rect, 0.0, (rows, cols), Interpolation.NEAREST)
+
+    def extract(self, rect, angle: float = 0.0, size=None,
+                method: Interpolation = Interpolation.BILINEAR,
+                border: BorderMode = BorderMode.ZERO) -> "Image":
+        """Extract a rotated rect, resampled to ``size``
+        (reference: transforms.zig:231-283)."""
+        return self._first(self._batch().extract(
+            self._coerce_rect(rect), angle, size, method, border))
+
+    def insert(self, source: "Image", rect, angle: float = 0.0,
+               method: Interpolation = Interpolation.BILINEAR,
+               blend_mode: Blending = Blending.NONE) -> None:
+        """Insert ``source`` into self at a rotated rect, in place
+        (reference: transforms.zig:293-380): sampled and blended on the
+        image's device, written into the host array."""
+        if not isinstance(source, Image):
+            raise TypeError("source must be an Image")
+        rect = self._coerce_rect(rect)
+        from .ops.warp import insert_region
+
+        mode = Blending(blend_mode)
+        if mode != Blending.NONE and source._space == "rgba":
+            src = source._device()
+        else:
+            src = source.convert(self.dtype)._device()
+            mode = Blending.NONE
+        # the JAX package runs this op by op, not as one compiled program
+        out = insert_region(
+            self._device(), src.to(self._at),
+            (rect.left, rect.top, rect.right, rect.bottom), float(angle),
+            Interpolation(method), mode, compiled=False)
+        self._host()[:] = out.cpu().numpy()
+
+    def warp(self, transform, shape=None,
+             method: Interpolation = Interpolation.BILINEAR) -> "Image":
+        """Backward-map through a geometric transform
+        (reference: image.zig:621; transforms.zig:522)."""
+        return self._first(self._batch().warp(transform, shape, method))
+
+    def _coerce_rect(self, rect) -> Rectangle:
+        if isinstance(rect, (tuple, list)) and len(rect) == 4:
+            return Rectangle(*rect)
+        if isinstance(rect, Rectangle):
+            return rect
+        raise TypeError("expected a Rectangle or (l, t, r, b) tuple")
+
     # -- filtering (device) -------------------------------------------------
 
     def box_blur(self, radius: int) -> "Image":
@@ -570,6 +643,10 @@ class Image:
             raise ValueError("trim_fraction must be in [0, 0.5)")
         return self._order_stat("alpha_trimmed_mean_blur", radius,
                                 trim_fraction, BorderMode(border))
+
+    def motion_blur(self, config) -> "Image":
+        """Linear or radial motion blur (reference: image.zig:1077)."""
+        return self._first(self._batch().motion_blur(config))
 
     def sobel(self) -> "Image":
         """Sobel gradient magnitude as a grayscale image
@@ -670,6 +747,57 @@ class Image:
         from .histogram import Histogram
 
         return Histogram.from_image(self)
+
+    # -- metrics --------------------------------------------------------------
+
+    def ssim(self, other: "Image") -> float:
+        """Mean SSIM over 11x11 Gaussian windows, f32 on the image's device
+        (reference: image.zig:1126; metrics.zig:56)."""
+        self._check_same(other)
+        if self.rows < 11 or self.cols < 11:
+            raise ValueError("images must be at least 11x11 for SSIM")
+        return float(self._batch().ssim(other._batch())[0])
+
+    def psnr(self, other: "Image") -> float:
+        """Peak signal-to-noise ratio in dB, host f64
+        (reference: src/image/metrics.zig:10)."""
+        self._check_same(other)
+        a = self._host().astype(np.float64)
+        b = other._host().astype(np.float64)
+        mse = np.mean((a - b) ** 2)
+        if mse == 0:
+            return float("inf")
+        return float(10.0 * np.log10(255.0**2 / mse))
+
+    def diff(self, other: "Image", threshold: float = 0.0, scale: float = 1.0,
+             binary: bool = False, force_opaque: bool = False):
+        """Per-pixel difference visualisation and its statistics -> (Image,
+        DiffResult), host numpy (reference: src/image.zig:1139 diff,
+        src/image/diff.zig:27)."""
+        self._check_same(other)
+        from .ops.diff import DiffOptions, compute
+
+        vis, result = compute(
+            self._host(), other._host(),
+            DiffOptions(threshold=threshold, scale=scale, binary=binary,
+                        force_opaque=force_opaque))
+        return Image._from_host(vis, self._space, self._at), result
+
+    def mean_pixel_error(self, other: "Image") -> float:
+        """Mean absolute pixel error normalised to [0, 1], host f64
+        (reference: src/image/metrics.zig:114)."""
+        self._check_same(other)
+        a = self._host().astype(np.float64)
+        b = other._host().astype(np.float64)
+        return float(np.mean(np.abs(a - b)) / 255.0)
+
+    def _check_same(self, other):
+        if not isinstance(other, Image):
+            raise TypeError("expected an Image")
+        if (other.rows, other.cols) != (self.rows, self.cols):
+            raise ValueError("image dimensions must match")
+        if other._space != self._space:
+            raise ValueError("image dtypes must match")
 
 
 class _PixelProxy:
