@@ -121,7 +121,26 @@ Phases (any failure raises and exits non-zero):
 21. each phase-20 output on image 0 against the same call on the CPU: u8
    equal, the diff equal, the f32 metrics within 1e-5 relative (the CPU
    tests' bound);
-22. each phase-20 call timed with CUDA events after a warm-up.
+22. each phase-20 call timed with CUDA events after a warm-up;
+23. BASELINE config 4 (bench.py:483-554): FDM of a 1024^2 synth_photo
+   (seed 3) to the cast target of bench.py:490-494 (seed 4) through
+   FeatureDistributionMatching.set_target, .update and .match_batch of
+   B=4 on the card (no kernel may launch), PSNR and SSIM against the
+   source, and image 0 of each against the same calls on the CPU: at
+   most 1 u8 step at no more than 0.1 % of the values (the CPU tests'
+   bound; the same bits are expected);
+24. BASELINE config 5 (bench.py:556-680): Orb().detect_and_compute_batch
+   of 8 images of 512^2 (image 0, its view rotated by 0.2 rad, 6 more),
+   with the launch counts zeroed just before and read just after (K4
+   once, K1 n_levels - 1 = 7 times: one pyramid for the stack), a
+   cross-checked BruteForceMatcher of images 0 and 1, HoughTransform(256)
+   of Image.sobel() with find_lines(threshold=120), 50 lines and 50
+   circles on a Canvas; ORB of images 0 and 1, the matches, Sobel, the
+   accumulator and the canvas equal to the same calls on the CPU;
+25. each stage of configs 4 and 5 timed with CUDA events and the host
+   clock, then one update split into upload, statistics, host SVD, map
+   and D2H, and one ORB batch into pyramid, FAST + NMS, Harris, top-k
+   and the whole device path with its D2H.
 The last two lines are a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
@@ -1444,6 +1463,291 @@ def _geometry_phases(card, rng) -> int:
     return k4_launches
 
 
+# -- BASELINE configs 4 and 5 (phases 23-25) ---------------------------------
+
+CONFIG4 = dict(side=1024, batch=4)   # bench.py:483-554
+CONFIG5 = dict(side=512, batch=8, hough=256, hough_threshold=120,
+               shapes=50)            # bench.py:556-680
+FDM_SHARE = 1e-3  # the CPU tests' bound: <= 1 u8 step at <= 0.1 % of values
+
+
+def cast_target(h, w, seed=4):
+    """bench.py:490-494's FDM target: crushed shadows, a warm cast."""
+    t = synth_photo(h, w, seed).astype(np.float32) / 255.0
+    t = t ** 2.2 * np.array([230.0, 180.0, 120.0]) + 20.0
+    return np.clip(t, 0, 255).astype(np.uint8)
+
+
+def _fdm_close(label, got, want) -> int:
+    """<= 1 u8 step at no more than FDM_SHARE of the values; returns the
+    count of values that differ."""
+    d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    n = int((d != 0).sum())
+    ok = d.max() <= 1 and n <= FDM_SHARE * d.size
+    print(f"phase 23 {label}: {n} of {d.size} values differ from the CPU, "
+          f"max {int(d.max())} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} on the card differs from the CPU")
+    return n
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Best host-clock ms of ``reps`` synchronized calls."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def _stage_ms(stages):
+    """One synchronized pass through ``stages`` ((name, fn) in order, each
+    taking the previous output): CUDA-event ms of each."""
+    out, times = None, []
+    for name, fn in stages:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn(out)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append((name, start.elapsed_time(stop)))
+    return times
+
+
+def _orb_keys(result):
+    kps, descs = result
+    return ([(k.x, k.y, k.octave, k.size, k.response, k.angle)
+             for k in kps], [d.bits.tobytes() for d in descs])
+
+
+def _config4(card):
+    """Phase 23: BASELINE config 4, FDM style transfer, on the card."""
+    from zignal_tpu_torch import FeatureDistributionMatching, Image, \
+        ImageBatch
+
+    n, b = CONFIG4["side"], CONFIG4["batch"]
+    src_np = synth_photo(n, n, seed=3)
+    tgt_np = cast_target(n, n)
+    batch_np = np.stack([src_np] + [synth_photo(n, n, seed=50 + i)
+                                    for i in range(b - 1)])
+    counts = _counts()
+    fdm = FeatureDistributionMatching()
+    tgt = Image.from_numpy(tgt_np.copy(), device="cuda")
+    fdm.set_target(tgt)
+    work = Image.from_numpy(src_np.copy(), device="cuda")
+    fdm.set_source(work)
+    fdm.update()
+    batch = ImageBatch(batch_np, device="cuda")
+    out = fdm.match_batch(batch, tgt)
+    torch.cuda.synchronize()
+    if _counts() != counts:
+        raise AssertionError("config 4 launched a kernel")
+    if tuple(out.shape) != (b, n, n, 3) or out.device.type != "cuda":
+        raise AssertionError(f"match_batch gave {tuple(out.shape)} on "
+                             f"{out.device}")
+    src = Image.from_numpy(src_np.copy(), device="cuda")
+    psnr, ssim = src.psnr(work), src.ssim(work)
+    if not (np.isfinite(psnr) and -1.0 <= ssim <= 1.0):
+        raise AssertionError(f"config 4 scores {psnr} {ssim}")
+    print(f"phase 23 config 4, {n}^2: update() and match_batch(B={b}) ran, "
+          f"no kernel launched; PSNR vs the source {psnr:.4f} dB, SSIM "
+          f"{ssim:.6f}")
+    # image 0 against the same port calls on the CPU
+    cpu = FeatureDistributionMatching()
+    cpu_work = Image.from_numpy(src_np.copy(), device="cpu")
+    cpu.match(cpu_work, Image.from_numpy(tgt_np.copy(), device="cpu"))
+    _fdm_close("update() image", work.to_numpy(), cpu_work.to_numpy())
+    cpu_out = cpu.match_batch(batch_np[:1], Image.from_numpy(
+        tgt_np.copy(), device="cpu"), device="cpu")
+    _fdm_close("match_batch image 0", out[0].cpu().numpy(),
+               cpu_out[0].numpy())
+    cpu_src = Image.from_numpy(src_np.copy(), device="cpu")
+    print(f"phase 23 CPU: PSNR {cpu_src.psnr(cpu_work):.4f} dB, SSIM "
+          f"{cpu_src.ssim(cpu_work):.6f}")
+    return fdm, tgt, src_np, batch
+
+
+def _config5(card):
+    """Phase 24: BASELINE config 5, ORB + matching + Hough + Canvas, on
+    the card. Returns (K1, K4) launches and what phase 25 times."""
+    from zignal_tpu_torch import Canvas, Image
+    from zignal_tpu_torch.features import BruteForceMatcher, Orb
+    from zignal_tpu_torch.ops.hough import HoughTransform
+
+    n, b = CONFIG5["side"], CONFIG5["batch"]
+    img = Image.from_numpy(synth_photo(n, n, seed=5), device="cuda")
+    rot = img.extract(img.get_rectangle(), angle=0.2)
+    corpus = [img, rot] + [Image.from_numpy(synth_photo(n, n, seed=50 + i),
+                                            device="cuda")
+                           for i in range(b - 2)]
+    orb = Orb()
+    torch.cuda.synchronize()
+    for m in _counted_modules():
+        m.LAUNCHES = 0
+    results = orb.detect_and_compute_batch(corpus)
+    torch.cuda.synchronize()
+    k1, _, _, k4 = _counts()
+    want = (orb.n_levels - 1, 1)
+    print(f"phase 24 Orb().detect_and_compute_batch of {b} {n}^2 images: "
+          f"K1 {k1} launches, K4 {k4} (want {want[0]}, {want[1]}); "
+          f"keypoints {[len(r[0]) for r in results]}")
+    if (k1, k4) != want or _counts()[1:3] != (0, 0):
+        raise AssertionError(f"the ORB batch launched {_counts()}")
+    matcher = BruteForceMatcher(cross_check=True, device="cuda")
+    matches = matcher.match(results[0][1], results[1][1])
+    edges = img.sobel()
+    hough = HoughTransform(CONFIG5["hough"])
+    acc = hough.compute(edges)
+    lines = hough.find_lines(acc, threshold=CONFIG5["hough_threshold"])
+    canvas_img = Image.from_numpy(np.zeros((n, n, 3), np.uint8),
+                                  device="cuda")
+    canvas = Canvas(canvas_img)
+
+    def draw(c):
+        for i in range(CONFIG5["shapes"]):
+            c.draw_line((10 + i * 9, 20), (500 - i * 9, 490), (255, 128, 0))
+            c.draw_circle((256, 256), 40 + i * 2, (0, 255, 128))
+
+    draw(canvas)
+    if not matches or acc.shape != (CONFIG5["hough"],) * 2 or \
+            not canvas_img.to_numpy().any():
+        raise AssertionError("config 5 produced nothing")
+    print(f"phase 24: {len(matches)} cross-checked matches of image 0 to "
+          f"its rotated view, {len(lines)} Hough lines "
+          f"(accumulator max {int(acc.max())}), "
+          f"{2 * CONFIG5['shapes']} shapes drawn")
+    # image 0, the match and the accumulator against the CPU
+    cpu_img = Image.from_numpy(img.to_numpy().copy(), device="cpu")
+    cpu_rot = Image.from_numpy(rot.to_numpy().copy(), device="cpu")
+    cpu_res = [orb.detect_and_compute(cpu_img),
+               orb.detect_and_compute(cpu_rot)]
+    for i in range(2):
+        if _orb_keys(results[i]) != _orb_keys(cpu_res[i]):
+            raise AssertionError(f"ORB of image {i} differs from the CPU")
+    cpu_matches = BruteForceMatcher(cross_check=True, device="cpu").match(
+        cpu_res[0][1], cpu_res[1][1])
+    if [(m.query_idx, m.train_idx, m.distance) for m in matches] != \
+            [(m.query_idx, m.train_idx, m.distance) for m in cpu_matches]:
+        raise AssertionError("the matches differ from the CPU")
+    cpu_edges = cpu_img.sobel()
+    if not np.array_equal(edges.to_numpy(), cpu_edges.to_numpy()) or \
+            not np.array_equal(acc, hough.compute(cpu_edges)):
+        raise AssertionError("Sobel or the Hough accumulator differs from "
+                             "the CPU")
+    cpu_canvas = Image.from_numpy(np.zeros((n, n, 3), np.uint8),
+                                  device="cpu")
+    draw(Canvas(cpu_canvas))
+    if not np.array_equal(canvas_img.to_numpy(), cpu_canvas.to_numpy()):
+        raise AssertionError("the canvas differs from the CPU")
+    print("phase 24: ORB of images 0 and 1 (keypoints, angles, "
+          "descriptors), the matches, Sobel, the Hough accumulator and "
+          "the canvas equal the CPU")
+    return (k1, k4), (orb, corpus, results, matcher, img, edges, hough,
+                      acc, draw)
+
+
+def _config_times(card, c4, c5):
+    """Phase 25: each stage of configs 4 and 5 with CUDA events and the
+    host clock, and where the time of the two device paths goes."""
+    from zignal_tpu_torch import Canvas, Image
+    from zignal_tpu_torch import fdm as fdm_mod
+    from zignal_tpu_torch.features import orb as orb_mod
+    from zignal_tpu_torch.ops.pyramid import ImagePyramid
+
+    fdm, tgt, src_np, batch = c4
+    orb, corpus, results, matcher, img, edges, hough, acc, draw = c5
+    work = Image.from_numpy(src_np.copy(), device="cuda")
+
+    def update():
+        work._np[:] = src_np
+        fdm.set_source(work)
+        fdm.update()
+
+    n = CONFIG5["side"]
+    blank = np.zeros((n, n, 3), np.uint8)
+    stages = [
+        ("config 4 set_target", lambda: fdm.set_target(tgt)),
+        ("config 4 update", update),
+        (f"config 4 match_batch B={CONFIG4['batch']}",
+         lambda: fdm.match_batch(batch, tgt)),
+        (f"config 5 detect_and_compute_batch B={CONFIG5['batch']}",
+         lambda: orb.detect_and_compute_batch(corpus)),
+        ("config 5 match (cross-check)",
+         lambda: matcher.match(results[0][1], results[1][1])),
+        ("config 5 sobel", img.sobel),
+        ("config 5 hough.compute", lambda: hough.compute(edges)),
+        ("config 5 find_lines",
+         lambda: hough.find_lines(acc, CONFIG5["hough_threshold"])),
+        ("config 5 canvas 50 lines + 50 circles",
+         lambda: draw(Canvas(Image.from_numpy(blank.copy(),
+                                              device="cuda")))),
+    ]
+    for name, fn in stages:
+        ev = _time_ms(fn, 3)
+        host = _host_ms(fn)
+        print(f"[{card}] phase 25 {name}: {ev:.4f} ms (CUDA events), "
+              f"{host:.4f} ms (host clock)")
+    # where a config-4 update goes
+    dev = work._device()[..., :3]
+    split = _stage_ms([
+        ("upload + u8 -> f32", lambda _: fdm_mod._unit(
+            work._device()[..., :3]).reshape(-1, 3)),
+        ("mean and covariance (tree sums, D2H)",
+         lambda x: (x, fdm_mod._mean_cov(x))),
+        ("host SVD", lambda a: (a[0], fdm_mod._map_for(
+            *a[1], fdm._target_mean, fdm._target_s, fdm._target_u))),
+        ("pixel map", lambda a: fdm_mod._apply_map(a[0], *a[1])),
+        ("D2H of the result", lambda out: out.reshape(dev.shape).cpu()),
+    ])
+    print(f"[{card}] phase 25 config 4 update split: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in split))
+    # where a config-5 ORB batch goes
+    planes = torch.stack([orb_mod.plane_of(im, None) for im in corpus])
+    h, w = planes.shape[-2:]
+    ks, margins, _ = orb._fused_params(h, w)
+    pyr = [None]
+
+    def level_stage(fn):
+        def run(_):
+            out = []
+            for level, lvl in enumerate(pyr[0].levels):
+                if ks[level]:
+                    out.append(fn(level, lvl))
+            return out
+        return run
+
+    split = _stage_ms([
+        ("pyramid (K4 + K1)", lambda _: pyr.__setitem__(0, ImagePyramid.build(
+            planes, orb.n_levels, orb.scale_factor, 1.6))),
+        ("FAST + NMS", level_stage(lambda lv, lvl: orb_mod._nms_device(
+            orb_mod.fast_response_map(lvl, max(5, int(
+                orb.fast_threshold * 0.9 ** lv)), 9)))),
+        ("Harris", level_stage(lambda lv, lvl: orb_mod._harris_map(lvl))),
+        ("top-k sort", level_stage(lambda lv, lvl: torch.sort(
+            orb_mod._harris_map(lvl).reshape(lvl.shape[0], -1), dim=-1,
+            descending=True, stable=True))),
+        ("whole device path + D2H", lambda _: orb_mod._orb_device(
+            planes, orb.n_levels, orb.scale_factor, orb.fast_threshold, ks,
+            margins, True).cpu()),
+    ])
+    print(f"[{card}] phase 25 config 5 ORB split (B={len(corpus)}; the "
+          f"top-k row includes its Harris map again): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in split))
+
+
+def _config_phases(card):
+    """Phases 23-25. Returns K1's and K4's launches of phase 24."""
+    c4 = _config4(card)
+    launches, c5 = _config5(card)
+    _config_times(card, c4, c5)
+    return launches
+
+
 def geometry_profile() -> int:
     """--profile: where each phase-20 call's device time goes, from
     torch.profiler over 3 calls after a warm-up: device ms a call (all its
@@ -1884,8 +2188,11 @@ def main() -> int:
     t0 = time.perf_counter()
     k4_s8 = _geometry_phases(card, rng)
     print(f"phases 20-22: {time.perf_counter() - t0:.1f} s")
-    k1["launches"] += k1_ex + k1_s4 + k1_s7
-    k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8
+    t0 = time.perf_counter()
+    k1_s9, k4_s9 = _config_phases(card)
+    print(f"phases 23-25: {time.perf_counter() - t0:.1f} s")
+    k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9
+    k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9
     print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -847,3 +847,68 @@ def test_metrics_on_the_card_are_within_bounds_of_the_cpu(cuda):
     cvis, ccounts = cpu.diff(cpu_b, threshold=2, scale=1.7)
     assert torch.equal(vis.device_array().cpu(), cvis.device_array())
     assert torch.equal(counts.cpu(), ccounts)
+
+
+def test_orb_batch_launches_the_pyramid_kernels_once_a_call(cuda):
+    """The batched ORB builds one pyramid for the whole [B, H, W] stack:
+    K4 once and K1 n_levels - 1 times a call, not a call per image; its
+    keypoints and descriptors equal the same call on the CPU."""
+    from zignal_tpu_torch.features import Orb
+
+    planes = [_u8((96, 100), 80 + i, "cpu").numpy() for i in range(3)]
+    orb = Orb(n_features=80, n_levels=4)
+    k1, k4 = fp.LAUNCHES, sc.LAUNCHES
+    got = orb.detect_and_compute_batch(planes, device=cuda)
+    torch.cuda.synchronize()
+    assert (fp.LAUNCHES - k1, sc.LAUNCHES - k4) == (3, 1)
+    want = orb.detect_and_compute_batch(planes, device="cpu")
+    for (kg, dg), (kw, dw) in zip(got, want):
+        assert [(k.x, k.y, k.octave, k.response, k.angle) for k in kg] == \
+            [(k.x, k.y, k.octave, k.response, k.angle) for k in kw]
+        assert all(np.array_equal(a.bits, b.bits) for a, b in zip(dg, dw))
+
+
+def test_fdm_hough_and_matcher_on_the_card_equal_the_cpu(cuda):
+    """FDM's statistics and map are f32 operations rounded alone in a
+    fixed order (and f64 FMAs): the card gives the CPU's bits. The Hough
+    votes and the Hamming distances are integers."""
+    from zignal_tpu_torch import FeatureDistributionMatching, Image
+    from zignal_tpu_torch.features import BinaryDescriptor, BruteForceMatcher
+    from zignal_tpu_torch.ops.hough import HoughTransform
+
+    src = _u8((3, 70, 90, 3), 81, "cpu")
+    tgt = _u8((60, 50, 3), 82, "cpu").numpy() // 2 + 40
+    got = FeatureDistributionMatching().match_batch(
+        src.to(cuda), Image.from_numpy(tgt.copy(), device=cuda))
+    want = FeatureDistributionMatching().match_batch(
+        src, Image.from_numpy(tgt.copy(), device="cpu"))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    for dev in (cuda, "cpu"):
+        im = Image.from_numpy(src[0].numpy().copy(), device=dev)
+        FeatureDistributionMatching().match(
+            im, Image.from_numpy(tgt.copy(), device=dev))
+        if dev != "cpu":
+            card = im.to_numpy()
+    assert np.array_equal(card, im.to_numpy())
+    edges = (_u8((80, 80), 83, "cpu") > 230).to(torch.uint8) * 255
+    assert np.array_equal(HoughTransform(80).compute(edges.to(cuda)),
+                          HoughTransform(80).compute(edges))
+    a = [BinaryDescriptor(r) for r in _u8((300, 32), 84, "cpu").numpy()]
+    b = [BinaryDescriptor(r) for r in _u8((200, 32), 85, "cpu").numpy()]
+    cm = BruteForceMatcher(cross_check=True, device=cuda)
+    hm = BruteForceMatcher(cross_check=True, device="cpu")
+    assert [(m.query_idx, m.train_idx, m.distance) for m in cm.match(a, b)] \
+        == [(m.query_idx, m.train_idx, m.distance) for m in hm.match(a, b)]
+
+
+def test_pca_arrays_on_the_card_within_bound_of_the_cpu(cuda):
+    from zignal_tpu_torch import PCA
+
+    x = torch.rand((64, 80, 5), generator=torch.Generator().manual_seed(3))
+    p, c = PCA(), PCA()
+    p.fit_array(x.to(cuda), 3)
+    c.fit_array(x, 3)
+    np.testing.assert_allclose(p.eigenvalues, c.eigenvalues, rtol=1e-5)
+    proj = p.transform_array(x.to(cuda))
+    assert proj.device.type == "cuda"
+    assert torch.get_float32_matmul_precision() == "highest"

@@ -124,6 +124,21 @@ def _convert_array_u8(arr: np.ndarray, src: str, dst: str) -> np.ndarray:
     return a
 
 
+def plane_of(image, device):
+    """The u8 ``[H, W]`` plane of an Image (its luminance, on its device),
+    a torch tensor (on its device) or a numpy array (on ``device``, which
+    must be named); raw arrays take channel 0."""
+    if isinstance(image, Image):
+        return image._gray_u8_plane()
+    if isinstance(image, torch.Tensor):
+        plane = image if device is None else image.to(device)
+    else:
+        if device is None:
+            raise ValueError("a numpy image needs device=")
+        plane = torch.from_numpy(np.ascontiguousarray(image)).to(device)
+    return plane[..., 0] if plane.ndim == 3 else plane
+
+
 class Image:
     """A 2-D image with dtype Gray, Rgb, or Rgba (u8 components) whose
     device ops run on ``device``."""
@@ -238,6 +253,23 @@ class Image:
             return torch.from_numpy(np.ascontiguousarray(self._np)).to(
                 self._at, copy=True)
         return self._dev
+
+    def _gray_u8_plane(self) -> torch.Tensor:
+        """u8 ``[H, W]`` luminance on the image's device (BT.709 fixed
+        point; a gray image's own plane)."""
+        dev = self._device()
+        if self._space == "gray":
+            return dev[..., 0]
+        from .color._array import rgb_to_gray_u8
+
+        return rgb_to_gray_u8(dev[..., :3])[..., 0]
+
+    def canvas(self):
+        """A Canvas that draws into this image's host array
+        (reference: Canvas.zig:27)."""
+        from .canvas import Canvas
+
+        return Canvas(self)
 
     def _batch(self):
         """The image as an ImageBatch of one on its device."""

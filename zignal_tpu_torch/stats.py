@@ -1,15 +1,18 @@
 """Streaming statistics (reference: src/stats.zig).
 
 RunningStats is the Welford accumulator with skewness/kurtosis and
-`combine` for parallel merging, copied from zignal_tpu/stats.py (host
-Python floats). ``CovarianceStats`` comes with FDM (ROADMAP item 13).
+`combine` for parallel merging (host Python floats), and CovarianceStats
+the streaming mean and covariance of dim-dimensional samples (host f64
+numpy); both copied from zignal_tpu/stats.py.
 """
 
 from __future__ import annotations
 
 import math
 
-__all__ = ["RunningStats"]
+import numpy as np
+
+__all__ = ["RunningStats", "CovarianceStats"]
 
 
 class RunningStats:
@@ -157,3 +160,58 @@ class RunningStats:
         return (f"RunningStats(count={self._n}, mean={self.mean:g}, "
                 f"std_dev={self.std_dev:g})")
 
+
+class CovarianceStats:
+    """Streaming mean + covariance accumulation (Welford-style) for
+    dim-dimensional samples (reference: src/stats.zig:234 CovarianceStats).
+
+    `add` accepts a single sample; `extend` ingests an [N, dim] array in
+    one vectorized update (the bulk path)."""
+
+    def __init__(self, dim: int):
+        self.dim = int(dim)
+        self.clear()
+
+    def clear(self):
+        self.count = 0
+        self.mean_vec = np.zeros(self.dim, dtype=np.float64)
+        self.m2 = np.zeros((self.dim, self.dim), dtype=np.float64)
+
+    def add(self, sample):
+        sample = np.asarray(sample, dtype=np.float64)
+        self.count += 1
+        delta = sample - self.mean_vec
+        self.mean_vec += delta / self.count
+        self.m2 += np.outer(delta, sample - self.mean_vec)
+
+    def extend(self, samples):
+        """Bulk update from [N, dim] (exact merge of per-chunk moments)."""
+        samples = np.asarray(samples, dtype=np.float64).reshape(-1, self.dim)
+        n_b = len(samples)
+        if n_b == 0:
+            return
+        mean_b = samples.mean(axis=0)
+        centered = samples - mean_b
+        m2_b = centered.T @ centered
+        n_a = self.count
+        n = n_a + n_b
+        delta = mean_b - self.mean_vec
+        self.m2 += m2_b + np.outer(delta, delta) * (n_a * n_b / n)
+        self.mean_vec += delta * (n_b / n)
+        self.count = n
+
+    def mean(self):
+        return self.mean_vec.copy()
+
+    def variance_vector(self):
+        if self.count <= 1:
+            return np.zeros(self.dim, dtype=np.float64)
+        return np.diag(self.m2) / (self.count - 1)
+
+    def covariance_matrix(self):
+        """-> Matrix [dim, dim] (reference: stats.zig covarianceMatrix)."""
+        from .matrix import Matrix
+
+        if self.count <= 1:
+            return Matrix.zeros(self.dim, self.dim)
+        return Matrix.from_numpy(self.m2 / (self.count - 1))
