@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --times [TREE]   # every kernel's times alone
     python3 chip_smoke.py --ops            # cbrtf's and powf's costs
-    python3 chip_smoke.py --profile        # phase 20's calls, profiled
+    python3 chip_smoke.py --profile        # phases 20 and 26, profiled
 
 ``--times`` runs on the package found first on TREE (a checkout of another
 commit, e.g. the parent's ``git archive``) or on this one: K1 at B 16, 4
@@ -14,8 +14,10 @@ the kernel (a diagnostic), and each tile of K1, K2 and K4 alone at B=16.
 cbrtf and a powf cost with every SM busy, the basis of CBRTF_OPS and
 POWF_OPS in the bounds.
 ``--profile`` runs each phase-20 call (the geometric ops, motion blurs and
-metrics at B=16 of 1024^2) under torch.profiler and prints its device
-time a call and the five kernels or copies that take the most.
+metrics at B=16 of 1024^2) and each of phase 26's device calls but the QR
+decode (colormaps, flood fill, Perlin noise, kitty) under torch.profiler
+and prints its device time a call and the five kernels or copies that
+take the most.
 
 Phases (any failure raises and exits non-zero):
 1. device facts: torch/CUDA versions, the card's name and power limit,
@@ -141,6 +143,25 @@ Phases (any failure raises and exits non-zero):
    clock, then one update split into upload, statistics, host SVD, map
    and D2H, and one ORB batch into pyramid, FAST + NMS, Harris, top-k
    and the whole device path with its D2H.
+26. the tenth slice's device paths on the card, each output on the card
+   and equal to the same call on the CPU: ImageBatch.apply_colormap of
+   [16, 1024, 1024, 3] with each of the five maps at the auto range (image
+   1 narrowed to 0..51) and at (13, 200) (images 0, 1 and 15 checked),
+   Image.apply_colormap at (0, 50); Image.flood_fill of a 1024^2 spiral
+   (corridor 16 wide) in SEED and NEIGHBOR mode at connectivity 4 and 8,
+   equal to the corridor, with the iterations printed, and
+   ImageBatch.flood_fill of 16 spirals (image 0 checked); perlin_array of
+   a 1024^2 grid, 4 octaves; qrcode_decode of a version-10 qrcode_encode
+   pasted into a 1024^2 synth_photo (the text must come back); kitty of a
+   1024^2 CUDA Image scaled to 512, the launch counts zeroed just before
+   and read just after: K1 once and no other kernel;
+27. the host paths on this machine's build of the native library, with
+   every Python fallback made to raise: GIF encode and decode of a
+   1200x1600 synth_photo in each dither mode (the decoded frame must be
+   the quantized image), an 8-frame animated GIF of 512^2 and the sixel of
+   a 512^2 image (its bands equal to the Python emitter's, run after);
+28. each call of phases 26-27 timed: CUDA events after a warm-up for the
+   device paths, the best host clock of 3 for the host paths.
 The last two lines are a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
@@ -1748,39 +1769,369 @@ def _config_phases(card):
     return launches
 
 
-def geometry_profile() -> int:
-    """--profile: where each phase-20 call's device time goes, from
-    torch.profiler over 3 calls after a warm-up: device ms a call (all its
-    kernels and copies), the host clock beside it, and the five rows with
-    the most device time."""
+# -- colormaps, flood fill, Perlin noise, QR, GIF and the terminal ----------
+# (phases 26-28)
+
+SLICE10 = dict(batch=16, side=1024, spiral_width=16, qr_version=10,
+               gif=(1200, 1600), frames=8, frame_side=512, sixel_side=512)
+MAPS = ("jet", "heat", "turbo", "viridis", "inferno")
+DITHERS = ("none", "ordered", "floyd_steinberg", "atkinson", "auto")
+
+
+def spiral(n: int, w: int) -> np.ndarray:
+    """A square spiral corridor of width ``w`` from (0, 0) inwards: about
+    n / w turns (tests/test_torch_flood_fill.py fills it too)."""
+    m = np.zeros((n, n), bool)
+    r0, c0, r1, c1 = 0, 0, n - 1, n - 1
+    while r1 - r0 > 2 * w and c1 - c0 > 2 * w:
+        m[r0:r0 + w, c0:c1 + 1] = True
+        m[r0:r1 + 1, c1 - w + 1:c1 + 1] = True
+        m[r1 - w + 1:r1 + 1, c0 + 2 * w:c1 + 1] = True
+        m[r0 + 2 * w:r1 + 1, c0 + 2 * w:c0 + 3 * w] = True
+        r0, c0, r1, c1 = r0 + 2 * w, c0 + 2 * w, r1 - 2 * w, c1 - 2 * w
+    return m
+
+
+def _spiral_photo(n, w, seed):
+    """The spiral in one colour with grain on a darker grainy ground."""
+    rng = np.random.default_rng(seed)
+    base = np.where(spiral(n, w)[..., None], 200, 40).astype(np.int32)
+    return (base + rng.integers(0, 3, (n, n, 3))).astype(np.uint8)
+
+
+def _on_card_equal(label, got, want) -> None:
+    """``got`` (a tensor, ImageBatch or Image) is on the card and equal to
+    ``want`` (the same call on the CPU)."""
+    dev = got.device if hasattr(got, "device") else None
+    if dev is None or torch.device(dev).type != "cuda":
+        raise AssertionError(f"{label}: output on {dev}, not the card")
+    g = got.to_numpy() if hasattr(got, "to_numpy") else got.cpu().numpy()
+    w = want.to_numpy() if hasattr(want, "to_numpy") else want.numpy()
+    if g.shape != w.shape or not np.array_equal(g, w):
+        raise AssertionError(f"{label}: the card and the CPU differ")
+
+
+def _slice10_device(card):
+    """Phase 26: the slice's device paths on the card at full size, each
+    output checked on the card and against the same call on the CPU.
+    Returns K1's launches (kitty's scaling) and what phase 28 times."""
+    from zignal_tpu_torch import (Colormap, Image, ImageBatch, Rgb,
+                                  perlin_array, qrcode_decode, qrcode_encode)
+    from zignal_tpu_torch.ops import flood_fill as ff
+    from zignal_tpu_torch.terminal import kitty_from_image
+
+    b, n = SLICE10["batch"], SLICE10["side"]
+    rng = np.random.default_rng(26)
+    arr = np.stack([synth_photo(n, n, seed=260 + i) for i in range(b)])
+    arr[1] //= 5  # an image whose own range is narrow: 0..51
+    batch = ImageBatch(arr, device="cuda")
+    cpu_ends = ImageBatch(arr[[0, 1, b - 1]], device="cpu")
+    calls = []
+    for name in MAPS:
+        for rng_ in ((None, None), (13, 200)):
+            cm = Colormap(name, *rng_)
+            got = batch.apply_colormap(cm)
+            want = cpu_ends.apply_colormap(cm)
+            _on_card_equal(f"colormap {name} {rng_}",
+                           got.device_array()[[0, 1, b - 1]],
+                           want.device_array())
+            calls.append((f"ImageBatch.apply_colormap({name}, {rng_}) "
+                          f"B={b}", lambda cm=cm: batch.apply_colormap(cm)))
+    one = Image.from_numpy(arr[0].copy(), device="cuda")
+    _on_card_equal("Image.apply_colormap",
+                   one.apply_colormap(Colormap.viridis(0, 50)),
+                   Image.from_numpy(arr[0].copy(), device="cpu")
+                   .apply_colormap(Colormap.viridis(0, 50)))
+    calls.append(("Image.apply_colormap(viridis, (0, 50))",
+                  lambda: one.apply_colormap(Colormap.viridis(0, 50))))
+    print(f"phase 26 apply_colormap: {len(MAPS)} maps at the auto range "
+          f"and (13, 200) on [{b}, {n}, {n}, 3], images 0, 1 and {b - 1} "
+          "equal to the CPU; Image.apply_colormap equal")
+
+    w = SLICE10["spiral_width"]
+    photo = _spiral_photo(n, w, 261)
+    corridor = spiral(n, w)
+    for mode in (0, 1):
+        for conn in (4, 8):
+            img = Image.from_numpy(photo.copy(), device="cuda")
+            ref = Image.from_numpy(photo.copy(), device="cpu")
+            before = ff.ITERATIONS
+            img.flood_fill(0, 0, (255, 0, 255), 4.0, conn, mode)
+            its = ff.ITERATIONS - before
+            ref.flood_fill(0, 0, (255, 0, 255), 4.0, conn, mode)
+            out = img.to_numpy()
+            filled = (out == (255, 0, 255)).all(-1)
+            if not np.array_equal(out, ref.to_numpy()) or \
+                    not np.array_equal(filled, corridor):
+                raise AssertionError(f"flood_fill mode {mode} conn {conn}: "
+                                     "not the corridor, or not the CPU's")
+            print(f"phase 26 Image.flood_fill {('SEED', 'NEIGHBOR')[mode]} "
+                  f"{conn}-connected on the {n}^2 spiral (width {w}, "
+                  f"{int(corridor.sum())} px): {its} iterations, equal to "
+                  "the CPU and to the corridor")
+            calls.append((f"Image.flood_fill {('SEED', 'NEIGHBOR')[mode]} "
+                          f"{conn} ({its} iterations)",
+                          lambda c=conn, m=mode: Image.from_numpy(
+                              photo.copy(), device="cuda").flood_fill(
+                                  0, 0, (255, 0, 255), 4.0, c, m)))
+    spirals = ImageBatch(np.stack([_spiral_photo(n, w, 262 + i)
+                                   for i in range(b)]), device="cuda")
+    before = ff.ITERATIONS
+    got = spirals.flood_fill(0, 0, (0, 255, 0), 4.0, 8, 1)
+    its = ff.ITERATIONS - before
+    want = ImageBatch(spirals.device_array()[:1].cpu(), device="cpu") \
+        .flood_fill(0, 0, (0, 255, 0), 4.0, 8, 1)
+    _on_card_equal("ImageBatch.flood_fill", got.device_array()[:1],
+                   want.device_array())
+    print(f"phase 26 ImageBatch.flood_fill NEIGHBOR 8 of [{b}, {n}, {n}, 3]: "
+          f"{its} iterations, image 0 equal to the CPU")
+    calls.append((f"ImageBatch.flood_fill NEIGHBOR 8 B={b} ({its} "
+                  "iterations)", lambda: spirals.flood_fill(
+                      0, 0, (0, 255, 0), 4.0, 8, 1)))
+
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32)
+    noise = perlin_array(xx, yy, 0.5, octaves=4, frequency=1 / 64,
+                         device="cuda")
+    _on_card_equal("perlin_array", noise,
+                   perlin_array(xx, yy, 0.5, octaves=4, frequency=1 / 64,
+                                device="cpu"))
+    if not bool(torch.isfinite(noise).all()) or float(noise.std()) < 0.05:
+        raise AssertionError("perlin_array: not finite, or flat")
+    xs, ys = torch.from_numpy(xx).cuda(), torch.from_numpy(yy).cuda()
+    calls.append((f"perlin_array {n}^2, 4 octaves",
+                  lambda: perlin_array(xs, ys, 0.5, octaves=4,
+                                       frequency=1 / 64)))
+    print(f"phase 26 perlin_array of {n}^2, 4 octaves: equal to the CPU, "
+          f"range [{float(noise.min()):.4f}, {float(noise.max()):.4f}]")
+
+    text = "zignal on the card, version 10: " + "".join(
+        chr(c) for c in rng.integers(33, 127, 120))
+    code = qrcode_encode(text, version=SLICE10["qr_version"], module_size=4,
+                         device="cpu").convert(Rgb).to_numpy()
+    scene = synth_photo(n, n, seed=263)
+    top, left = (n - code.shape[0]) // 3, (n - code.shape[1]) // 2
+    scene[top:top + code.shape[0], left:left + code.shape[1]] = code
+    qr_img = Image.from_numpy(scene, device="cuda")
+    got = qrcode_decode(qr_img)
+    want = qrcode_decode(Image.from_numpy(scene.copy(), device="cpu"))
+    if got is None or got.text != text or got.version != 10:
+        raise AssertionError(f"qrcode_decode on the card gave {got}")
+    if (got.text, got.corners, got.mask, got.corrected_errors) != \
+            (want.text, want.corners, want.mask, want.corrected_errors):
+        raise AssertionError("qrcode_decode: the card and the CPU differ")
+    calls.append((f"qrcode_decode of a version-10 code in {n}^2",
+                  lambda: qrcode_decode(qr_img)))
+    print(f"phase 26 qrcode_decode of a version-10 code ({len(text)} "
+          f"chars) in a {n}^2 synth_photo: the text back, corners "
+          f"{[(round(x, 1), round(y, 1)) for x, y in got.corners]}, equal "
+          "to the CPU")
+
+    big = Image.from_numpy(synth_photo(n, n, seed=264), device="cuda")
+    torch.cuda.synchronize()
+    for m in _counted_modules():
+        m.LAUNCHES = 0
+    k = kitty_from_image(big, width=n // 2)
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"phase 26 kitty of a {n}^2 CUDA Image scaled to {n // 2}: "
+          f"launches K1-K4 {counts}")
+    if counts != (1, 0, 0, 0):
+        raise AssertionError(f"kitty's scaling launched {counts}, not K1 "
+                             "once")
+    if k != kitty_from_image(Image.from_numpy(big.to_numpy().copy(),
+                                              device="cpu"), width=n // 2):
+        raise AssertionError("kitty: the card and the CPU differ")
+    calls.append((f"kitty {n}^2 -> {n // 2}",
+                  lambda: kitty_from_image(big, width=n // 2)))
+    return counts[0], calls
+
+
+class _FallbackRan(AssertionError):
+    pass
+
+
+def _no_fallbacks():
+    """Replace every Python fallback of the host library's entries with one
+    that raises; returns the undo."""
+    from zignal_tpu_torch.codecs import gif
+    from zignal_tpu_torch.ops import dither, quantize
+    from zignal_tpu_torch.terminal import sixel
+
+    saved = []
+    for mod, name in ((gif, "_lzw_encode_py"), (gif, "_lzw_decode_py"),
+                      (dither, "_error_diffusion_py"),
+                      (quantize, "_clt_table_py"),
+                      (quantize, "_median_cut_py"),
+                      (sixel, "_emit_bands_py")):
+        saved.append((mod, name, getattr(mod, name)))
+
+        def fail(*_a, _n=name, **_k):
+            raise _FallbackRan(f"the Python fallback {_n} ran")
+
+        setattr(mod, name, fail)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return undo
+
+
+def _slice10_host(card):
+    """Phase 27: the host paths on this machine's built library, every
+    Python fallback made to raise. Returns what phase 28 times."""
+    from zignal_tpu_torch import Image
+    from zignal_tpu_torch.codecs import gif
+    from zignal_tpu_torch.terminal import sixel
+
+    h, w = SLICE10["gif"]
+    photo = synth_photo(h, w, seed=270)
+    fs = SLICE10["frame_side"]
+    frames = [synth_photo(fs, fs, seed=271 + i) for i in range(
+        SLICE10["frames"])]
+    sx = Image.from_numpy(synth_photo(SLICE10["sixel_side"],
+                                      SLICE10["sixel_side"], seed=279),
+                          device="cuda")
+    calls = []
+    undo = _no_fallbacks()
+    try:
+        for mode in DITHERS:
+            data = gif.encode(photo, dither=mode)
+            pal, idx = gif._quantize_frame(photo, 256, mode)
+            back, info = gif.decode(data)
+            if (info.width, info.height, info.frame_count) != (w, h, 1) or \
+                    not np.array_equal(back[..., :3], pal[idx]) or \
+                    not (back[..., 3] == 255).all():
+                raise AssertionError(f"GIF {mode}: the decoded frame is not "
+                                     "the quantized image")
+            print(f"phase 27 GIF {h}x{w} dither={mode}: {len(data)} bytes, "
+                  f"{len(pal)} colours, decoded frame equal to the "
+                  "quantized image")
+            calls.append((f"gif.encode {h}x{w} {mode}",
+                          lambda m=mode: gif.encode(photo, dither=m)))
+            calls.append((f"gif.decode {h}x{w} {mode}",
+                          lambda d=data: gif.decode(d)))
+        delays = list(range(3, 3 + len(frames)))
+        anim = gif.encode_animated(frames, delays, loop_count=0,
+                                   dither="ordered")
+        out = gif.decode_animated(anim)
+        if out.frame_count != len(frames) or out.delays != delays:
+            raise AssertionError("animated GIF: frames or delays lost")
+        for f, got in zip(frames, out.frames):
+            pal, idx = gif._quantize_frame(f, 256, "ordered")
+            if not np.array_equal(got[..., :3], pal[idx]):
+                raise AssertionError("animated GIF: a frame is not its "
+                                     "quantized image")
+        print(f"phase 27 animated GIF of {len(frames)} frames of {fs}^2: "
+              f"{len(anim)} bytes, every frame equal to its quantized image")
+        calls.append((f"gif.encode_animated {len(frames)} x {fs}^2",
+                      lambda: gif.encode_animated(frames, delays,
+                                                  dither="ordered")))
+        calls.append((f"gif.decode_animated {len(frames)} x {fs}^2",
+                      lambda: gif.decode_animated(anim)))
+        text = sixel.sixel_from_image(sx)
+        calls.append((f"sixel {SLICE10['sixel_side']}^2",
+                      lambda: sixel.sixel_from_image(sx)))
+    finally:
+        undo()
+    rgb = sx.to_numpy()
+    palette = sixel.build_palette(rgb, "adaptive", 256)
+    lut = sixel.ColorLookupTable(palette)
+    mode = sixel.resolve_auto(len(palette), rgb.shape[1], rgb.shape[0])
+    idx = sixel.apply_dither(rgb.copy(), palette, lut, mode)
+    if not text.startswith(f'\x1bPq"1;1;{rgb.shape[1]};{rgb.shape[0]}') or \
+            not text.endswith(sixel._emit_bands_py(idx) + "\x1b\\"):
+        raise AssertionError("sixel: the library's bands are not the "
+                             "Python emitter's")
+    print(f"phase 27 sixel of {SLICE10['sixel_side']}^2: {len(text)} chars, "
+          "bands equal to the Python emitter's; no Python fallback ran in "
+          "phase 27")
+    return calls
+
+
+def _event_ms(fn) -> float:
+    """ms a call by CUDA events, phase 26's call being the warm-up: one
+    call, and as many as fit in about half a second when it is short."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    once = start.elapsed_time(stop)
+    if once > 100.0:
+        return once
+    return _time_ms(fn, max(1, min(20, int(500.0 / max(once, 1e-3)))))
+
+
+def _slice10_times(card, device_calls, host_calls):
+    """Phase 28: each call of phases 26-27 timed: CUDA events after a
+    warm-up for the device paths, the best host clock of 3 for the host
+    paths."""
+    for name, fn in device_calls:
+        print(f"[{card}] phase 28 {name}: {_event_ms(fn):.4f} ms "
+              "(CUDA events)")
+    for name, fn in host_calls:
+        print(f"[{card}] phase 28 {name}: {_host_ms(fn):.4f} ms "
+              "(host clock, best of 3)")
+
+
+def _slice10_phases(card) -> int:
+    """Phases 26-28. Returns K1's launches of phase 26."""
+    t0 = time.perf_counter()
+    k1, device_calls = _slice10_device(card)
+    t1 = time.perf_counter()
+    host_calls = _slice10_host(card)
+    t2 = time.perf_counter()
+    _slice10_times(card, device_calls, host_calls)
+    print(f"phases 26-28: {t1 - t0:.1f} + {t2 - t1:.1f} + "
+          f"{time.perf_counter() - t2:.1f} s")
+    return k1
+
+
+def _profile_one(card, name, fn, reps: int = 3) -> None:
+    """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: device
+    ms a call (all its kernels and copies), the host clock beside it, and
+    the five rows with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    total = sum(r[0] for r in rows) / reps / 1e3
+    print(f"[{card}] profile {name}: {total:.3f} ms of device time a "
+          f"call, {host:.3f} ms on the host clock (profiled)")
+    for us, count, key in rows[:5]:
+        print(f"    {us / reps / 1e3:8.3f} ms {count // reps:4d} a call "
+              f"{key[:100]}")
+
+
+def calls_profile() -> int:
+    """--profile: where the device time of each phase-20 call and of
+    phase 26's device calls goes (the QR decode, seconds of host scan a
+    call, left out)."""
     from zignal_tpu_torch import ImageBatch
 
     card = _card()
     print(card)
-    n, b, reps = GEO["side"], GEO["batch"], 3
+    n, b = GEO["side"], GEO["batch"]
     x = np.random.default_rng(0).integers(0, 256, (b, n, n, 3), np.uint8)
     ib = ImageBatch(x, device="cuda")
     calls = [(name, fn) for name, fn, _ in _geometry_calls(n)]
     calls += _metric_calls(calls[7][1](ib))  # against linear(0, 9)
     for name, fn in calls:
-        fn(ib)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn(ib)
-            torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) * 1e3 / reps
-        rows = sorted(((e.device_time_total, e.count, e.key)
-                       for e in prof.key_averages()), reverse=True)
-        total = sum(r[0] for r in rows) / reps / 1e3
-        print(f"[{card}] profile {name}: {total:.3f} ms of device time a "
-              f"call, {host:.3f} ms on the host clock (profiled)")
-        for us, count, key in rows[:5]:
-            print(f"    {us / reps / 1e3:8.3f} ms {count // reps:4d} a call "
-                  f"{key[:100]}")
+        _profile_one(card, name, lambda fn=fn: fn(ib))
+    _, slice10 = _slice10_device(card)
+    for name, fn in slice10:
+        if not name.startswith("qrcode_decode"):
+            _profile_one(card, name, fn)
     return 0
 
 
@@ -2072,7 +2423,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if "--profile" in sys.argv[1:]:
-        return geometry_profile()
+        return calls_profile()
     if "--ops" in sys.argv[1:]:
         return transcendental_rates()
     if "--times" in sys.argv[1:]:
@@ -2191,7 +2542,8 @@ def main() -> int:
     t0 = time.perf_counter()
     k1_s9, k4_s9 = _config_phases(card)
     print(f"phases 23-25: {time.perf_counter() - t0:.1f} s")
-    k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9
+    k1_s10 = _slice10_phases(card)
+    k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9 + k1_s10
     k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9
     print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {

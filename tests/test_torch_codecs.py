@@ -14,7 +14,6 @@ import pytest
 from zignal_tpu import codecs as jc
 from zignal_tpu.native import get_lib as jax_lib
 
-import zignal_tpu_torch as zp
 from zignal_tpu_torch import codecs as pc
 from zignal_tpu_torch import native
 
@@ -111,15 +110,6 @@ def test_detect_format_matches_jax():
     for path in ("a.PNG", "b.jpeg", "c.dib", "d.gif", "e.txt"):
         assert _value(pc.detect_from_path(path)) == \
             _value(jc.detect_from_path(path))
-
-
-def test_gif_raises_naming_the_roadmap_item(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
-        pc.load_array_from_bytes(b"GIF89a" + bytes(32))
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
-        pc.save_array(str(tmp_path / "x.gif"), _rand((4, 4, 3), 4))
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
-        zp.Image(4, 4, device="cpu").save(str(tmp_path / "y.gif"))
 
 
 def test_malformed_jpeg_streams_raise_as_jax_does():

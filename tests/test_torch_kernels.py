@@ -912,3 +912,91 @@ def test_pca_arrays_on_the_card_within_bound_of_the_cpu(cuda):
     proj = p.transform_array(x.to(cuda))
     assert proj.device.type == "cuda"
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+# -- colormaps, flood fill, Perlin noise, QR and the terminal on the card -----
+
+def test_colormaps_on_the_card_equal_the_cpu(cuda):
+    """A true division by a range tensor on the card (no reciprocal), the
+    f32 reciprocal of a fixed range where the batch asks for it: every
+    index is the CPU's."""
+    from zignal_tpu_torch import Colormap, Image
+
+    x = _u8((3, 70, 90, 3), 90, "cpu")
+    x[0] = x[0] % 51
+    for name in ("jet", "heat", "turbo", "viridis", "inferno"):
+        for lo, hi in ((None, None), (13, 200), (0, 50)):
+            cm = Colormap(name, lo, hi)
+            got = ImageBatch(x, device=cuda).apply_colormap(cm)
+            want = ImageBatch(x, device="cpu").apply_colormap(cm)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.device_array().cpu(), want.device_array())
+            img = Image.from_numpy(x[0].numpy().copy(), device=cuda)
+            assert img.apply_colormap(cm).device.type == "cuda"
+            assert np.array_equal(
+                img.apply_colormap(cm).to_numpy(),
+                Image.from_numpy(x[0].numpy().copy(), device="cpu")
+                .apply_colormap(cm).to_numpy())
+
+
+def test_flood_fill_on_the_card_equals_the_cpu(cuda):
+    from zignal_tpu_torch import Image
+    from zignal_tpu_torch.ops import flood_fill as ff
+
+    x = (_u8((2, 64, 80, 3), 91, "cpu") // 64) * 64
+    for neighbor in (False, True):
+        for conn in (4, 8):
+            got = ff.flood_region(x.to(cuda), 5, 7, 2, conn, neighbor)
+            want = ff.flood_region(x, 5, 7, 2, conn, neighbor)
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+            out = ImageBatch(x, device=cuda).flood_fill(5, 7, (1, 2, 3), 1.5,
+                                                        conn, int(neighbor))
+            ref = ImageBatch(x, device="cpu").flood_fill(5, 7, (1, 2, 3),
+                                                         1.5, conn,
+                                                         int(neighbor))
+            assert torch.equal(out.device_array().cpu(), ref.device_array())
+    img = Image.from_numpy(x[0].numpy().copy(), device=cuda)
+    cpu = Image.from_numpy(x[0].numpy().copy(), device="cpu")
+    img.flood_fill(0, 0, (9, 9, 9), 10.0, 8)
+    cpu.flood_fill(0, 0, (9, 9, 9), 10.0, 8)
+    assert np.array_equal(img.to_numpy(), cpu.to_numpy())
+
+
+def test_perlin_array_on_the_card_equals_the_cpu(cuda):
+    from zignal_tpu_torch import perlin_array
+
+    yy, xx = np.mgrid[0:128, 0:96].astype(np.float32) * 0.37
+    got = perlin_array(xx, yy, 0.5, octaves=4, frequency=0.1, device=cuda)
+    want = perlin_array(xx, yy, 0.5, octaves=4, frequency=0.1, device="cpu")
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+def test_qr_binarize_on_the_card_equals_the_cpu(cuda):
+    from zignal_tpu_torch import Image, qrcode_decode, qrcode_encode
+    from zignal_tpu_torch.qrcode import decoder
+
+    code = qrcode_encode("on the card", module_size=3, device="cpu")
+    plane = torch.from_numpy(code.to_numpy()[..., 0].copy())
+    assert np.array_equal(decoder._binarize(plane.to(cuda)),
+                          decoder._binarize(plane))
+    blank = torch.full((64, 64), 255, dtype=torch.uint8)  # the Otsu branch
+    assert np.array_equal(decoder._binarize(blank.to(cuda)),
+                          decoder._binarize(blank))
+    img = Image.from_numpy(code.to_numpy().copy(), device=cuda)
+    got, want = qrcode_decode(img), qrcode_decode(code)
+    assert got.text == want.text == "on the card"
+    assert got.corners == want.corners
+
+
+def test_kitty_scaling_launches_k1_once(cuda):
+    from zignal_tpu_torch import Image
+    from zignal_tpu_torch.terminal import kitty_from_image
+
+    arr = np.random.default_rng(92).integers(0, 256, (96, 128, 3), np.uint8)
+    img = Image.from_numpy(arr, device=cuda)
+    before = (fp.LAUNCHES, fc.LAUNCHES, cc.LAUNCHES, sc.LAUNCHES)
+    got = kitty_from_image(img, width=64)
+    assert (fp.LAUNCHES, fc.LAUNCHES, cc.LAUNCHES, sc.LAUNCHES) == \
+        (before[0] + 1,) + before[1:]
+    assert got == kitty_from_image(
+        Image.from_numpy(arr.copy(), device="cpu"), width=64)

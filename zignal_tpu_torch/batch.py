@@ -6,9 +6,9 @@ resize -> blur -> Oklab path, the windowed filters (convolutions,
 clamped-window and order-statistic blurs, morphology), the edge detectors,
 the pointwise ops (convert, invert, flips, fill, set_border, blend), the
 histogram and threshold ops, the geometric ops (rotate, crop, extract,
-warp, insert), motion blur and the metrics (psnr, ssim, mean_pixel_error,
-diff). The ops take ``[B, H, W, C]`` (or the ``[B, H, W]`` gray plane)
-directly: nothing is mapped image by image, and the geometric ops' host
+warp, insert), motion blur, the metrics (psnr, ssim, mean_pixel_error,
+diff), colormaps and flood fill. The ops take ``[B, H, W, C]`` (or the
+``[B, H, W]`` gray plane) directly: nothing is mapped image by image, and the geometric ops' host
 coordinates are shared by the batch.
 
 The device is always the caller's choice (``device=``); nothing here
@@ -355,6 +355,20 @@ class ImageBatch:
             (rect.left, rect.top, rect.right, rect.bottom), float(angle),
             Interpolation(method), mode, compiled=True))
 
+    def flood_fill(self, row: int, col: int, fill_value,
+                   threshold: float = 0.0, connectivity: int = 4,
+                   mode=None) -> "ImageBatch":
+        """Flood fill every image from the same seed, the functional mirror
+        of Image.flood_fill (reference: image.zig:831; flood_fill.zig): one
+        region mask [B, H, W] grown on the batch's device."""
+        from .ops.flood_fill import fill_region
+
+        px = torch.tensor(_parse_color(fill_value, self._space),
+                          dtype=torch.uint8, device=self._dev.device)
+        mask = fill_region(self._dev, row, col, threshold, connectivity,
+                           mode)
+        return self._wrap(torch.where(mask[..., None], px, self._dev))
+
     def motion_blur(self, config) -> "ImageBatch":
         """Linear or radial motion blur of every image: an axis-aligned
         linear blur is the separable kernel on the card; the others gather
@@ -551,6 +565,17 @@ class ImageBatch:
         if self._space == "rgba":
             out[..., 3] = self._dev[..., 3]
         return self._wrap(out)
+
+    def apply_colormap(self, colormap) -> "ImageBatch":
+        """Map every image's intensities through a colormap -> an RGB batch;
+        the auto range is each image's own min and max, and a fixed range
+        is rounded as the JAX package's compiled batch op rounds it."""
+        from .colormaps import Colormap
+
+        if not isinstance(colormap, Colormap):
+            raise TypeError("apply_colormap expects a Colormap")
+        return self._wrap(colormap.apply_plane(self._gray_plane(),
+                                               compiled=True), "rgb")
 
     def flip_left_right(self) -> "ImageBatch":
         return self._wrap(torch.flip(self._dev, (2,)))

@@ -1,8 +1,7 @@
-"""Host-side codecs: PNG, JPEG and BMP with a uniform surface (reference:
-src/codecs/ and src/image/format.zig magic-byte sniffing).
+"""Host-side codecs: PNG, JPEG, BMP and GIF with a uniform surface
+(reference: src/codecs/ and src/image/format.zig magic-byte sniffing).
 
-Copied from zignal_tpu/codecs/__init__.py but for GIF, whose codec needs
-the dither and quantize ops (ROADMAP item 12): a GIF file or path raises.
+Copied from zignal_tpu/codecs/__init__.py.
 """
 
 from __future__ import annotations
@@ -12,14 +11,11 @@ import os
 
 import numpy as np
 
-from . import bmp, jpeg, png
+from . import bmp, gif, jpeg, png
 
 __all__ = ["ImageFormat", "detect_format", "detect_from_path",
            "load_array", "load_array_from_bytes", "save_array", "png",
-           "jpeg", "bmp"]
-
-_NO_GIF = ("GIF is not ported yet: its codec comes with the dither and "
-           "quantize ops (ROADMAP item 12)")
+           "jpeg", "bmp", "gif"]
 
 
 class ImageFormat(enum.Enum):
@@ -73,7 +69,7 @@ def load_array_from_bytes(data: bytes):
     if fmt is ImageFormat.BMP:
         return bmp.load_from_bytes(data)
     if fmt is ImageFormat.GIF:
-        raise ValueError(_NO_GIF)
+        return gif.load_from_bytes(data)
     raise ValueError("unsupported or unrecognized image format")
 
 
@@ -91,4 +87,4 @@ def save_array(path: str, arr, **options) -> None:
     elif fmt is ImageFormat.BMP:
         bmp.save(path, arr, **options)
     else:
-        raise ValueError(_NO_GIF)
+        gif.save(path, arr, **options)

@@ -19,7 +19,11 @@ ops as ``ImageBatch`` on a batch of one (``insert`` too, written back into
 the host array). ``resize`` always runs on the device: the JAX package's
 host placement is not ported. The host ops (``fill``, ``set_border``,
 ``invert``, the flips, ``blend``, the host ``convert``, ``psnr``,
-``mean_pixel_error``, ``diff``) are the JAX package's numpy code.
+``mean_pixel_error``, ``diff``) are the JAX package's numpy code, and so
+are the terminal renderings but for kitty's and iTerm2's scaling, which is
+``resize``. ``flood_fill`` grows its region on the device at every size,
+where the JAX package takes a host loop up to 4096 pixels; both reach the
+same fixed point.
 """
 
 from __future__ import annotations
@@ -215,7 +219,8 @@ class Image:
 
     @classmethod
     def load(cls, path: str, *, device) -> "Image":
-        """Load a PNG/JPEG/BMP file; dtype follows the file's content
+        """Load a PNG/JPEG/BMP/GIF file (a GIF's first frame, as Rgba);
+        dtype follows the file's content
         (reference: src/image.zig:247; bindings load)."""
         from .codecs import load_array
 
@@ -230,7 +235,7 @@ class Image:
         return cls._from_host(arr, _CHANNELS_SPACE[arr.shape[2]], device)
 
     def save(self, path: str, **options) -> None:
-        """Save to PNG/JPEG/BMP chosen by extension
+        """Save to PNG/JPEG/BMP/GIF chosen by extension
         (reference: src/image.zig:279)."""
         from .codecs import save_array
 
@@ -344,8 +349,9 @@ class Image:
     def __format__(self, spec):
         if spec in ("", "none"):
             return repr(self)
-        raise ValueError("terminal display formats are not ported yet "
-                         "(ROADMAP item 16)")
+        from .terminal.display import format_image
+
+        return format_image(self, spec)
 
     def __len__(self):
         return self.rows * self.cols
@@ -720,6 +726,39 @@ class Image:
         return self._first(self._batch().shen_castan(
             smooth, window_size, high_ratio, low_rel, bool(hysteresis),
             bool(use_nms)))
+
+    def display(self, format: str = "auto") -> str:
+        """Terminal rendering escape sequence (reference: image.zig:462;
+        image/display.zig). Formats: auto/kitty/iterm2/sixel/sgr/braille;
+        kitty and iterm2 scale through ``resize`` on the image's
+        device."""
+        from .terminal.display import format_image
+
+        return format_image(self, format)
+
+    def apply_colormap(self, colormap) -> "Image":
+        """Map intensities through a colormap -> RGB image on the image's
+        device (reference: image.zig:1190; colormaps.zig)."""
+        from .colormaps import Colormap
+
+        if not isinstance(colormap, Colormap):
+            raise TypeError("apply_colormap expects a Colormap")
+        return Image._from_device(colormap.apply_plane(self._gray_u8_plane()),
+                                  "rgb")
+
+    def flood_fill(self, row: int, col: int, fill_value, threshold: float = 0.0,
+                   connectivity: int = 4, mode=None) -> None:
+        """In-place flood fill from a seed pixel (reference: image.zig:831;
+        flood_fill.zig): the region grows on the image's device
+        (ops/flood_fill.py) at every size, and its pixels are written into
+        the host array."""
+        from .ops.flood_fill import fill_region
+
+        fill_px = np.array(_parse_color(fill_value, self._space),
+                           dtype=np.uint8)
+        mask = fill_region(self._device(), row, col, threshold, connectivity,
+                           mode)
+        self._host()[mask.cpu().numpy()] = fill_px
 
     # -- thresholding & morphology -----------------------------------------
 

@@ -52,6 +52,13 @@ _SIGNATURES = {  # name: (restype, argtypes)
     "zt_jpeg_encode_scan": (_N, [_P, _N, _N, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
                                  _P, _P, _P, _N]),
+    "zt_gif_lzw_decode": (_N, [_P, _N, _P, _N, ctypes.c_int]),
+    "zt_gif_lzw_encode": (_N, [_P, _N, _P, _N, ctypes.c_int]),
+    "zt_median_cut": (_N, [_P, _N, _N, _P]),
+    "zt_clt_build": (ctypes.c_int, [_P, _N, _P]),
+    "zt_sixel_emit": (_N, [_P, _N, _N, _P, _N]),
+    "zt_dither_error_diffusion": (ctypes.c_int, [_P, _N, _N, _P, ctypes.c_int,
+                                                 _P, ctypes.c_int]),
 }
 
 
