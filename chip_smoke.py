@@ -162,6 +162,27 @@ Phases (any failure raises and exits non-zero):
    a 512^2 image (its bands equal to the Python emitter's, run after);
 28. each call of phases 26-27 timed: CUDA events after a warm-up for the
    device paths, the best host clock of 3 for the host paths.
+29. the zignal-torch CLI on the card through cli.main.main, each command
+   also run with --device cpu on the same files (outputs and stdout
+   equal; FDM within phase 23's bound, the metrics within 1e-5
+   relative), the launch counts read around each: resize --scale 0.5 of
+   phase 16's 12 JPEGs (written without an extension, so the outputs are
+   config 1's 600x800 PNGs; K1 12 times) and with --filter lanczos (no
+   kernel), blur --type gaussian --sigma 2 (K4 12 times), pipeline of a
+   .zon recipe (resize 0.5 -> gaussian 2 -> sobel; K1 and K4 12 times
+   each), fdm of phase 23's 1024^2 source to its cast target, tile of 4
+   of the resized PNGs in each of the five modes, display --protocol
+   kitty --width 512 of the 1024^2 source (K1 once), blur of that source
+   (K4 once), diff and metrics of the source and its blurred copy, qr
+   encode -o and decode (the text must come back), info --stats and
+   version; then python3 -m zignal_tpu_torch.cli --device cuda resize in
+   a subprocess (its PNG equal to the CLI's); GlobalOptimizer(seed=7):
+   15 rounds of ask(8) told CUDA tensors, equal to the same rounds told
+   numpy; solve_assignment_problem of a seeded 256x256 Matrix equal to
+   scipy's linear_sum_assignment;
+30. each phase-29 command on the card timed, the best host clock of 3;
+   resize in ms an image and MPix/s beside phase 16's config 1, and its
+   split into Image.load, resize and save.
 The last two lines are a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
@@ -1037,7 +1058,8 @@ def _launched(fn, mod, label: str, times: int = 1):
 
 def _config1(card):
     """Phase 16: BASELINE config 1 on the card. Returns K1's and K4's
-    launches."""
+    launches, the corpus (JPEG bytes) and its single-image latency and
+    sustained MPix/s."""
     from zignal_tpu_torch import Image
     from zignal_tpu_torch.codecs import jpeg, png
     from zignal_tpu_torch.ops import fused_pipeline as fp
@@ -1086,6 +1108,8 @@ def _config1(card):
             once(jpg, "cuda")
         stream.append(time.perf_counter() - t0)
     mpix = h * w / 1e6
+    numbers = dict(latency_ms=1e3 * min(lat),
+                   mpix_s=n * mpix / min(stream))
     print(f"[{card}] config 1: single-image latency {1e3 * min(lat):.2f} ms "
           f"(best of 3: {', '.join(f'{1e3 * t:.2f}' for t in lat)}); "
           f"sustained {n * mpix / min(stream):.2f} MPix/s over {n} images "
@@ -1113,7 +1137,7 @@ def _config1(card):
     print(f"[{card}] config 1 split, median ms an image: " + ", ".join(
         f"{k} {np.median(v):.3f}" for k, v in split.items())
         + f" (sum {sum(np.median(v) for v in split.values()):.2f})")
-    return k1, k4
+    return k1, k4, corpus, numbers
 
 
 def _host_to_host(fn, reps: int = 3):
@@ -1299,13 +1323,14 @@ def _batch_members(card, rng):
 
 
 def _file_phases(card, rng):
-    """Phases 16-19. Returns (K1, K4) launches."""
+    """Phases 16-19. Returns (K1, K4) launches, config 1's corpus and its
+    numbers."""
     import tempfile
 
     from zignal_tpu_torch import native
 
     t0 = time.perf_counter()
-    k1, k4 = _config1(card)
+    k1, k4, corpus, numbers = _config1(card)
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         k1 += _files(card, tmp)
@@ -1315,7 +1340,7 @@ def _file_phases(card, rng):
     print(f"phases 16-19: config 1 {t1 - t0:.1f} s, files and loader "
           f"{t2 - t1:.1f} s, ImageBatch members {t3 - t2:.1f} s; the codec "
           f"library built in {native.BUILD_SECONDS:.1f} s")
-    return k1, k4
+    return k1, k4, corpus, numbers
 
 
 # -- geometric sampling, motion blur and the metrics (phases 20-22) ----------
@@ -1499,14 +1524,14 @@ def cast_target(h, w, seed=4):
     return np.clip(t, 0, 255).astype(np.uint8)
 
 
-def _fdm_close(label, got, want) -> int:
+def _fdm_close(label, got, want, phase: int = 23) -> int:
     """<= 1 u8 step at no more than FDM_SHARE of the values; returns the
     count of values that differ."""
     d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
     n = int((d != 0).sum())
     ok = d.max() <= 1 and n <= FDM_SHARE * d.size
-    print(f"phase 23 {label}: {n} of {d.size} values differ from the CPU, "
-          f"max {int(d.max())} {'ok' if ok else 'FAIL'}")
+    print(f"phase {phase} {label}: {n} of {d.size} values differ from the "
+          f"CPU, max {int(d.max())} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label} on the card differs from the CPU")
     return n
@@ -2089,6 +2114,304 @@ def _slice10_phases(card) -> int:
     return k1
 
 
+# -- the CLI and optimization/ (phases 29-30) --------------------------------
+
+CLI = dict(side=1024, display=512, tiles=4, rounds=15, asks=8, hungarian=256)
+TILE_MODES = ("square", "horizontal", "vertical", "grid", "factors")
+QR_TEXT = "zignal-torch on the card"
+RECIPE = (".{ .steps = .{ .{ .resize = .{ .scale = 0.5 } }, "
+          ".{ .blur = .{ .type = .gaussian, .sigma = 2.0 } }, "
+          ".{ .edges = .{ .filter = .sobel } } } }")
+
+
+def _cli(argv, device) -> str:
+    """``zignal-torch --device DEVICE ARGV`` in this process (warnings and
+    errors logged); returns its stdout and raises unless it exits with
+    0."""
+    import contextlib
+    import io
+
+    from zignal_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--device", device, "--log-level", "warn", *argv])
+    if rc != 0:
+        raise AssertionError(f"zignal-torch {' '.join(argv)} on {device}: "
+                             f"exit code {rc}")
+    return out.getvalue()
+
+
+def _outputs(d) -> dict:
+    import os
+
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def _cli_commands(tmp, photos, src, tgt):
+    """(name, argv of the card's run, (K1, K4) launches on the card) of
+    every phase-29 command, in order; ``{out}`` is the device's own output
+    directory. Later commands read earlier ones' outputs on the card."""
+    import os
+
+    recipe = os.path.join(tmp, "recipe.zon")
+    with open(recipe, "w") as f:
+        f.write(RECIPE)
+    card = os.path.join(tmp, "cuda")
+    resized = [os.path.join(card, "resize", os.path.basename(p) +
+                            "_resized.png") for p in photos[:CLI["tiles"]]]
+    blurred = os.path.join(card, "blur-src", "blurred.png")
+    n = len(photos)
+    cmds = [
+        ("resize", ["resize", *photos, "--scale", "0.5", "-o", "{out}/"],
+         (n, 0)),
+        ("resize-lanczos", ["resize", *photos, "--scale", "0.5", "--filter",
+                            "lanczos", "-o", "{out}/"], (0, 0)),
+        ("blur", ["blur", *photos, "--type", "gaussian", "--sigma", "2",
+                  "-o", "{out}/"], (0, n)),
+        ("pipeline", ["pipeline", recipe, *photos, "-o", "{out}/"], (n, n)),
+        ("fdm", ["fdm", src, tgt, "{out}/fdm.png"], (0, 0)),
+    ]
+    cmds += [(f"tile-{m}", ["tile", *resized, "--mode", m, "-o",
+                            "{out}/tile.png"], (0, 0)) for m in TILE_MODES]
+    cmds += [
+        ("display", ["display", src, "--protocol", "kitty", "--width",
+                     str(CLI["display"])], (1, 0)),
+        ("blur-src", ["blur", src, "--sigma", "2", "-o",
+                      "{out}/blurred.png"], (0, 1)),
+        ("diff", ["diff", src, blurred, "-o", "{out}/diff.png"], (0, 0)),
+        ("metrics", ["metrics", src, blurred], (0, 0)),
+        ("qr-encode", ["qr", "encode", QR_TEXT, "-o", "{out}/qr.png"],
+         (0, 0)),
+        ("qr-decode", ["qr", "decode", os.path.join(card, "qr-encode",
+                                                    "qr.png")], (0, 0)),
+        ("info", ["info", *photos[:2], src, "--stats"], (0, 0)),
+        ("version", ["version"], (0, 0)),
+    ]
+    return cmds
+
+
+def _metric_numbers(text) -> dict:
+    import re
+
+    return {k: float(v) for k, v in
+            re.findall(r"^(\w+): (-?[\d.]+|inf)", text, re.MULTILINE)}
+
+
+def _cli_device(card, corpus, tmp):
+    """Phase 29: every CLI command on the card, the launch counts read
+    around each, its files and stdout against the same command with
+    ``--device cpu``; the module entry in a subprocess; optimization/ on
+    the card. Returns (K1, K4) launches and what phase 30 times."""
+    import os
+
+    from zignal_tpu_torch.codecs import load_array, save_array
+
+    n = CLI["side"]
+    photos = []
+    for k, jpg in enumerate(corpus):
+        # no extension: the CLI reads the format from the bytes and names
+        # its outputs .png, so resize is config 1's JPEG -> PNG
+        photos.append(os.path.join(tmp, f"photo{k:02d}"))
+        with open(photos[-1], "wb") as f:
+            f.write(jpg)
+    src, tgt = os.path.join(tmp, "src.png"), os.path.join(tmp, "tgt.png")
+    save_array(src, synth_photo(n, n, seed=3))
+    save_array(tgt, cast_target(n, n))
+    k1 = k4 = 0
+    timed = []
+    for name, argv, want in _cli_commands(tmp, photos, src, tgt):
+        outs = {d: os.path.join(tmp, d, name) for d in ("cuda", "cpu")}
+        for d in outs.values():
+            os.makedirs(d)
+        args = {d: [a.replace("{out}", outs[d]) for a in argv]
+                for d in outs}
+        counts = _counts()
+        t0 = time.perf_counter()
+        text = _cli(args["cuda"], "cuda")
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        got = tuple(a - b for a, b in zip(_counts(), counts))
+        if got != (want[0], 0, 0, want[1]):
+            raise AssertionError(f"phase 29 {name}: launches (K1, K2, K3, "
+                                 f"K4) {got}, not {want}")
+        k1, k4 = k1 + got[0], k4 + got[3]
+        text_cpu = _cli(args["cpu"], "cpu")
+        files, files_cpu = _outputs(outs["cuda"]), _outputs(outs["cpu"])
+        if sorted(files) != sorted(files_cpu):
+            raise AssertionError(f"phase 29 {name}: files {sorted(files)} "
+                                 f"on the card, {sorted(files_cpu)} on the "
+                                 "CPU")
+        if name == "fdm":
+            _fdm_close("zignal-torch fdm", load_array(
+                os.path.join(outs["cuda"], "fdm.png")), load_array(
+                os.path.join(outs["cpu"], "fdm.png")), phase=29)
+        elif files != files_cpu:
+            raise AssertionError(f"phase 29 {name}: the card's files differ "
+                                 "from the CPU's")
+        if name == "metrics":
+            got_m, want_m = _metric_numbers(text), _metric_numbers(text_cpu)
+            if sorted(got_m) != ["mean_pixel_error", "psnr", "ssim"] or any(
+                    abs(got_m[k] - want_m[k]) > METRIC_REL * abs(want_m[k])
+                    for k in want_m):
+                raise AssertionError(f"phase 29 metrics: {got_m} on the "
+                                     f"card, {want_m} on the CPU")
+        elif text.replace(outs["cuda"], "") != \
+                text_cpu.replace(outs["cpu"], ""):
+            raise AssertionError(f"phase 29 {name}: stdout differs from "
+                                 "the CPU's")
+        if name == "qr-decode" and repr(QR_TEXT) not in text:
+            raise AssertionError(f"phase 29 qr decode: {text!r}")
+        if name == "version" and "zignal_tpu_torch" not in text:
+            raise AssertionError(f"phase 29 version: {text!r}")
+        size = sum(map(len, files.values()))
+        print(f"phase 29 zignal-torch {name}: K1 {got[0]}, K4 {got[3]} "
+              f"launches; {len(files)} files ({size / 1e6:.2f} MB) and "
+              f"{len(text)} chars of stdout, "
+              + ("metrics within 1e-5 relative of" if name == "metrics"
+                 else "equal to") + " --device cpu")
+        timed.append((name, lambda a=args["cuda"]: _cli(a, "cuda"),
+                      first_ms))
+    _cli_module_entry(photos[0], os.path.join(tmp, "cuda", "resize"), tmp)
+    _optimization_on_card()
+    return (k1, k4), timed, photos
+
+
+def _cli_module_entry(photo, resized, tmp):
+    """``python3 -m zignal_tpu_torch.cli --device cuda resize`` in a
+    subprocess (no jax on this machine): its PNG equals phase 29's."""
+    import os
+
+    out = os.path.join(tmp, "module-entry.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "zignal_tpu_torch.cli", "--device", "cuda",
+         "resize", photo, "--scale", "0.5", "-o", out],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"python3 -m zignal_tpu_torch.cli: exit code "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out, "rb") as f, open(os.path.join(
+            resized, os.path.basename(photo) + "_resized.png"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("the module entry's PNG differs from "
+                                 "phase 29's")
+    logged = " | ".join(proc.stderr.splitlines()[:2])
+    print(f"phase 29 python3 -m zignal_tpu_torch.cli --device cuda resize: "
+          f"exit code 0 in {time.perf_counter() - t0:.1f} s, its PNG equal "
+          f"to phase 29's; it logged: {logged}")
+
+
+def _optimization_on_card():
+    """``GlobalOptimizer.tell`` with CUDA tensors equal to numpy, and the
+    assignment solver against scipy."""
+    from scipy.optimize import linear_sum_assignment
+
+    from zignal_tpu_torch import (GlobalOptimizer, Matrix,
+                                  solve_assignment_problem)
+
+    runs = []
+    for on_card in (True, False):
+        opt = GlobalOptimizer([(-5, 5), (-5, 5)], seed=7)
+        asked = []
+        for _ in range(CLI["rounds"]):
+            X = opt.ask(CLI["asks"])
+            asked.append(X)
+            if on_card:
+                d = torch.tensor(X, dtype=torch.float64, device="cuda") - 1.5
+                Y = (d * d).sum(dim=1)
+            else:
+                d = np.asarray(X) - 1.5
+                Y = (d * d).sum(axis=1)
+            opt.tell(X, Y)
+        runs.append((asked, opt.best(), opt.num_evaluations))
+    if runs[0] != runs[1]:
+        raise AssertionError("GlobalOptimizer: tell with CUDA tensors "
+                             "diverged from tell with numpy")
+    (x, y), evals = runs[0][1], runs[0][2]
+    print(f"phase 29 GlobalOptimizer(seed=7): {CLI['rounds']} rounds of "
+          f"ask({CLI['asks']}) told CUDA f64 tensors, every ask and the best "
+          f"equal to numpy's; {evals} evaluations, best {y:.3e} at "
+          f"({x[0]:.4f}, {x[1]:.4f})")
+    m = CLI["hungarian"]
+    c = np.random.default_rng(29).random((m, m)) * 100
+    t0 = time.perf_counter()
+    got = solve_assignment_problem(Matrix.from_numpy(c))
+    dt = time.perf_counter() - t0
+    ri, ci = linear_sum_assignment(c)
+    want = float(c[ri, ci].sum())
+    if got.assignments != ci.tolist() or \
+            abs(got.total_cost - want) > 1e-9 * want:
+        raise AssertionError(f"solve_assignment_problem {got.total_cost} "
+                             f"vs scipy {want}")
+    print(f"phase 29 solve_assignment_problem of a {m}x{m} Matrix: total "
+          f"{got.total_cost:.6f}, the assignment and total equal to "
+          f"scipy.optimize.linear_sum_assignment's, {dt:.2f} s on the host")
+
+
+def _cli_times(card, timed, count, config1):
+    """Phase 30: each phase-29 command on the card, the best host clock of
+    3 (phase 29's run and two more); resize beside phase 16's config 1."""
+    mpix = CONFIG1["rows"] * CONFIG1["cols"] / 1e6
+    for name, fn, first_ms in timed:
+        ms = min(first_ms, _host_ms(fn, reps=2))
+        extra = ""
+        if name in ("resize", "resize-lanczos", "blur", "pipeline"):
+            extra = (f", {ms / count:.2f} ms an image, "
+                     f"{count * mpix / (ms / 1e3):.2f} MPix/s")
+        if name == "resize":
+            extra += (f" (phase 16's config 1 in this run: "
+                      f"{config1['latency_ms']:.2f} ms single-image "
+                      f"latency, {config1['mpix_s']:.2f} MPix/s sustained)")
+        print(f"[{card}] phase 30 zignal-torch {name}: {ms:.2f} ms "
+              f"(host clock, best of 3){extra}")
+
+
+def _cli_resize_split(card, photos, tmp):
+    """Phase 30: ``resize_cmd``'s steps for each photo, each stage alone
+    with a synchronize after it: Image.load (file read and decode), resize
+    (upload and K1) and save (download, PNG encode, file write)."""
+    import os
+
+    from zignal_tpu_torch import Image
+
+    split = {k: [] for k in ("load", "resize", "save")}
+    for path in photos:
+        t0 = time.perf_counter()
+        img = Image.load(path, device="cuda")
+        t1 = time.perf_counter()
+        out = img.resize((img.rows // 2, img.cols // 2))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.save(os.path.join(tmp, "split.png"))
+        t3 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[key].append(1e3 * dt)
+    print(f"[{card}] phase 30 zignal-torch resize split, median ms an "
+          "image: " + ", ".join(f"{k} {np.median(v):.3f}"
+                                 for k, v in split.items())
+          + f" (sum {sum(np.median(v) for v in split.values()):.2f})")
+
+
+def _cli_phases(card, corpus, config1):
+    """Phases 29-30. Returns K1's and K4's launches of phase 29."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        (k1, k4), timed, photos = _cli_device(card, corpus, tmp)
+        t1 = time.perf_counter()
+        _cli_times(card, timed, len(photos), config1)
+        _cli_resize_split(card, photos, tmp)
+    print(f"phases 29-30: {t1 - t0:.1f} + {time.perf_counter() - t1:.1f} s")
+    return k1, k4
+
+
 def _profile_one(card, name, fn, reps: int = 3) -> None:
     """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: device
     ms a call (all its kernels and copies), the host clock beside it, and
@@ -2535,7 +2858,7 @@ def main() -> int:
     k3, k3p, (k1_ex, k4_ex) = _color_phases(card, rng)
     k1["bound_ms"], k1["bound_by"] = _k1_bound(16, n, o)
     k1_s4, k4_s4 = _slice4_phases(card, rng)
-    k1_s7, k4_s7 = _file_phases(card, rng)
+    k1_s7, k4_s7, corpus, config1 = _file_phases(card, rng)
     t0 = time.perf_counter()
     k4_s8 = _geometry_phases(card, rng)
     print(f"phases 20-22: {time.perf_counter() - t0:.1f} s")
@@ -2543,8 +2866,9 @@ def main() -> int:
     k1_s9, k4_s9 = _config_phases(card)
     print(f"phases 23-25: {time.perf_counter() - t0:.1f} s")
     k1_s10 = _slice10_phases(card)
-    k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9 + k1_s10
-    k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9
+    k1_s11, k4_s11 = _cli_phases(card, corpus, config1)
+    k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9 + k1_s10 + k1_s11
+    k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9 + k4_s11
     print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1000,3 +1000,74 @@ def test_kitty_scaling_launches_k1_once(cuda):
         (before[0] + 1,) + before[1:]
     assert got == kitty_from_image(
         Image.from_numpy(arr.copy(), device="cpu"), width=64)
+
+
+# -- the CLI and the optimizer on the card ------------------------------------
+
+def _cli_outputs(tmp_path, device, argv):
+    """Run the port's CLI on ``device`` with ``{out}`` a directory of its
+    own; returns the (K1, K4) launches and {file name: bytes}."""
+    from zignal_tpu_torch.cli.main import main
+
+    out = tmp_path / device
+    before = (fp.LAUNCHES, sc.LAUNCHES)
+    assert main(["--device", device] + [str(out) + "/" if a == "{out}"
+                                        else a for a in argv]) == 0
+    torch.cuda.synchronize()
+    launches = (fp.LAUNCHES - before[0], sc.LAUNCHES - before[1])
+    return launches, {p.name: p.read_bytes() for p in sorted(out.iterdir())}
+
+
+@pytest.fixture
+def photos(tmp_path):
+    from zignal_tpu_torch import Image
+
+    rng = np.random.default_rng(93)
+    paths = []
+    for k, (h, w) in enumerate(((120, 160), (97, 131), (64, 64))):
+        paths.append(str(tmp_path / f"in{k}.png"))
+        Image.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8),
+                         device="cpu").save(paths[-1])
+    return paths
+
+
+@pytest.mark.parametrize("argv,launches", [
+    (["resize", "--scale", "0.5"], (3, 0)),
+    (["resize", "--width", "50", "--filter", "lanczos"], (0, 0)),
+    (["blur", "--type", "gaussian", "--sigma", "2"], (0, 3)),
+    (["blur", "--type", "median", "--radius", "2"], (0, 0)),
+], ids=["resize-bilinear", "resize-lanczos", "blur-gaussian", "blur-median"])
+def test_cli_on_the_card_equals_the_cpu_and_launches_k1_k4(
+        cuda, tmp_path, photos, argv, launches):
+    argv = argv[:1] + photos + argv[1:] + ["-o", "{out}"]
+    got, on_card = _cli_outputs(tmp_path, "cuda", argv)
+    assert got == launches
+    assert on_card == _cli_outputs(tmp_path, "cpu", argv)[1]
+
+
+def test_cli_pipeline_on_the_card_equals_the_cpu(cuda, tmp_path, photos):
+    recipe = tmp_path / "recipe.zon"
+    recipe.write_text(".{ .steps = .{ .{ .resize = .{ .scale = 0.5 } }, "
+                      ".{ .blur = .{ .type = .gaussian, .sigma = 2.0 } }, "
+                      ".{ .edges = .{ .filter = .sobel } } } }")
+    argv = ["pipeline", str(recipe)] + photos + ["-o", "{out}"]
+    got, on_card = _cli_outputs(tmp_path, "cuda", argv)
+    assert got == (3, 3)
+    assert on_card == _cli_outputs(tmp_path, "cpu", argv)[1]
+
+
+def test_global_optimizer_tell_takes_a_cuda_tensor(cuda):
+    from zignal_tpu_torch import GlobalOptimizer
+
+    runs = []
+    for on_card in (True, False):
+        opt = GlobalOptimizer([(-5, 5), (-5, 5)], seed=7,
+                              num_random_samples=400)
+        for _ in range(6):
+            X = opt.ask(8)
+            Y = ((torch.tensor(X, dtype=torch.float64, device=cuda) - 1.5)
+                 ** 2).sum(dim=1)
+            opt.tell(X, Y if on_card else Y.cpu().numpy())
+        runs.append((opt.best(), opt.num_evaluations))
+    assert runs[0] == runs[1]
+    assert runs[0][1] == 48

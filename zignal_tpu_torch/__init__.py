@@ -11,7 +11,9 @@ insert, warp), motion blur, the image-quality metrics, Feature
 Distribution Matching, PCA and Matrix, the features (FAST, ORB, the
 Hamming matcher, the tracer), the Hough transform, Canvas with the
 bitmap fonts, the colormaps, flood fill, Perlin noise, QR encode and
-decode, and the terminal renderings (sixel, kitty, iTerm2, SGR, braille).
+decode, the terminal renderings (sixel, kitty, iTerm2, SGR, braille), the
+global optimizer and the assignment solver, and the ``zignal-torch`` CLI
+(``python -m zignal_tpu_torch.cli``, on the card unless ``--device cpu``).
 
 Imports torch and numpy only (never jax, never ``zignal_tpu``). Every
 entry that places data takes an explicit ``device=``; functions on
@@ -39,6 +41,8 @@ from .image import Image, PixelIterator
 from .io_pipeline import BatchLoader, load_image_batch
 from .matrix import Matrix
 from .motion_blur import MotionBlur
+from .optimization import (Assignment, GlobalOptimizer, OptimizationPolicy,
+                           optimize, solve_assignment_problem)
 from .pca import PCA
 from .perlin import perlin, perlin_array
 from .qrcode import EcLevel, QrDecodeResult
@@ -77,7 +81,8 @@ __all__ = [
     "RunningStats", "FeatureDistributionMatching", "PCA", "Matrix", "Canvas",
     "BitmapFont", "DrawMode", "Colormap", "AnimatedImage", "perlin",
     "perlin_array", "EcLevel", "QrDecodeResult", "qrcode_encode",
-    "qrcode_decode",
+    "qrcode_decode", "OptimizationPolicy", "Assignment",
+    "solve_assignment_problem", "optimize", "GlobalOptimizer",
     "Gray", "Rgb", "Rgba", "Hsl", "Hsv", "Lab", "Lch", "Lms", "Oklab",
     "Oklch", "Xyb", "Xyz", "Ycbcr", "__version__",
 ]
