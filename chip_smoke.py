@@ -183,6 +183,27 @@ Phases (any failure raises and exits non-zero):
 30. each phase-29 command on the card timed, the best host clock of 3;
    resize in ms an image and MPix/s beside phase 16's config 1, and its
    split into Image.load, resize and save.
+31. the mesh on the card: a process group of this process alone on NCCL
+   (the backend is checked), a 1-D and a 1x1 (batch, space) mesh, and
+   with every launch count and the collective counts zeroed just before
+   and read just after: parallel.sharded_pipeline of B=16 1024^2 ->
+   512^2 sigma 2 (K1), ImageBatch(..., mesh=).resize_blur_oklab (K1),
+   the dry run's chains (resize -> gaussian_blur -> Gray -> equalize on
+   the 1-D mesh, K1 and K4; gaussian_blur -> box_blur -> autocontrast on
+   the 1x1 mesh, K4), every spatial function on one 4096^2 RGB
+   synth_photo (spatial_gaussian_blur sigma 2 in all four borders, K4
+   each; spatial_op, box blur, sharpen, the adaptive threshold, Sobel,
+   dilate, erode, median, histogram, equalize, SSIM and the image's mean
+   and covariance), global_mean_cov of the batch and match_sharded of a
+   1024^2 source to phase 23's cast target; then each output against
+   the same call without a mesh: u8 and the Oklab equal, SSIM within
+   1e-5, the statistics within the CPU tests' bounds of f64, FDM within
+   1 u8 step at under 2 % of values;
+32. dryrun_multichip(1, device="cuda") in this process (NCCL) and
+   dryrun_multichip(4, device="cpu") on 4 spawned gloo CPU ranks;
+33. each phase-31 call timed with CUDA events after a warm-up, beside the
+   same call without a mesh (what the halo exchange and the crop cost on
+   one card).
 The last two lines are a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
@@ -2412,6 +2433,226 @@ def _cli_phases(card, corpus, config1):
     return k1, k4
 
 
+# -- the mesh: parallel/ and ImageBatch(mesh=) on NCCL (phases 31-33) -------
+
+MESH = dict(batch=16, side=1024, out=512, sigma=2.0, big=4096, fdm=1024)
+BORDERS = ("ZERO", "REPLICATE", "MIRROR", "WRAP")
+
+
+def _local(out):
+    """The rank's tensor(s) of a mesh result (the whole value on one rank):
+    a DTensor's local tensor, an ImageBatch's tensor."""
+    if isinstance(out, tuple):
+        return tuple(_local(o) for o in out)
+    if hasattr(out, "device_array"):
+        out = out.device_array()
+    return out.to_local() if hasattr(out, "to_local") else out
+
+
+def _mesh_calls(mesh, mesh2):
+    """(name, mesh call, the same call without a mesh, check) of phase 31:
+    the north star through sharded_pipeline and ImageBatch(mesh=), the
+    dry run's ImageBatch chains on the 1-D and the 1x1 mesh, every
+    spatial function on one MESH["big"]^2 RGB image (the Gaussian blur in
+    all four borders), the summed statistics and match_sharded."""
+    from zignal_tpu_torch import FeatureDistributionMatching, Gray, Image
+    from zignal_tpu_torch import ImageBatch, pipeline
+    from zignal_tpu_torch import parallel as P
+    from zignal_tpu_torch.enums import BorderMode
+    from zignal_tpu_torch.fdm import _unit
+    from zignal_tpu_torch.ops import binary, enhancement, integral, metrics
+    from zignal_tpu_torch.ops import order_stat
+    from zignal_tpu_torch.ops.convolution import gaussian_blur, \
+        sobel_magnitude
+    from zignal_tpu_torch.ops.tables import blur_radius
+
+    rng = np.random.default_rng(31)
+    n, o, sigma, big = MESH["side"], MESH["out"], MESH["sigma"], MESH["big"]
+    x = _u8(rng, (MESH["batch"], n, n, 3))
+    img = torch.from_numpy(synth_photo(big, big, seed=31)).cuda()
+    other = gaussian_blur(img, 1.5)
+    plane = img[..., 1].contiguous()
+    fplane = plane.to(torch.float32)
+    mask = (plane > 160).to(torch.uint8) * 255
+    src = synth_photo(MESH["fdm"], MESH["fdm"], seed=3)
+    tgt = Image.from_numpy(cast_target(512, 512), device="cuda")
+    ib, ib2 = ImageBatch(x, mesh=mesh), ImageBatch(x, mesh=mesh2)
+    plain = ImageBatch(x, device="cuda")
+    big_h = img.shape[0]
+
+    def chain(b):
+        return b.resize((o, o)).gaussian_blur(1.0).convert(Gray).equalize()
+
+    def chain2(b):
+        return b.gaussian_blur(1.0).box_blur(1).autocontrast(0.01)
+
+    def unit_stats():
+        v = _unit(img).reshape(-1, 3).double()
+        return v.mean(0), torch.cov(v.T)
+
+    def batch_stats():
+        v = x.reshape(-1, 3).double()
+        mean = v.mean(0)
+        return mean, v.T @ v / v.shape[0] - torch.outer(mean, mean)
+
+    def fdm_plain():
+        work = Image.from_numpy(src.copy(), device="cuda")
+        FeatureDistributionMatching().match(work, tgt)
+        return torch.from_numpy(work.to_numpy().copy())
+
+    calls = [
+        ("sharded_pipeline B=16 1024^2->512^2 s2",
+         lambda: P.sharded_pipeline(mesh, o, o, sigma)(x),
+         lambda: pipeline.resize_blur_oklab(x, o, o, sigma), "equal"),
+        ("ImageBatch(mesh).resize_blur_oklab",
+         lambda: ib.resize_blur_oklab((o, o), sigma=sigma),
+         lambda: plain.resize_blur_oklab((o, o), sigma=sigma), "equal"),
+        ("ImageBatch(mesh) resize->blur->Gray->equalize",
+         lambda: chain(ib), lambda: chain(plain), "equal"),
+        ("ImageBatch(1x1 mesh) blur->box_blur->autocontrast",
+         lambda: chain2(ib2), lambda: chain2(plain), "equal"),
+    ]
+    for name in BORDERS:
+        border = BorderMode[name]
+        calls.append((
+            f"spatial_gaussian_blur {big}^2 s{sigma} {name}",
+            lambda b=border: P.spatial_gaussian_blur(mesh, sigma, b)(img),
+            lambda b=border: gaussian_blur(img, sigma, b), "equal"))
+    calls += [
+        ("spatial_op(gaussian_blur s1.5, MIRROR)",
+         lambda: P.spatial_op(mesh, lambda t: gaussian_blur(t, 1.5),
+                              blur_radius(1.5))(img),
+         lambda: gaussian_blur(img, 1.5), "equal"),
+        ("spatial_box_blur r2", lambda: P.spatial_box_blur(mesh, big_h, 2)(img),
+         lambda: integral.box_blur(img, 2), "equal"),
+        ("spatial_sharpen r2", lambda: P.spatial_sharpen(mesh, big_h, 2)(img),
+         lambda: integral.sharpen(img, 2), "equal"),
+        ("spatial_adaptive_mean_threshold r6",
+         lambda: P.spatial_adaptive_mean_threshold(mesh, big_h, 6, 5.0)(plane),
+         lambda: binary.adaptive_mean_threshold(plane, 6, 5.0), "equal"),
+        ("spatial_sobel", lambda: P.spatial_sobel(mesh)(fplane),
+         lambda: sobel_magnitude(fplane), "equal"),
+        ("spatial_dilate 3x1", lambda: P.spatial_dilate(mesh, 3, 1)(mask),
+         lambda: binary.dilate(mask, 3, 1), "equal"),
+        ("spatial_erode 3x2", lambda: P.spatial_erode(mesh, 3, 2)(mask),
+         lambda: binary.erode(mask, 3, 2), "equal"),
+        ("spatial_median_blur r1", lambda: P.spatial_median_blur(mesh, 1)(img),
+         lambda: order_stat.median_blur(img, 1), "equal"),
+        ("spatial_histogram", lambda: P.spatial_histogram(mesh)(img),
+         lambda: binary.histogram256_multi(img), "equal"),
+        ("spatial_equalize", lambda: P.spatial_equalize(mesh)(img),
+         lambda: enhancement.equalize(img), "equal"),
+        ("spatial_ssim", lambda: P.spatial_ssim(mesh, big_h)(img, other),
+         lambda: metrics.ssim(img, other), "ssim"),
+        ("spatial_mean_cov_image", lambda: P.spatial_mean_cov_image(mesh)(img),
+         unit_stats, "unit_stats"),
+        ("global_mean_cov B=16 1024^2", lambda: P.global_mean_cov(mesh)(x),
+         batch_stats, "batch_stats"),
+        (f"match_sharded {MESH['fdm']}^2",
+         lambda: FeatureDistributionMatching().match_sharded(src, tgt, mesh),
+         fdm_plain, "fdm"),
+    ]
+    return calls
+
+
+def _mesh_check(name, kind, got, want) -> str:
+    """Phase 31's check of a mesh output against the call without a mesh
+    (the bounds of the CPU tests); raises on a miss."""
+    got, want = _local(got), _local(want)
+    if kind == "equal":
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        for g, w in pairs:
+            if g.shape != w.shape or g.dtype != w.dtype or \
+                    not torch.equal(g, w):
+                raise AssertionError(f"phase 31 {name}: differs without "
+                                     "the mesh")
+        return "equal"
+    if kind == "ssim":
+        err = float((got.double() - want.double()).abs().max())
+        if err >= 1e-5:
+            raise AssertionError(f"phase 31 {name}: |d| {err} >= 1e-5")
+        return f"|d| {err:.3g} (< 1e-5)"
+    if kind in ("unit_stats", "batch_stats"):
+        (mean, cov), (w_mean, w_cov) = got, want
+        tol = dict(rtol=1e-5, atol=1e-7) if kind == "unit_stats" \
+            else dict(rtol=1e-4, atol=1e-2)
+        ok = torch.allclose(mean.double(), w_mean, rtol=1e-5, atol=1e-7) \
+            and torch.allclose(cov.double(), w_cov, **tol)
+        if not ok:
+            raise AssertionError(f"phase 31 {name}: off the f64 reference")
+        err = float((cov.double() - w_cov).abs().max())
+        return f"within the f64 reference (cov |d| {err:.3g})"
+    diff = (got.cpu().int() - want.int()).abs()
+    share = float((diff > 0).double().mean())
+    if int(diff.max()) > 1 or share >= 0.02:
+        raise AssertionError(f"phase 31 {name}: {int(diff.max())} steps at "
+                             f"{share:.4%}")
+    return f"<= {int(diff.max())} u8 step at {share:.4%} of values (< 2 %)"
+
+
+def _mesh_phases(card):
+    """Phases 31-33: the mesh on this card (NCCL, a group of this process
+    alone), the dry runs, and the mesh calls timed beside the same calls
+    without a mesh. Returns K1's and K4's launches of phase 31."""
+    import torch.distributed as dist
+
+    from zignal_tpu_torch.entry import dryrun_multichip
+    from zignal_tpu_torch.parallel import _comm, make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, device="cuda")
+    mesh2 = make_mesh((1, 1), ("batch", "space"), device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the card's mesh runs {dist.get_backend()}")
+    print(f"phase 31: backend {dist.get_backend()}, meshes "
+          f"{tuple(mesh.shape)} {mesh.mesh_dim_names} and "
+          f"{tuple(mesh2.shape)} {mesh2.mesh_dim_names}")
+    calls = _mesh_calls(mesh, mesh2)
+    mods = _counted_modules()
+    fp, fc, cc, sc = mods
+    outs = []
+    torch.cuda.synchronize()
+    for m in mods:
+        m.LAUNCHES = 0
+    _comm.reset_counts()
+    for name, fn, _, _ in calls:
+        before = _counts()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        k1, k4 = fp.LAUNCHES - before[0], sc.LAUNCHES - before[3]
+        print(f"phase 31 {name}: K1 {k1}, K4 {k4} launches")
+    torch.cuda.synchronize()
+    launches, collectives = _counts(), dict(_comm.COLLECTIVES)
+    print(f"phase 31: K1 {launches[0]}, K2 {launches[1]}, K3 "
+          f"{launches[2]}, K4 {launches[3]} launches; collectives "
+          f"{collectives}")
+    if launches[1] or launches[2]:
+        raise AssertionError("K2 or K3 launched on the mesh path")
+    if not launches[0] or not launches[3]:
+        raise AssertionError("the mesh path did not reach K1 and K4")
+    for (name, _, plain, kind), got in zip(calls, outs):
+        print(f"phase 31 {name}: {_mesh_check(name, kind, got, plain())}")
+    t1 = time.perf_counter()
+
+    # 33. each call with and without the mesh, in turns
+    for name, fn, plain, _ in calls:
+        p1, m1 = _time_events(plain), _time_events(fn)
+        print(f"[{card}] phase 33 {name}: mesh {m1:.4f} ms, without "
+              f"{p1:.4f} ms (CUDA events)")
+    dist.destroy_process_group()
+    t2 = time.perf_counter()
+
+    # 32. the dry runs: one card on NCCL in this process, 4 gloo CPU ranks
+    dryrun_multichip(1, device="cuda")
+    print("phase 32: dryrun_multichip(1, device='cuda') ok")
+    dryrun_multichip(4, device="cpu")
+    print("phase 32: dryrun_multichip(4, device='cpu') ok")
+    print(f"phases 31-33: {t1 - t0:.1f} + {t2 - t1:.1f} + "
+          f"{time.perf_counter() - t2:.1f} s")
+    return launches[0], launches[3]
+
+
 def _profile_one(card, name, fn, reps: int = 3) -> None:
     """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: device
     ms a call (all its kernels and copies), the host clock beside it, and
@@ -2867,8 +3108,11 @@ def main() -> int:
     print(f"phases 23-25: {time.perf_counter() - t0:.1f} s")
     k1_s10 = _slice10_phases(card)
     k1_s11, k4_s11 = _cli_phases(card, corpus, config1)
-    k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9 + k1_s10 + k1_s11
-    k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9 + k4_s11
+    k1_s12, k4_s12 = _mesh_phases(card)
+    k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9 + k1_s10 + k1_s11 + \
+        k1_s12
+    k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9 + k4_s11 + \
+        k4_s12
     print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -394,8 +394,12 @@ def test_fdm_errors_and_sharded_path():
     gray = zp.Image.from_numpy(np.zeros((8, 8, 1), np.uint8), device=CPU)
     with pytest.raises(ValueError, match="color target"):
         fdm.match_batch(torch.zeros((1, 8, 8, 3), dtype=torch.uint8), gray)
+    with pytest.raises(ValueError, match="color target"):
+        fdm.match_sharded(synth_photo(8, 8), gray, None)
+    # the sharded path runs on a mesh (tests/test_torch_parallel.py
+    # ::test_match_sharded); its input is an image or a DTensor
     rgb = zp.Image.from_numpy(synth_photo(8, 8), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="a torch tensor or a numpy array"):
         fdm.match_sharded(None, rgb, None)
 
 

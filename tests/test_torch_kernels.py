@@ -1071,3 +1071,51 @@ def test_global_optimizer_tell_takes_a_cuda_tensor(cuda):
         runs.append((opt.best(), opt.num_evaluations))
     assert runs[0] == runs[1]
     assert runs[0][1] == 48
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A 1-D mesh of this process's card (a process group of one on
+    NCCL), torn down after the test."""
+    import torch.distributed as dist
+
+    from zignal_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, device="cuda")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_mesh_of_one_card_runs_nccl_and_k1_k4(nccl_mesh):
+    """The mesh paths on a 1-rank NCCL mesh equal the same calls without a
+    mesh, and reach K1 and K4."""
+    import torch.distributed as dist
+
+    from zignal_tpu_torch import parallel as P
+    from zignal_tpu_torch.ops.convolution import gaussian_blur
+
+    assert dist.get_backend() == "nccl"
+    img = _u8((256, 192, 3), 3, "cuda")
+    for border in BorderMode:
+        before = sc.LAUNCHES
+        got = P.spatial_gaussian_blur(nccl_mesh, 2.0, border)(img)
+        assert sc.LAUNCHES > before
+        assert torch.equal(got.to_local(), gaussian_blur(img, 2.0, border))
+    batch = _u8((4, 128, 128, 3), 4, "cuda")
+    before = fp.LAUNCHES
+    got = P.sharded_pipeline(nccl_mesh, 64, 64, 2.0)(batch)
+    assert fp.LAUNCHES == before + 1
+    assert torch.equal(got.to_local(),
+                       pipeline.resize_blur_oklab(batch, 64, 64, 2.0))
+    b = ImageBatch(batch, mesh=nccl_mesh)
+    assert torch.equal(b.resize_blur_oklab((64, 64)).to_local(),
+                       ImageBatch(batch, device="cuda")
+                       .resize_blur_oklab((64, 64)))
+    mesh2 = P.make_mesh((1, 1), ("batch", "space"), device="cuda")
+    b2 = ImageBatch(batch, mesh=mesh2)
+    plain = ImageBatch(batch, device="cuda")
+    for name, args in (("gaussian_blur", (1.5,)), ("box_blur", (2,)),
+                       ("equalize", ()), ("median_blur", (1,))):
+        assert torch.equal(getattr(b2, name)(*args).device_array()
+                           .to_local(),
+                           getattr(plain, name)(*args).device_array())

@@ -12,12 +12,15 @@ Distribution Matching, PCA and Matrix, the features (FAST, ORB, the
 Hamming matcher, the tracer), the Hough transform, Canvas with the
 bitmap fonts, the colormaps, flood fill, Perlin noise, QR encode and
 decode, the terminal renderings (sixel, kitty, iTerm2, SGR, braille), the
-global optimizer and the assignment solver, and the ``zignal-torch`` CLI
-(``python -m zignal_tpu_torch.cli``, on the card unless ``--device cpu``).
+global optimizer and the assignment solver, the ``zignal-torch`` CLI
+(``python -m zignal_tpu_torch.cli``, on the card unless ``--device cpu``),
+the mesh on ``torch.distributed`` (``parallel``, ``ImageBatch(mesh=)``),
+the entry points (``entry``) and the examples (``examples``).
 
 Imports torch and numpy only (never jax, never ``zignal_tpu``). Every
-entry that places data takes an explicit ``device=``; functions on
-tensors run on their input's device. On a CUDA tensor each ported TPU
+entry that places data takes an explicit ``device=`` (or a mesh, whose
+ranks each hold one device); functions on tensors run on their input's
+device. On a CUDA tensor each ported TPU
 kernel is a hand-written kernel (csrc/), built with nvcc at first use; on
 a CPU tensor it is the plain PyTorch version of the same arithmetic.
 """

@@ -239,14 +239,18 @@ class FeatureDistributionMatching:
         stage: the B covariances at once, B 3x3 SVDs on the host, the
         batched pixel map. ``batch`` is a torch tensor or an ImageBatch
         (run on its device) or a numpy array (``device=`` names where).
-        Returns a new ``[B, H, W, 3]`` u8 tensor on that device."""
+        Returns a new ``[B, H, W, 3]`` u8 tensor on that device (for an
+        ImageBatch on a 1-D mesh, a DTensor over the ranks' images)."""
         from .batch import ImageBatch
 
         self.set_target(target)
         if self._target_gray:
             raise ValueError("match_batch requires a color target")
         if isinstance(batch, ImageBatch):
-            x = batch.device_array()
+            if batch._space_sharded():
+                raise ValueError("match_batch takes whole images: a batch "
+                                 "on a 1-D (batch,) mesh at most")
+            x = batch._dev  # this rank's images on a mesh
         elif isinstance(batch, torch.Tensor):
             x = batch
         else:
@@ -263,15 +267,32 @@ class FeatureDistributionMatching:
         for i in range(b):
             ws[i], biases[i] = _map_for(means[i], covs[i], self._target_mean,
                                         self._target_s, self._target_u)
-        return _apply_map(xf, ws, biases).reshape(b, h, w, 3)
+        out = _apply_map(xf, ws, biases).reshape(b, h, w, 3)
+        return batch._per_image(out) if isinstance(batch, ImageBatch) else out
 
     def match_sharded(self, source_dev, target: Image, mesh,
                       axis_name: str = "batch"):
-        """FDM on an H-sharded image across a device mesh: not ported yet,
-        it comes with the port's ``parallel/`` (ROADMAP item 15)."""
-        raise NotImplementedError(
-            "match_sharded is not ported yet: it comes with the mesh and "
-            "sharding ops of parallel/ (ROADMAP item 15)")
+        """FDM of one ``[H, W, 3]`` u8 image with H sharded across ``mesh``
+        (every rank passes the whole image, or a DTensor sharded on H):
+        the source statistics summed over the ranks
+        (``parallel.spatial_mean_cov_image``), the 3x3 SVD on the host,
+        then ``update()``'s pixel map on each rank's rows. Returns a
+        DTensor over the ranks' shards; within f32 reduction order of the
+        single-device ``update()`` (reference: fdm.zig:141-272)."""
+        from .parallel import _comm, spatial_mean_cov_image
+
+        self.set_target(target)
+        if self._target_gray:
+            raise ValueError("match_sharded requires a color target")
+        mean_s, cov_s = spatial_mean_cov_image(mesh, axis_name)(source_dev)
+        w, bias = _map_for(mean_s.cpu().numpy().astype(np.float64),
+                           cov_s.cpu().numpy().astype(np.float64),
+                           self._target_mean, self._target_s,
+                           self._target_u)
+        dims = {axis_name: 0}
+        local = _comm.local_shard(source_dev, mesh, dims)[..., :3]
+        out = _apply_map(_unit(local).reshape(-1, 3), w, bias)
+        return _comm.as_global(out.reshape(local.shape), mesh, dims)
 
     def __repr__(self):
         return "FeatureDistributionMatching()"

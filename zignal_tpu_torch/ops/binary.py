@@ -24,7 +24,8 @@ from .integral import _box_sums_exact, _mean_f32, _quot_rem, sums_fit_f32
 __all__ = ["histogram256", "histogram256_multi", "histogram256_batch",
            "lut_apply_u8", "lut_apply_u8_per_channel", "otsu_threshold",
            "otsu_from_hists", "threshold_apply", "dilate", "erode",
-           "open_morph", "close_morph", "adaptive_mean_threshold"]
+           "open_morph", "close_morph", "adaptive_mean_threshold",
+           "adaptive_from_sums"]
 
 
 def histogram256(plane, weights=None):
@@ -162,7 +163,15 @@ def adaptive_mean_threshold(plane, radius: int, c: float):
     window sums are f32, else ``q + rem * f32(1 / area)`` from the exact
     integer quotient and remainder."""
     sums, area = _box_sums_exact(plane[..., None], int(radius))
-    if sums_fit_f32(plane.shape[-2], plane.shape[-1], int(radius)):
+    return adaptive_from_sums(
+        plane, sums, area,
+        sums_fit_f32(plane.shape[-2], plane.shape[-1], int(radius)), c)
+
+
+def adaptive_from_sums(plane, sums, area, fits: bool, c: float):
+    """The threshold of ``plane`` from its exact window sums ``[..., H, W,
+    1]`` and areas, the mean in the form ``fits`` picks."""
+    if fits:
         mean = _mean_f32(sums, area)
     else:
         q, rem, _ = _quot_rem(sums, area)

@@ -30,7 +30,8 @@ import torch
 
 from .tables import extents, window_bounds
 
-__all__ = ["integral_image", "window_sums", "box_blur", "sharpen"]
+__all__ = ["integral_image", "window_sums", "box_blur", "sharpen",
+           "box_from_sums", "sharpen_from_sums", "sums_fit_f32"]
 
 _F32_EXACT = 1 << 24
 
@@ -154,7 +155,15 @@ def box_blur(arr, radius: int):
     if arr.dtype != torch.uint8:  # float, and the JAX package's float route
         return _as_dtype(_mean_f32(*_box_sums_float(arr, radius)), arr.dtype)
     sums, area = _box_sums_exact(arr, radius)
-    if sums_fit_f32(arr.shape[-3], arr.shape[-2], radius):
+    return box_from_sums(sums, area,
+                         sums_fit_f32(arr.shape[-3], arr.shape[-2], radius))
+
+
+def box_from_sums(sums, area, fits: bool):
+    """u8 box means from exact int32 window sums and f32 areas (numpy), in
+    the JAX package's f32 form where ``fits`` (``sums_fit_f32``), else
+    rounded half up from the integer quotient and remainder."""
+    if fits:
         vals = torch.floor(_mean_f32(sums, area) + 0.5)
         return vals.clamp(0, 255).to(torch.uint8)
     q, rem, a = _quot_rem(sums, area)
@@ -173,7 +182,15 @@ def sharpen(arr, radius: int):
         mean = _mean_f32(*_box_sums_float(arr, radius))
         return _as_dtype(2.0 * arr.to(torch.float32) - mean, arr.dtype)
     sums, area = _box_sums_exact(arr, radius)
-    if sums_fit_f32(arr.shape[-3], arr.shape[-2], radius):
+    return sharpen_from_sums(arr, sums, area,
+                             sums_fit_f32(arr.shape[-3], arr.shape[-2],
+                                          radius))
+
+
+def sharpen_from_sums(arr, sums, area, fits: bool):
+    """u8 ``2 * arr - box mean`` from the exact window sums, in the form
+    ``box_from_sums`` picks."""
+    if fits:
         vals = 2.0 * arr.to(torch.float32) - _mean_f32(sums, area)
         return torch.floor(vals + 0.5).clamp(0, 255).to(torch.uint8)
     q, rem, a = _quot_rem(sums, area)

@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["luminance_plane", "psnr", "ssim", "mean_pixel_error"]
+__all__ = ["luminance_plane", "psnr", "psnr_of_mse", "ssim",
+           "mean_pixel_error"]
 
 _LUMA = (0.2126, 0.7152, 0.0722)
 
@@ -38,7 +39,11 @@ def _mean_hw(x):
 def psnr(a, b):
     """PSNR in dB of each image, inf where the images are equal."""
     diff = a.to(torch.float32) - b.to(torch.float32)
-    mse = (diff * diff).mean(dim=(-3, -2, -1))
+    return psnr_of_mse((diff * diff).mean(dim=(-3, -2, -1)))
+
+
+def psnr_of_mse(mse):
+    """PSNR in dB of f32 mean squared errors, inf where 0."""
     peak = float(np.float32(20.0) * np.log10(np.float32(255.0)))
     return torch.where(mse == 0, torch.inf, peak - 10.0 * torch.log10(mse))
 
