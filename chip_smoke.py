@@ -215,7 +215,15 @@ Phases (any failure raises and exits non-zero):
    a fresh process (``--trace DIR``), whose JSON must hold a K1 and a K2
    kernel event on the card (path and durations printed); (c) Profile of config 1's three stages for one of
    its JPEGs (Image.load, the K1 resize with a synchronize inside the
-   stage, the PNG save), its report printed.
+   stage, the PNG save), its report printed;
+35. entry() once on the card (its batch a tensor there, K1 once, Oklab
+   within 5e-6 of plain), then ``python -m zignal_tpu_torch.bench`` at
+   full size in a subprocess: bench.py's six configs, each checked before
+   it is timed; the phase requires exit 0, the six metric names in order
+   with a positive value, a passed check and this card's name on each,
+   a summary under 2000 bytes whose values hold all six, and K1, K2, K3,
+   K4 launched (K3p once); the bench's lines are printed and its launches
+   join the kernels line.
 The last two lines are a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
@@ -232,7 +240,12 @@ import time
 import numpy as np
 import torch
 
-OKLAB_TOL = 5e-6  # max-abs, kernel vs plain; the bound of the JAX tests
+from zignal_tpu_torch._bounds import CBRTF_OPS, F32_OPS_S, k1_bound, \
+    k2_bound, k3_bound, k3p_bound, k4_bound
+from zignal_tpu_torch.bench import CHAIN_UNIT, FDM_SHARE, OKLAB_TOL, \
+    cast_target, synth_photo
+from zignal_tpu_torch.bench import SPACES as BENCH_CHAIN
+
 # the kernels' names in the profiler's rows (this tree's and the parent's)
 K1_NAMES = ("fused_kernel", "resize_blur_kernel")
 K2_NAME = "filter_kernel"
@@ -285,21 +298,6 @@ EDGE_PLANES = ((16, 63, 129), (1, 64, 65), (1, 127, 63), (16, 129, 127),
 EDGE_SIGMAS = (0.0, 0.5, 1.0, 1.5, 2.0, 3.5)
 EDGE_THRESHOLDS = (127.5, -1.0, 300.0)
 CONV_EDGE_SHAPES = ((2, 63, 129), (1, 65, 64), (1, 1, 64), (1, 64, 1))
-# the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
-# bytes/s and f32 multiply-adds/s (67 TFLOP/s, 2 FLOP each); the bounds
-# count every multiply-add at this rate, the fastest exact one
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
-# a transcendental's cost in those f32 ops: its time a call with every SM
-# issuing independent calls back to back, times F32_OPS_S
-# (csrc/measure/transcendental_rate.cu, run by --ops; NVIDIA H100 80GB
-# HBM3, 700.00 W: 0.75207 and 2.47323 ps a call): cbrtf, the cube root of
-# K1 and K3 (1 ulp; about 3 MUFU at 16 a clock an SM), and IEEE powf with
-# a runtime exponent, K3's output gamma curve
-CBRTF_OPS = 50.4
-POWF_OPS = 165.7
-
-
 def _card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -373,68 +371,6 @@ def _device_ms(fn, kernel_name, reps: int = 20) -> float:
         if us > 0:
             return us / reps / 1e3
     raise RuntimeError(f"the profiler recorded no {names} kernel")
-
-
-def _bound(nbytes: float, ops: float):
-    """(ms, resource): the larger of the HBM time and the op time."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def _k1_bound(b: int, n: int, o: int):
-    """K1: u8 in, f32 Oklab out; per output value 4 resize and 26 blur
-    multiply-adds (2 ops each); per pixel the Oklab epilogue's 3 cube
-    roots (cbrtf, CBRTF_OPS each) and its two 3x3 mixes (36 ops); its
-    sRGB -> linear step is a table read."""
-    values = b * o * o * 3
-    return _bound(b * n * n * 3 + 4 * values, values * 2 * 30
-                  + b * o * o * (3 * CBRTF_OPS + 36))
-
-
-def _k2_bound(b: int, n: int):
-    """K2: u8 in and out; per pixel 26 blur multiply-adds (2 ops each)
-    and 19 other ops (running box sums 4, sharpen 6, threshold 1, the
-    separable dilate and erode 8)."""
-    return _bound(2 * b * n * n, b * n * n * (2 * 26 + 19))
-
-
-def _k3_bound(x):
-    """K3 on the bench chain over the u8 batch ``x``: 6 bytes a pixel, and
-    a pixel's work counted from the chain's steps in
-    csrc/fused_color_chain_u8.cu (the input gamma is a table read): 238
-    f32 ops of mixes, scalings, compares, clips and the quantization, 6
-    cube roots (Oklab's and XYB's, on every pixel), and where this data
-    needs them Lab's 3 (X/Xn, Y/Yn, Z/Zn above Lab's epsilon) and the 3
-    output gamma curves (a channel above the linear segment: the chain
-    returns every byte to itself). A root at CBRTF_OPS, a curve at
-    POWF_OPS, the cheapest exact-enough forms, which the kernel uses."""
-    from zignal_tpu_torch.color._array import convert_array
-    from zignal_tpu_torch.color._scalar import D65_X, D65_Y, D65_Z, \
-        LAB_EPSILON, SRGB_LINEAR_THRESHOLD
-    from zignal_tpu_torch.ops.color_chain import gamma_table
-
-    px = x.numel() // 3
-    xyz = convert_array(x.to(torch.float32) / 255.0, "rgb", "xyz")
-    d65 = torch.tensor([D65_X, D65_Y, D65_Z], device=x.device)
-    lab_roots = int((xyz / d65 > LAB_EPSILON).sum())
-    curves = int((gamma_table(x.device)[x.long()]
-                  > SRGB_LINEAR_THRESHOLD).sum())
-    return _bound(6 * px, px * (238 + 6 * CBRTF_OPS) + lab_roots * CBRTF_OPS
-                  + curves * POWF_OPS)
-
-
-def _k3p_bound(values: int):
-    """K3p on values uniform in [0, 2]: f32 in and out; a value takes one
-    powf (POWF_OPS), a cube root (CBRTF_OPS; the three quarters above
-    0.5) or a cube (2 ops), a compare and an add."""
-    return _bound(8 * values, values * (POWF_OPS + 0.75 * CBRTF_OPS
-                                        + 0.25 * 2 + 2))
-
-
-def _k4_bound(x, k):
-    """K4: u8 in and out; 2 * len(k) multiply-adds (2 ops each) a value."""
-    return _bound(2 * x.numel(), x.numel() * 2 * 2 * len(k))
 
 
 def _library_conv(x, k):
@@ -591,7 +527,7 @@ def _filter_phases(card, rng):
         print(f"[{card}] K2 B={bb} {n}^2 gray sigma=2 r=2 kernel: {t1:.4f} / "
               f"{t2:.4f} ms (events), {dev:.4f} ms (profiler, device); "
               f"plain: {p1:.4f} / {p2:.4f} ms; bound "
-              f"{_k2_bound(bb, n)[0]:.4f} ms")
+              f"{k2_bound(bb, n)[0]:.4f} ms")
     k4_ms = {}
     for sigma in (2.0, 1.0):
         ks = tables.gaussian_kernel(sigma)
@@ -611,7 +547,7 @@ def _filter_phases(card, rng):
               f"device); plain: {p1:.4f} / {p2:.4f} ms; library (depthwise "
               f"F.conv2d, two 1-D f32 calls on the reflect-padded batch, "
               f"TF32 off): {l1:.4f} / {l2:.4f} ms, array_equal after "
-              f"divClampU8: {lib_equal}; bound {_k4_bound(x, ks)[0]:.4f} ms")
+              f"divClampU8: {lib_equal}; bound {k4_bound(x, ks)[0]:.4f} ms")
 
     k2 = {
         "name": "fused_blur_sharpen_morph",
@@ -622,8 +558,8 @@ def _filter_phases(card, rng):
         "max_abs_err": k2_err,
         "ms": k2_ms[b][0],
         "plain_ms": k2_ms[b][1],
-        "bound_ms": _k2_bound(b, n)[0],
-        "bound_by": _k2_bound(b, n)[1],
+        "bound_ms": k2_bound(b, n)[0],
+        "bound_by": k2_bound(b, n)[1],
         "library_ms": None,  # five stages; no one PyTorch call
     }
     k4 = {
@@ -635,19 +571,13 @@ def _filter_phases(card, rng):
         "max_abs_err": k4_err,
         "ms": k4_ms[2.0][0],
         "plain_ms": k4_ms[2.0][1],
-        "bound_ms": _k4_bound(x, k)[0],
-        "bound_by": _k4_bound(x, k)[1],
+        "bound_ms": k4_bound(x, k)[0],
+        "bound_by": k4_bound(x, k)[1],
         "library_ms": k4_ms[2.0][2] if k4_ms[2.0][3] else None,
     }
     return k2, k4
 
 
-# f32 max-abs, K3 vs plain: K3's cube root is the card's cbrtf (1 ulp), the
-# plain version's sign(x) * |x|^(1/3f), and the chains amplify that ulp
-# where a channel is dark: 9.24e-5 over all 2^24 triples of the six chains
-# (NVIDIA H100 80GB HBM3), rounded up; the u8 outputs are equal
-CHAIN_UNIT = 1e-4
-BENCH_CHAIN = ("rgb", "lab", "rgb", "oklch", "rgb", "xyb", "rgb")
 KERNEL_CHAINS = [BENCH_CHAIN, ("rgb", "oklab", "rgb"),
                  ("rgb", "lab", "lch", "lab", "rgb"), ("rgb", "xyz", "rgb"),
                  ("rgb", "xyb", "rgb"), ("rgb", "oklch", "rgb")]
@@ -851,11 +781,11 @@ def _color_phases(card, rng):
     k3p_dev = _device_ms(kern, "probe_kernel")
     print(f"[{card}] K3p 1M values: kernel {t1:.4f} / {t2:.4f} ms (events), "
           f"{k3p_dev:.4f} ms (profiler, device); plain {p1:.4f} / {p2:.4f} "
-          f"ms; bound {_k3p_bound(pb.numel())[0]:.4f} ms")
+          f"ms; bound {k3p_bound(pb.numel())[0]:.4f} ms")
 
-    k3_bound = _k3_bound(x4)
-    print(f"K3 bound at B=4 on the bench chain: {k3_bound[0]:.4f} ms "
-          f"({k3_bound[1]})")
+    k3b = k3_bound(x4)
+    print(f"K3 bound at B=4 on the bench chain: {k3b[0]:.4f} ms "
+          f"({k3b[1]})")
     k3 = {
         "name": "fused_color_chain_u8",
         "route": "cuda",
@@ -865,8 +795,8 @@ def _color_phases(card, rng):
         "max_abs_err": k3_err,
         "ms": rows[4][0],
         "plain_ms": rows[4][1],
-        "bound_ms": k3_bound[0],
-        "bound_by": k3_bound[1],
+        "bound_ms": k3b[0],
+        "bound_by": k3b[1],
         "library_ms": None,  # no one PyTorch call runs a colour chain
     }
     k3p = {
@@ -878,8 +808,8 @@ def _color_phases(card, rng):
         "max_abs_err": probe_abs,
         "ms": k3p_dev,
         "plain_ms": min(p1, p2),
-        "bound_ms": _k3p_bound(pb.numel())[0],
-        "bound_by": _k3p_bound(pb.numel())[1],
+        "bound_ms": k3p_bound(pb.numel())[0],
+        "bound_by": k3p_bound(pb.numel())[1],
         "library_ms": None,  # the probe is a where() of two sums of powers
     }
     return k3, k3p, (k1_ex, k4_ex)
@@ -1059,22 +989,6 @@ LOADER = dict(count=64, batch=16, side=1024)
 # sizes, so that 3 of 4 files take the letterbox, each through one K1
 # resize (no size here letterboxes to itself, which resizes nothing)
 LOADER_SIZES = ((1024, 1024), (900, 1200), (1200, 900), (640, 960))
-
-
-def synth_photo(h, w, seed=0):
-    """A seeded photo-like RGB image (smooth structure and grain), the
-    synthetic input of bench.py's config 1 (its ``synth_photo``)."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    yy = yy.astype(np.float32)
-    xx = xx.astype(np.float32)
-    base = np.stack([
-        128 + 90 * np.sin(xx / 97.0) * np.cos(yy / 53.0),
-        128 + 80 * np.cos(xx / 61.0 + yy / 41.0),
-        128 + 70 * np.sin((xx + yy) / 151.0),
-    ], axis=-1)
-    noise = rng.normal(0.0, 12.0, (h, w, 3))
-    return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
 def _launched(fn, mod, label: str, times: int = 1):
@@ -1548,14 +1462,6 @@ def _geometry_phases(card, rng) -> int:
 CONFIG4 = dict(side=1024, batch=4)   # bench.py:483-554
 CONFIG5 = dict(side=512, batch=8, hough=256, hough_threshold=120,
                shapes=50)            # bench.py:556-680
-FDM_SHARE = 1e-3  # the CPU tests' bound: <= 1 u8 step at <= 0.1 % of values
-
-
-def cast_target(h, w, seed=4):
-    """bench.py:490-494's FDM target: crushed shadows, a warm cast."""
-    t = synth_photo(h, w, seed).astype(np.float32) / 255.0
-    t = t ** 2.2 * np.array([230.0, 180.0, 120.0]) + 20.0
-    return np.clip(t, 0, 255).astype(np.uint8)
 
 
 def _fdm_close(label, got, want, phase: int = 23) -> int:
@@ -2828,6 +2734,76 @@ def _profiling_phases(card, corpus):
     return launches
 
 
+# -- entry() and the port's bench on the card (phase 35) ---------------------
+
+BENCH_TIMEOUT = 600  # s; the bench's full run takes well under a tenth
+
+
+def _bench_phases(card) -> dict:
+    """Phase 35: entry() once on the card (K1 once, Oklab within 5e-6 of
+    plain), then ``python -m zignal_tpu_torch.bench`` at full size in a
+    subprocess: exit 0, bench.py's six metric names in its order, each
+    with a positive value, its check and this card's name, the summary's
+    values complete, every kernel launched and K3p once. Returns the
+    launches by kernel, entry()'s among them."""
+    import os
+
+    from zignal_tpu_torch.bench import _CONFIGS, _METRIC_NAMES
+    from zignal_tpu_torch.entry import entry
+    from zignal_tpu_torch.ops import fused_pipeline as fp
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    lab = _launched(lambda: fn(*args), fp, "phase 35 entry()")
+    err = float((lab - fp.fused_resize_blur_oklab_reference(
+        args[0], 128, 128, 1.5)).abs().max())
+    if args[0].device.type != "cuda" or tuple(lab.shape) != \
+            (2, 128, 128, 3) or err > OKLAB_TOL:
+        raise AssertionError(f"phase 35 entry(): {tuple(lab.shape)} on "
+                             f"{args[0].device}, max_abs_err={err}")
+    print(f"phase 35 entry(): fn(*args) ran as returned on "
+          f"{args[0].device}, K1 1 launch, Oklab max_abs_err={err} ok")
+    del fn, args, lab
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "zignal_tpu_torch.bench"],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    out = proc.stdout.strip().splitlines()
+    for line in out:
+        print(f"[{card}] phase 35 bench: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 35: the bench exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(line) for line in out]
+    configs, summary = lines[:-1], lines[-1]
+    if [x["metric"] for x in configs] != [_METRIC_NAMES[n]
+                                          for n in _CONFIGS]:
+        raise AssertionError("phase 35: the bench's lines are not bench.py's "
+                             "six configs in order")
+    for x in configs:
+        if "error" in x or not x.get("check") or x["device"] != card or \
+                not (isinstance(x["value"], (int, float)) and x["value"] > 0):
+            raise AssertionError(f"phase 35: bad line {x}")
+    values = summary.get("values", {})
+    if len(out[-1].encode()) >= 2000 or not summary.get("summary") or \
+            summary.get("device") != card or set(values) != set(_CONFIGS) \
+            or any(v is None for v in values.values()):
+        raise AssertionError(f"phase 35: bad summary {out[-1]}")
+    launches = {k: sum(x["launches"][k] for x in configs)
+                for k in ("K1", "K2", "K3", "K3p", "K4")}
+    if min(launches.values()) < 1 or launches["K3p"] != 1:
+        raise AssertionError(f"phase 35: the bench launched {launches}")
+    print(f"phase 35: the bench ran bench.py's six configs in "
+          f"{time.perf_counter() - t1:.1f} s, every check passed, launches "
+          f"{launches}; summary {len(out[-1].encode())} bytes; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches["K1"] += 1  # entry()'s
+    return launches
+
+
 def _profile_one(card, name, fn, reps: int = 3) -> None:
     """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: device
     ms a call (all its kernels and copies), the host clock beside it, and
@@ -3023,7 +2999,11 @@ def kernel_times(tree) -> int:
     transcendental costs from chains of growing length with the bound
     they give, and, where the package has tile lists, each tile alone."""
     if tree:
+        # this tree's package came in with the bounds: TREE's replaces it
         sys.path.insert(0, tree)
+        for name in [m for m in sys.modules
+                     if m.split(".")[0] == "zignal_tpu_torch"]:
+            del sys.modules[name]
     from zignal_tpu_torch.ops import color_chain as cc
     from zignal_tpu_torch.ops import filter_chain as fc
     from zignal_tpu_torch.ops import fused_pipeline as fp
@@ -3274,7 +3254,7 @@ def main() -> int:
     }
     k2, k4 = _filter_phases(card, rng)
     k3, k3p, (k1_ex, k4_ex) = _color_phases(card, rng)
-    k1["bound_ms"], k1["bound_by"] = _k1_bound(16, n, o)
+    k1["bound_ms"], k1["bound_by"] = k1_bound(16, n, o)
     k1_s4, k4_s4 = _slice4_phases(card, rng)
     k1_s7, k4_s7, corpus, config1 = _file_phases(card, rng)
     t0 = time.perf_counter()
@@ -3287,11 +3267,14 @@ def main() -> int:
     k1_s11, k4_s11 = _cli_phases(card, corpus, config1)
     k1_s12, k4_s12 = _mesh_phases(card)
     k1_s13, k2_s13 = _profiling_phases(card, corpus)
+    s14 = _bench_phases(card)
     k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9 + k1_s10 + k1_s11 + \
-        k1_s12 + k1_s13
-    k2["launches"] += k2_s13
+        k1_s12 + k1_s13 + s14["K1"]
+    k2["launches"] += k2_s13 + s14["K2"]
+    k3["launches"] += s14["K3"]
+    k3p["launches"] += s14["K3p"]
     k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9 + k4_s11 + \
-        k4_s12
+        k4_s12 + s14["K4"]
     print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

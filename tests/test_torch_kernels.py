@@ -1160,3 +1160,31 @@ def test_trace_holds_k1s_kernel_event(cuda, tmp_path):
                and "resize_blur_kernel" in e.get("name", "")]
     assert kernels and kernels[0]["dur"] > 0
     assert kernels[0]["args"]["device"] == torch.cuda.current_device()
+
+
+def test_entry_runs_on_the_card_as_returned(cuda):
+    from zignal_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert args[0].device.type == "cuda" and args[0].dtype == torch.uint8
+    before = fp.LAUNCHES
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES == before + 1
+    want = fp.fused_resize_blur_oklab_reference(args[0], 128, 128, 1.5)
+    assert float((got - want).abs().max()) <= OKLAB_TOL
+
+
+def test_bench_smoke_on_the_card_checks_and_launches(cuda, capsys):
+    import json
+
+    from zignal_tpu_torch import bench
+
+    assert bench.main(["--smoke"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    configs = lines[:-1]
+    assert [x["metric"] for x in configs] == \
+        [bench._METRIC_NAMES[n] for n in bench._CONFIGS]
+    assert all(x["value"] > 0 and x["device"] != "cpu" for x in configs)
+    for k in ("K1", "K2", "K3", "K4"):
+        assert sum(x["launches"][k] for x in configs) >= 1, k

@@ -371,8 +371,10 @@ def test_entry_returns_the_batch_callable():
     from zignal_tpu_torch.entry import entry
     from zignal_tpu_torch.pipeline import resize_blur_oklab
 
-    fn, (batch,) = entry()
-    assert batch.shape == (2, 256, 256, 3) and batch.dtype == np.uint8
-    got = fn(_t(batch))
+    fn, args = entry(device="cpu")
+    (batch,) = args
+    assert batch.shape == (2, 256, 256, 3) and batch.dtype == torch.uint8
+    assert batch.device.type == "cpu"
+    got = fn(*args)
     assert got.shape == (2, 128, 128, 3)
-    assert torch.equal(got, resize_blur_oklab(_t(batch), 128, 128, 1.5))
+    assert torch.equal(got, resize_blur_oklab(batch, 128, 128, 1.5))

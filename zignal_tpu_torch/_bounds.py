@@ -1,0 +1,88 @@
+"""The least time an H100 could take for each kernel's work: the larger of
+the bytes the function must move over the card's memory rate and its
+operations over its f32 rate. ``chip_smoke.py`` (the ``bound_ms`` of its
+kernels line) and ``python -m zignal_tpu_torch.bench`` (each config's
+share of its kernel's bound) both count with these functions.
+
+Each ``k*_bound`` returns ``(ms, "bytes" or "operations")``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
+# bytes/s and f32 multiply-adds/s (67 TFLOP/s, 2 FLOP each); the bounds
+# count every multiply-add at this rate, the fastest exact one
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# a transcendental's cost in those f32 ops: its time a call with every SM
+# issuing independent calls back to back, times F32_OPS_S
+# (csrc/measure/transcendental_rate.cu, run by chip_smoke.py --ops; NVIDIA
+# H100 80GB HBM3, 700.00 W: 0.75207 and 2.47323 ps a call): cbrtf, the
+# cube root of K1 and K3 (1 ulp; about 3 MUFU at 16 a clock an SM), and
+# IEEE powf with a runtime exponent, K3's output gamma curve
+CBRTF_OPS = 50.4
+POWF_OPS = 165.7
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, resource): the larger of the HBM time and the op time."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(b: int, n: int, o: int):
+    """K1 on ``b`` images of n^2 RGB to o^2: u8 in, f32 Oklab out; per
+    output value 4 resize and 26 blur multiply-adds (2 ops each); per pixel
+    the Oklab epilogue's 3 cube roots (cbrtf, CBRTF_OPS each) and its two
+    3x3 mixes (36 ops); its sRGB -> linear step is a table read."""
+    values = b * o * o * 3
+    return bound(b * n * n * 3 + 4 * values, values * 2 * 30
+                 + b * o * o * (3 * CBRTF_OPS + 36))
+
+
+def k2_bound(b: int, n: int):
+    """K2 on ``b`` n^2 planes: u8 in and out; per pixel 26 blur
+    multiply-adds (2 ops each) and 19 other ops (running box sums 4,
+    sharpen 6, threshold 1, the separable dilate and erode 8)."""
+    return bound(2 * b * n * n, b * n * n * (2 * 26 + 19))
+
+
+def k3_bound(x):
+    """K3 on the bench chain over the u8 batch ``x``: 6 bytes a pixel, and
+    a pixel's work counted from the chain's steps in
+    csrc/fused_color_chain_u8.cu (the input gamma is a table read): 238
+    f32 ops of mixes, scalings, compares, clips and the quantization, 6
+    cube roots (Oklab's and XYB's, on every pixel), and where this data
+    needs them Lab's 3 (X/Xn, Y/Yn, Z/Zn above Lab's epsilon) and the 3
+    output gamma curves (a channel above the linear segment: the chain
+    returns every byte to itself). A root at CBRTF_OPS, a curve at
+    POWF_OPS, the cheapest exact-enough forms, which the kernel uses."""
+    from .color._array import convert_array
+    from .color._scalar import D65_X, D65_Y, D65_Z, LAB_EPSILON, \
+        SRGB_LINEAR_THRESHOLD
+    from .ops.color_chain import gamma_table
+
+    px = x.numel() // 3
+    xyz = convert_array(x.to(torch.float32) / 255.0, "rgb", "xyz")
+    d65 = torch.tensor([D65_X, D65_Y, D65_Z], device=x.device)
+    lab_roots = int((xyz / d65 > LAB_EPSILON).sum())
+    curves = int((gamma_table(x.device)[x.long()]
+                  > SRGB_LINEAR_THRESHOLD).sum())
+    return bound(6 * px, px * (238 + 6 * CBRTF_OPS) + lab_roots * CBRTF_OPS
+                 + curves * POWF_OPS)
+
+
+def k3p_bound(values: int):
+    """K3p on values uniform in [0, 2]: f32 in and out; a value takes one
+    powf (POWF_OPS), a cube root (CBRTF_OPS; the three quarters above
+    0.5) or a cube (2 ops), a compare and an add."""
+    return bound(8 * values, values * (POWF_OPS + 0.75 * CBRTF_OPS
+                                       + 0.25 * 2 + 2))
+
+
+def k4_bound(x, k):
+    """K4: u8 in and out; 2 * len(k) multiply-adds (2 ops each) a value."""
+    return bound(2 * x.numel(), x.numel() * 2 * 2 * len(k))

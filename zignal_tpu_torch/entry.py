@@ -3,8 +3,9 @@
 
 - ``entry()``: the north-star step that ``ImageBatch.resize_blur_oklab``
   dispatches (``batch.resize_blur_oklab_fn``), bound for a 2 x 256^2 ->
-  128^2 batch at sigma 1.5, with that batch; on a card the callable is one
-  launch of the fused resize -> blur -> Oklab kernel;
+  128^2 batch at sigma 1.5, with that batch as a u8 tensor on ``device``
+  (the card unless the caller names the CPU); on a card the callable is
+  one launch of the fused resize -> blur -> Oklab kernel;
 - ``dryrun_multichip(n, device=)``: the whole multi-device path once on a
   mesh of ``n`` ranks at small shapes, with its checks: the batch-sharded
   pipeline, the halo-exchange blur, the summed statistics, the clamped
@@ -26,14 +27,21 @@ import torch
 __all__ = ["entry", "dryrun_multichip"]
 
 
-def entry():
+def entry(*, device="cuda"):
+    """``(fn, (batch,))`` such that ``fn(*args)`` runs as returned: ``batch``
+    is a u8 tensor on ``device``. The default needs a card; without one it
+    raises (no CPU fallback)."""
     from .batch import resize_blur_oklab_fn
     from .enums import Interpolation
 
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("entry(device='cuda'): no CUDA device is "
+                           "available (pass device='cpu' for the CPU)")
     rng = np.random.default_rng(0)
     batch = rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8)
     fn = resize_blur_oklab_fn(128, 128, 1.5, Interpolation.BILINEAR)
-    return fn, (batch,)
+    return fn, (torch.from_numpy(batch).to(device),)
 
 
 def _steps(n: int, device) -> None:
