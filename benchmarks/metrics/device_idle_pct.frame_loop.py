@@ -1,0 +1,6 @@
+"""``device_idle_pct`` of the frame-loop cells, which moves their
+``p95_ms.frame_loop``."""
+
+from benchmarks.run import load
+
+read = load("metrics", "device_idle_pct").read
