@@ -1162,6 +1162,74 @@ def test_trace_holds_k1s_kernel_event(cuda, tmp_path):
     assert kernels[0]["args"]["device"] == torch.cuda.current_device()
 
 
+# the spans one call of each entry records on the card, in the order they
+# end: the wrapper's stages one after the other (a new shape's plan built
+# inside K*.plan), then the launch, then the entry
+_STAGES = ("check", "plan_build", "plan", "alloc", "params")
+
+
+def _call_spans(kernel, entry, built):
+    stages = [f"{kernel}.{s}" for s in _STAGES if built or s != "plan_build"]
+    return stages + ["launch", entry]
+
+
+@pytest.mark.parametrize("entry", ["filter_chain", "resize_blur_oklab"])
+def test_recorder_holds_each_calls_stages_on_the_card(cuda, entry):
+    from torch.profiler import ProfilerActivity, profile
+
+    from zignal_tpu_torch.profiling import RECORDER
+
+    if entry == "filter_chain":  # shapes and sigmas no other test plans
+        kernel, x, args = "K2", _u8((1, 97, 83), 5, cuda), (1.7, 3, 100.0)
+    else:
+        kernel, x, args = "K1", _u8((1, 71, 89, 3), 5, cuda), (37, 41, 1.3)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for _ in range(2):
+            getattr(pipeline, entry)(x, *args)
+        torch.cuda.synchronize()
+    spans = RECORDER.spans
+    assert [s[0] for s in spans] == (_call_spans(kernel, entry, True)
+                                     + _call_spans(kernel, entry, False))
+    for call in (spans[:7], spans[7:]):
+        by = {name: (t0, t1) for name, t0, t1, _ in call}
+        stages = [by[f"{kernel}.{s}"] for s in ("check", "plan", "alloc",
+                                                 "params")]
+        # stamped at the stage boundaries: each starts where the last ended
+        assert all(a[1] == b[0] for a, b in zip(stages, stages[1:]))
+        assert by[entry][0] <= stages[0][0]
+        assert stages[-1][1] <= by["launch"][0] <= by["launch"][1] \
+            <= by[entry][1]
+    built = spans[1]
+    assert spans[2][1] <= built[1] <= built[2] <= spans[2][2]
+
+
+def test_trace_launch_spans_enclose_their_kernels_launch_call(cuda,
+                                                              tmp_path):
+    import json
+
+    from zignal_tpu_torch.profiling import trace
+
+    x = _u8((1, 256, 256), 6, cuda)
+    pipeline.filter_chain(x)
+    with trace(tmp_path):
+        for _ in range(100):
+            pipeline.filter_chain(x)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    # K2's launch is the only kernel launch of a filter_chain call (a
+    # session's first kernel events can drop out; the runtime calls stay)
+    calls = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "LaunchKernel" in e.get("name", "")]
+    spans = [e for e in events if e.get("cat") == "zignal"
+             and e["name"] == "launch"]
+    assert len(spans) == 100 and len(calls) >= 100
+    enclosing = sum(any(s["ts"] <= c["ts"] and c["ts"] + c["dur"]
+                        <= s["ts"] + s["dur"] for c in calls)
+                    for s in spans)
+    assert enclosing >= 99, enclosing
+
+
 def test_entry_runs_on_the_card_as_returned(cuda):
     from zignal_tpu_torch.entry import entry
 

@@ -6,10 +6,15 @@ packages are driven by one virtual clock: ``time.perf_counter`` patched in
 each module to read a time that only the clock's own steps move (each
 timed call of the op adds its cost, each read a fixed latency). The same
 steps must give the same floats, bit for bit. ``trace`` is checked on the
-file it writes."""
+file it writes, and the program's own spans (``RECORDER``) on the CPU
+route of the pipeline entries; their CUDA route's stages are checked on
+the card in tests/test_torch_kernels.py."""
 
 import inspect
 import json
+import sys
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -163,3 +168,106 @@ def test_signatures_equal_jax():
         assert str(inspect.signature(getattr(tprof, name))) == \
             str(inspect.signature(getattr(jprof, name)))
     assert tprof.__all__ == jprof.__all__
+
+
+# --- the program's own spans: profiling.RECORDER ---------------------------
+
+def _session():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _plane(shape=(2, 48, 40)):
+    return torch.randint(0, 256, shape, dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(3))
+
+
+def test_no_span_is_recorded_outside_a_profiler_session():
+    from zignal_tpu_torch import pipeline
+
+    log = tprof.RECORDER.spans
+    before = list(log)
+    pipeline.filter_chain(_plane())
+    pipeline.resize_blur_oklab(_plane((1, 32, 32, 3)), 16, 16)
+    assert tprof.RECORDER.spans is log and log == before
+
+
+def test_each_entry_call_records_one_span_and_a_session_starts_fresh():
+    from zignal_tpu_torch import pipeline
+
+    with _session():
+        for _ in range(3):
+            pipeline.filter_chain(_plane())
+        for _ in range(2):
+            pipeline.resize_blur_oklab(_plane((1, 32, 32, 3)), 16, 16)
+    first = tprof.RECORDER.spans
+    # the CPU route has no wrapper stages or launch: the entries alone
+    assert [s[0] for s in first] == ["filter_chain"] * 3 + \
+        ["resize_blur_oklab"] * 2
+    assert all(t0 < t1 for _, t0, t1, _ in first)
+    assert {s[3] for s in first} == {threading.get_ident()}
+    with _session():
+        pipeline.filter_chain(_plane())
+    assert [s[0] for s in tprof.RECORDER.spans] == ["filter_chain"]
+    assert tprof.RECORDER.dropped == 0 and first is not tprof.RECORDER.spans
+
+
+def test_span_log_bound_counts_what_it_drops():
+    p = tprof.Profile()
+    assert p.spans is None and tprof.RECORDER.limit == 1 << 16
+    p.limit = 4
+    p.log_spans()
+    for k in range(10):
+        assert p.add(f"s{k}", 100 * k, 100 * k + 5) == 100 * k + 5
+    assert [s[0] for s in p.spans] == ["s0", "s1", "s2", "s3"]
+    assert p.dropped == 6
+    p.log_spans()
+    assert p.spans == [] and p.dropped == 0
+
+
+def test_spans_from_eight_threads_are_all_kept():
+    p = tprof.Profile()
+    p.log_spans()
+    n, per = 8, 3000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(k):
+            for i in range(per):
+                t0 = time.perf_counter_ns()
+                p.add(f"t{k}", t0)
+
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(p.spans) == n * per and p.dropped == 0
+    assert {s[3] for s in p.spans} == {t.ident for t in threads}
+    assert all(sum(s[0] == f"t{k}" for s in p.spans) == per
+               for k in range(n))
+
+
+def test_trace_holds_the_programs_spans_on_its_clock(tmp_path):
+    from zignal_tpu_torch import pipeline
+
+    x = _plane((4, 256, 256))
+    with tprof.trace(tmp_path):
+        pipeline.filter_chain(x)
+    events = _events(tmp_path)
+    (span,) = [e for e in events if e.get("cat") == "zignal"]
+    assert span["ph"] == "X" and span["name"] == "filter_chain"
+    assert span["dur"] > 0
+    ops = [e for e in events if e.get("ph") == "X"
+           and e.get("name", "").startswith("aten::")]
+    assert ops and {e["tid"] for e in ops} == {span["tid"]}
+    # every operator of the call lies inside the call's span, on the
+    # trace's clock (20 us for the two clocks' readings)
+    assert span["ts"] - 20 <= min(e["ts"] for e in ops)
+    assert max(e["ts"] + e["dur"] for e in ops) <= \
+        span["ts"] + span["dur"] + 20

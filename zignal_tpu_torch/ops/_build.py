@@ -16,8 +16,13 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from torch.autograd import profiler as _autograd_profiler
+
+from ..profiling import RECORDER
 
 __all__ = ["load", "launch", "sm_count", "TILES", "SMEM_LIMIT",
            "COUNT_LOCK"]
@@ -141,17 +146,24 @@ def launch(name: str, device, *args) -> None:
     """Call the library's entry ``name`` with ``args`` and the current
     stream of ``device``; raise if the launch was refused. The device is
     switched only when it is not the current one (a switch costs more
-    host time than the launch)."""
+    host time than the launch). During a profiler session the call is
+    the recorder's span ``launch``, a switch included."""
     import torch
 
+    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
     lib = _LIB or load()
     index = device.index
     current = torch.cuda.current_device()
     if index is not None and index != current:
         with torch.cuda.device(index):
-            return launch(name, torch.device("cuda", index), *args)
-    stream = torch.cuda.current_stream(current).cuda_stream
-    err = getattr(lib, name)(*args, ctypes.c_void_p(stream))
+            stream = torch.cuda.current_stream(index).cuda_stream
+            err = getattr(lib, name)(*args, ctypes.c_void_p(stream))
+    else:
+        stream = torch.cuda.current_stream(current).cuda_stream
+        err = getattr(lib, name)(*args, ctypes.c_void_p(stream))
+    if t0:
+        RECORDER.add("launch", t0)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.zt_error_string(err).decode()}")

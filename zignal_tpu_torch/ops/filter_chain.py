@@ -13,11 +13,14 @@ H, W >= 1, so, unlike the TPU kernel, it needs no shape gate.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..enums import BorderMode
+from ..profiling import RECORDER
 from ._build import COUNT_LOCK, SMEM_LIMIT, launch, load, sm_count
 from .binary import dilate, erode, threshold_apply
 from .convolution import gaussian_blur_reference
@@ -148,7 +151,11 @@ def _plan(b, h, w, sigma, rs, device) -> _Plan:
     key = (b, h, w, sigma, rs, device)
     plan = _TABLES.get(key)
     if plan is None:
+        t0 = time.perf_counter_ns() \
+            if _autograd_profiler._is_profiler_enabled else 0
         plan = _TABLES[key] = _Plan(b, h, w, sigma, rs, device)
+        if t0:
+            RECORDER.add("K2.plan_build", t0)
     return plan
 
 
@@ -204,8 +211,12 @@ def fused_blur_sharpen_morph(x, sigma: float = 2.0, sharpen_radius: int = 2,
     """u8 ``[H, W]`` or ``[B, H, W]`` -> Gaussian blur -> sharpen ->
     threshold (> thr) -> dilate 3x3 -> erode 3x3 -> u8 mask (0/255) of the
     same shape. A CUDA tensor runs the kernel (or raises); a CPU tensor
-    runs the plain version."""
+    runs the plain version. During a profiler session the kernel's route
+    adds the recorder's spans ``K2.check``, ``K2.plan``, ``K2.alloc`` and
+    ``K2.params``, one after the other."""
     global LAUNCHES
+    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
     sigma, rs, thr = float(sigma), int(sharpen_radius), float(thr)
     _check(x, sigma, rs)
     if x.device.type == "cpu":
@@ -217,13 +228,21 @@ def fused_blur_sharpen_morph(x, sigma: float = 2.0, sharpen_radius: int = 2,
     h, w = x.shape[-2:]
     planes = x.view(-1, h, w)
     b = planes.shape[0]
+    if t0:
+        t0 = RECORDER.add("K2.check", t0)
     plan = _plan(b, h, w, sigma, rs, x.device)
     if b * -(-h // plan.tile.th) * -(-w // plan.tile.tw) >= 2 ** 31:
         raise ValueError("batch or plane too large for one launch grid")
+    if t0:
+        t0 = RECORDER.add("K2.plan", t0)
     out = torch.empty_like(planes)
+    if t0:
+        t0 = RECORDER.add("K2.alloc", t0)
     params = _params(plan, thr,
                      w % 16 == 0 and planes.data_ptr() % 16 == 0,
                      w % 4 == 0 and out.data_ptr() % 4 == 0)
+    if t0:
+        RECORDER.add("K2.params", t0)
     launch("zt_fused_blur_sharpen_morph", x.device, planes.data_ptr(),
            out.data_ptr(), plan.ty.data_ptr(), plan.tx.data_ptr(), params)
     with COUNT_LOCK:

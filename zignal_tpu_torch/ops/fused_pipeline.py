@@ -15,11 +15,14 @@ each tile stages, the shared-memory layout, all cached per shape.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..color._array import _OKLMS2LAB, _RGB2OKLMS, convert_array
+from ..profiling import RECORDER
 from ._build import COUNT_LOCK, SMEM_LIMIT, launch, load, sm_count
 from .color_chain import gamma_table
 from .convolution import gaussian_blur_reference
@@ -210,7 +213,11 @@ def _plan(b, h, w, c, oh, ow, sigma, oklab, device) -> _Plan:
     key = (b, h, w, c, oh, ow, sigma, oklab, device)
     plan = _TABLES.get(key)
     if plan is None:
+        t0 = time.perf_counter_ns() \
+            if _autograd_profiler._is_profiler_enabled else 0
         plan = _TABLES[key] = _Plan(b, h, w, c, oh, ow, sigma, oklab, device)
+        if t0:
+            RECORDER.add("K1.plan_build", t0)
     return plan
 
 
@@ -248,8 +255,12 @@ def fused_resize_blur_oklab(batch, out_rows: int, out_cols: int,
     """[B, H, W, C] u8 -> bilinear resize -> Gaussian blur -> u8
     ``[B, out_rows, out_cols, C]``, or f32 Oklab ``[..., 3]`` when
     ``oklab``. ``sigma=0`` skips the blur. A CUDA tensor runs the kernel
-    (or raises); a CPU tensor runs the plain version."""
+    (or raises); a CPU tensor runs the plain version. During a profiler
+    session the kernel's route adds the recorder's spans ``K1.check``,
+    ``K1.plan``, ``K1.alloc`` and ``K1.params``, one after the other."""
     global LAUNCHES
+    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
     sigma = float(sigma)
     _check(batch, out_rows, out_cols, sigma, oklab)
     if batch.device.type == "cpu":
@@ -260,13 +271,21 @@ def fused_resize_blur_oklab(batch, out_rows: int, out_cols: int,
     if not batch.is_contiguous():
         raise ValueError("the kernel needs a contiguous batch")
     b, h, w, c = batch.shape
+    if t0:
+        t0 = RECORDER.add("K1.check", t0)
     plan = _plan(b, h, w, c, out_rows, out_cols, sigma, oklab, batch.device)
+    if t0:
+        t0 = RECORDER.add("K1.plan", t0)
     out = torch.empty(
         (b, out_rows, out_cols, 3 if oklab else c),
         dtype=torch.float32 if oklab else torch.uint8, device=batch.device)
+    if t0:
+        t0 = RECORDER.add("K1.alloc", t0)
     params = plan.buffer(
         plan.tile.staged and (w * c) % 16 == 0 and batch.data_ptr() % 16 == 0)
     lut = gamma_table(batch.device).data_ptr() if oklab else None
+    if t0:
+        RECORDER.add("K1.params", t0)
     launch("zt_fused_resize_blur_oklab", batch.device, batch.data_ptr(),
            out.data_ptr(), plan.ty.data_ptr(), plan.tx.data_ptr(),
            plan.sy.data_ptr(), plan.sx.data_ptr(), lut, params)

@@ -4,7 +4,10 @@ zignal_tpu/pipeline.py. Each function runs on its input tensor's device.
 
 from __future__ import annotations
 
+import time
+
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .color import convert_array, convert_chain
 from .enums import Interpolation
@@ -13,6 +16,7 @@ from .ops.convolution import gaussian_blur
 from .ops.filter_chain import fused_blur_sharpen_morph
 from .ops.fused_pipeline import fused_resize_blur_oklab
 from .ops.interpolation import resize as resize_op
+from .profiling import RECORDER
 
 __all__ = ["resize_blur_oklab", "batched_resize", "batched_gaussian_blur",
            "filter_chain", "color_chain_u8"]
@@ -56,14 +60,22 @@ def resize_blur_oklab(batch, out_rows: int, out_cols: int, sigma: float = 2.0,
     float32 Oklab. uint8 stages are bit-exact with the reference's
     fixed-point kernels; the Oklab conversion is float32. Another
     resampling method runs the three stages one after the other (the
-    separable kernel blurs on the card).
+    separable kernel blurs on the card). During a profiler session the
+    call is the recorder's span ``resize_blur_oklab``.
     """
+    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
     if Interpolation(method) == Interpolation.BILINEAR:
-        return fused_resize_blur_oklab(batch.contiguous(), out_rows,
-                                       out_cols, float(sigma))
-    small = resize_op(batch, out_rows, out_cols, method)
-    blurred = gaussian_blur(small, float(sigma))
-    return convert_array(blurred.to(torch.float32) / 255.0, "rgb", "oklab")
+        out = fused_resize_blur_oklab(batch.contiguous(), out_rows, out_cols,
+                                      float(sigma))
+    else:
+        small = resize_op(batch, out_rows, out_cols, method)
+        blurred = gaussian_blur(small, float(sigma))
+        out = convert_array(blurred.to(torch.float32) / 255.0, "rgb",
+                            "oklab")
+    if t0:
+        RECORDER.add("resize_blur_oklab", t0)
+    return out
 
 
 def filter_chain(plane, sigma: float = 2.0, sharpen_radius: int = 2,
@@ -71,6 +83,12 @@ def filter_chain(plane, sigma: float = 2.0, sharpen_radius: int = 2,
     """Gaussian blur -> unsharp mask -> threshold -> dilate3 -> erode3 on
     a [H, W] or [B, H, W] u8 plane (the BASELINE config-3 chain), one
     fused kernel on the card at any shape. Returns a u8 0/255 mask of the
-    same shape, bit-exact with the JAX package's chain."""
-    return fused_blur_sharpen_morph(plane.contiguous(), float(sigma),
-                                    int(sharpen_radius), float(thr))
+    same shape, bit-exact with the JAX package's chain. During a profiler
+    session the call is the recorder's span ``filter_chain``."""
+    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
+    out = fused_blur_sharpen_morph(plane.contiguous(), float(sigma),
+                                   int(sharpen_radius), float(thr))
+    if t0:
+        RECORDER.add("filter_chain", t0)
+    return out

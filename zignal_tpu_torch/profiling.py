@@ -10,25 +10,48 @@
   one on the CPU by the host clock.
 - ``trace``: context manager around ``torch.profiler.profile``. It writes
   a ``*.pt.trace.json`` that TensorBoard and Perfetto open, with the
-  card's kernels whenever a card is present.
+  card's kernels whenever a card is present, and the program's own spans.
+- ``RECORDER``: the program's own spans, a ``Profile`` with its span log
+  on. The pipeline entries (``filter_chain``, ``resize_blur_oklab``), the
+  K1 and K2 wrappers' stages (``K1.check``, ``K1.plan``, ``K1.plan_build``
+  on a plan cache miss, ``K1.alloc``, ``K1.params``; the same for ``K2``)
+  and every kernel ``launch`` add theirs, but only while a torch.profiler
+  session runs: each first tests torch's own flag for one, and with it
+  off runs no further code of the recorder. Each session starts a fresh
+  log.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
+import socket
+import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# bound once: each lookup would cost the recording path again
+_get_ident, _perf_counter_ns = threading.get_ident, time.perf_counter_ns
 
 __all__ = ["Profile", "measure", "trace"]
 
 
 class Profile:
-    """Accumulates per-stage elapsed seconds (reference: sixel.zig:59)."""
+    """Accumulates per-stage elapsed seconds (reference: sixel.zig:59).
+    With ``log_spans()`` it also keeps the spans given to ``add``."""
+
+    # (name, start ns, end ns, thread ident) on time.perf_counter_ns, once
+    # log_spans() has started the log
+    spans: list | None = None
+    limit = 1 << 16  # spans a log keeps; the rest are counted as dropped
 
     def __init__(self):
         self.stages: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -39,6 +62,33 @@ class Profile:
             dt = time.perf_counter() - t0
             self.stages[name] = self.stages.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
+
+    def log_spans(self) -> None:
+        """Start a fresh span log that keeps at most ``limit`` spans and
+        counts the later ones in ``dropped``; ``unix_offset_ns`` takes a
+        span's clock to ``time.time_ns()``'s."""
+        with self._lock:
+            self.dropped, self.spans = 0, []
+            self.unix_offset_ns = time.time_ns() - time.perf_counter_ns()
+
+    def add(self, name: str, t0_ns: int, t1_ns: int | None = None) -> int:
+        """Log the span ``name`` from ``t0_ns`` to ``t1_ns`` (now when
+        None) on ``time.perf_counter_ns``, once ``log_spans()`` has started
+        the log, and return its end, where a next stage starts. Safe from any thread: an append is atomic, and
+        a log past its limit gives the span back under the lock."""
+        if t1_ns is None:
+            t1_ns = _perf_counter_ns()
+        spans = self.spans
+        spans.append((name, t0_ns, t1_ns, _get_ident()))
+        if len(spans) > self.limit:
+            self._drop(spans)
+        return t1_ns
+
+    def _drop(self, spans: list) -> None:
+        with self._lock:
+            if spans is self.spans and len(spans) > self.limit:
+                spans.pop()
+                self.dropped += 1
 
     @property
     def total(self) -> float:
@@ -113,20 +163,61 @@ def measure(fn, *args, pixels: int | None = None, n_small: int = 2,
     return per_call, pixels / per_call / 1e9
 
 
+RECORDER = Profile()
+RECORDER.log_spans()
+
+
+def _on_profiler_start(start=_autograd_profiler._run_on_profiler_start):
+    """torch's hook at the start of every profiler session, whatever its
+    activities, and then a fresh log for the recorder."""
+    start()
+    RECORDER.log_spans()
+
+
+_autograd_profiler._run_on_profiler_start = _on_profiler_start
+
+
+def _program_events(log: Profile, base_ns: int) -> list:
+    """``log``'s spans as chrome-trace complete events on a trace's clock:
+    microseconds since ``base_ns`` on ``time.time_ns()``'s."""
+    native = {t.ident: t.native_id for t in threading.enumerate()}
+    pid, shift = os.getpid(), log.unix_offset_ns - base_ns
+    return [{"ph": "X", "cat": "zignal", "name": name, "pid": pid,
+             "tid": native.get(ident, ident), "ts": (t0 + shift) / 1e3,
+             "dur": (t1 - t0) / 1e3}
+            for name, t0, t1, ident in list(log.spans)]
+
+
+def _write_trace(log_dir: str, prof) -> None:
+    """The session's trace into ``log_dir`` under the name
+    ``tensorboard_trace_handler`` gives it, the recorder's spans added."""
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}."
+                        f"{time.time_ns() // 1_000_000}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        data = json.load(f)
+    data["traceEvents"] += _program_events(
+        RECORDER, int(data.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as f:
+        json.dump(data, f)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler trace of the body into ``log_dir`` (a
-    ``*.pt.trace.json`` for TensorBoard and Perfetto): CPU activity, and
-    the card's kernels and copies whenever CUDA is available. The file is
-    written when the body raises too."""
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
+    ``*.pt.trace.json`` for TensorBoard and Perfetto): CPU activity, the
+    card's kernels and copies whenever CUDA is available, and the
+    program's own spans (``RECORDER``) as complete events of category
+    ``zignal``. The file is written when the body raises too."""
+    from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
     with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+                 on_trace_ready=lambda prof: _write_trace(str(log_dir),
+                                                          prof)):
         yield
         if cuda:
             torch.cuda.synchronize()  # the body's kernels end in the trace
