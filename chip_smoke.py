@@ -8,9 +8,10 @@
 
 ``--times`` runs on the package found first on TREE (a checkout of another
 commit, e.g. the parent's ``git archive``) or on this one: K1 at B 16, 4
-and 1 and its plain resize, K3 at B 4 and 16, K2 and K4 (with K4's library
-call), K3's chains of 1, 5 and 9 hops with what a cube root costs inside
-the kernel (a diagnostic), and each tile of K1, K2 and K4 alone at B=16.
+and 1 and its plain resize, K3 at B 4 and 16, K2 (sigma 2 r 2, sigma 1 r 1
+and sigma 1.5 r 3, at B 16 and 1) and K4 (with K4's library call), K3's
+chains of 1, 5 and 9 hops with what a cube root costs inside the kernel
+(a diagnostic), and each tile of K1, K2 and K4 alone at B=16.
 ``--ops`` builds csrc/measure/transcendental_rate.cu and prints what a
 cbrtf and a powf cost with every SM busy, the basis of CBRTF_OPS and
 POWF_OPS in the bounds.
@@ -292,9 +293,12 @@ FILTER_ORACLE = [  # (shape, sigma, sharpen_radius, thr)
 ]
 _SIGNED = (-0.25, 0.5, 1.5, 0.5, -0.25)
 # K2 and K4 at the edges of their tile plans: planes just below, at and
-# above the tile sides, B=1 and B=16, the blur widths of the main paths
+# above the tile sides, B=1 and B=16, the blur widths of the main paths;
+# then K2's streamed plan: one and two strip widths (120 columns), one and
+# two segments (9 rows), heights under its 20-row warm-up
 EDGE_PLANES = ((16, 63, 129), (1, 64, 65), (1, 127, 63), (16, 129, 127),
-               (1, 65, 64))
+               (1, 65, 64), (16, 9, 120), (1, 19, 121), (16, 21, 241),
+               (1, 18, 240), (16, 75, 1024))
 EDGE_SIGMAS = (0.0, 0.5, 1.0, 1.5, 2.0, 3.5)
 EDGE_THRESHOLDS = (127.5, -1.0, 300.0)
 CONV_EDGE_SHAPES = ((2, 63, 129), (1, 65, 64), (1, 1, 64), (1, 64, 1))
@@ -468,8 +472,15 @@ def _filter_phases(card, rng):
     rgb = rng.integers(0, 256, (b, n, n, 3), np.uint8)
     k = tables.gaussian_kernel(2.0)
     torch.cuda.synchronize()
-    fc.LAUNCHES = sc.LAUNCHES = 0
-    masks = {bb: pipeline.filter_chain(p) for bb, p in planes.items()}
+    fc.LAUNCHES = fc.STREAMED = sc.LAUNCHES = 0
+    masks = {b: pipeline.filter_chain(planes[b])}
+    k2_streamed = fc.STREAMED
+    print(f"filter main path [{b}, {n}, {n}]: K2 {fc.LAUNCHES} launch, "
+          f"{k2_streamed} streamed")
+    if (fc.LAUNCHES, k2_streamed) != (1, 1):
+        raise AssertionError("the B=16 main path did not take the streamed "
+                             "K2 once")
+    masks[1] = pipeline.filter_chain(planes[1])
     ib = ImageBatch(rgb, device="cuda")
     outs = {
         "gaussian_blur": ib.gaussian_blur(2.0),
@@ -555,6 +566,7 @@ def _filter_phases(card, rng):
         "source": "zignal_tpu_torch/csrc/fused_blur_sharpen_morph.cu",
         "replaces": "zignal_tpu/ops/pallas_filter.py:197",
         "launches": k2_launches,
+        "streamed": k2_streamed,  # of the B=16 main path's launch
         "max_abs_err": k2_err,
         "ms": k2_ms[b][0],
         "plain_ms": k2_ms[b][1],
@@ -2995,7 +3007,8 @@ def kernel_times(tree) -> int:
     on ``TREE`` (another checkout, e.g. a ``git archive`` of the parent
     commit) or this one: CUDA events, the profiler's device time and the
     host time a call at the main-path shapes (K1 at B 16, 4 and 1 and its
-    plain resize, K2, K4 with its library call, K3 at B 4 and 16), K3's
+    plain resize, K2 at three filters, K4 with its library call, K3 at B 4
+    and 16), K3's
     transcendental costs from chains of growing length with the bound
     they give, and, where the package has tile lists, each tile alone."""
     if tree:
@@ -3037,8 +3050,10 @@ def kernel_times(tree) -> int:
     k2_names, k4_names = "filter_kernel", ("separable_kernel", "conv_kernel")
     for b in (FILTER_BATCH, 1):
         p = _u8(rng, (b, n, n))
-        cases.append((f"K2 B={b} {n}^2 gray sigma=2 r=2", k2_names,
-                      lambda p=p: fc.fused_blur_sharpen_morph(p)))
+        for sigma, r in ((2.0, 2), (1.0, 1), (1.5, 3)):
+            cases.append((f"K2 B={b} {n}^2 gray sigma={sigma:g} r={r}",
+                          k2_names, lambda p=p, sigma=sigma, r=r:
+                          fc.fused_blur_sharpen_morph(p, sigma, r)))
     x = _u8(rng, (FILTER_BATCH, n, n, 3))
     for sigma in (2.0, 1.0):
         k = gaussian_kernel(sigma)
@@ -3072,6 +3087,9 @@ def kernel_times(tree) -> int:
                 (sc, "CONV_TILES", lambda: convolve_separable(x, k2, k2),
                  k4_names)):
             tiles = getattr(mod, attr)
+            stream_plan = getattr(mod, "_stream_plan", None)
+            if stream_plan is not None:  # K2's tiles: the tile kernel
+                mod._stream_plan = lambda *a: None
             for tile in tiles[:8] if mod is fp else tiles[:5]:
                 setattr(mod, attr, (tile,))
                 mod._TABLES.clear()
@@ -3080,6 +3098,8 @@ def kernel_times(tree) -> int:
                       f"{_device_ms(fn, kernels):.4f} ms (profiler, device)",
                       flush=True)
             setattr(mod, attr, tiles)
+            if stream_plan is not None:
+                mod._stream_plan = stream_plan
             mod._TABLES.clear()
     return 0
 

@@ -243,6 +243,379 @@ def _kernel_tiles(x, sigma, rs, thr, tile, tw=None):
     return out
 
 
+# -- the streamed kernel, transcribed: 32 lanes as numpy vectors, words as
+#    uint64 holding 32-bit values, every op of streamed_filter_kernel
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _byte_perm(x, y, sel):
+    src = [(x >> np.uint64(8 * i)) & np.uint64(0xFF) for i in range(4)] + \
+          [(y >> np.uint64(8 * i)) & np.uint64(0xFF) for i in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= src[(sel >> 4 * n) & 7] << np.uint64(8 * n)
+    return out
+
+
+def _fshr(lo, hi, sh):  # __funnelshift_r
+    return (((hi << np.uint64(32)) | lo) >> np.uint64(sh)) & _M32
+
+
+def _fshl(lo, hi, sh):  # __funnelshift_l
+    return ((((hi << np.uint64(32)) | lo) << np.uint64(sh)) >> np.uint64(32)) \
+        & _M32
+
+
+def _shfl_up(v):  # __shfl_up_sync(v, 1) over the last axis: lane 0 keeps
+    return np.concatenate([v[..., :1], v[..., :-1]], -1)  # its own
+
+
+def _shfl_down(v):  # __shfl_down_sync(v, 1): lane 31 keeps its own
+    return np.concatenate([v[..., 1:], v[..., -1:]], -1)
+
+
+def _byte_pairs(ws):
+    lo = [_byte_perm(w, np.zeros_like(w), 0x4240) for w in ws]
+    hi = [_byte_perm(w, np.zeros_like(w), 0x4341) for w in ws]
+    e = []
+    for m in range(len(ws)):
+        e += [lo[m], hi[m]]
+        if m + 1 < len(ws):
+            e += [_fshr(lo[m], lo[m + 1], 16), _fshr(hi[m], hi[m + 1], 16)]
+    return e
+
+
+def _kernel_stream(x, sigma, rs, thr, vec_in=True):
+    """A numpy transcription of streamed_filter_kernel, every warp of the
+    plan at once (a row of each array a warp, a column a lane): the plan's
+    strips and segments, the ring of input rows (16-byte copies, or the
+    lane's bytes through the padded blur's halo tables), the width pass
+    four taps a __dp4a, the ring of width-pass rows read 4 blurred rows at
+    a time, the box sums, the sharpen, the dilate and the erode with the windows
+    carried from row to row, the warm-up rows that skip the stages whose
+    window is not full, the shuffles' edge lanes, and the rows and columns
+    outside the plane."""
+    planes = x.reshape(-1, *x.shape[-2:])
+    b, hh, ww = planes.shape
+    plan = fc._Plan(b, hh, ww, sigma, rs, "cpu")
+    f = dict(zip(fc._FIELDS, plan.base.tolist()))
+    assert f["stream"] == 1 and f["int_form"] == 0
+    taps0 = len(fc._FIELDS) + 2 + fc.MAX_TAPS
+    kb = f["skb"]
+    staps = [int(t) for t in plan.base[taps0:taps0 + kb]]
+    rb = kb // 2
+    a = (4 - rb % 4) % 4
+    nt = (kb + 3) // 4  # __dp4a a column
+    nw = (a + 4 * nt + 2) // 4 + 1
+    tq = [sum(staps[4 * c + b] << 8 * b for b in range(4) if 4 * c + b < kb)
+          for c in range(nt)]
+    assert max(staps) <= 255
+    g = 2 + rs + rb
+    full = np.float32(2 * rs + 1)
+    inv_full = plan.inv_full.view(np.float32)
+    sty, stx = plan.sty.numpy(), plan.stx.numpy()
+    assert len(sty) == hh + 2 * g and len(stx) == ww + 2 * g
+    u64 = np.uint64
+
+    # the warps: plane z, segment rows [y0, y1), strip columns from cb
+    item = np.arange(b * f["strips"] * f["segs"])[:, None]
+    z, rem = np.divmod(item, f["strips"] * f["segs"])
+    sy, sx = np.divmod(rem, f["strips"])
+    x0 = sx * f["sw"]
+    cb = x0 - f["h4"]
+    y0 = sy * f["seg"]
+    y1 = np.minimum(y0 + f["seg"], hh)
+    n = y1 - y0 + 2 * g
+    o = (cb - rb) & ~15
+    e = cb - rb - o
+    vec = vec_in & (ww % 16 == 0) & (o >= 0) & (o + 160 <= ww)
+    lane = np.arange(32)[None]
+    cols = (cb + 4 * lane)[..., None] + np.arange(4)  # [warps, 32, 4]
+    inside = (cols >= 0) & (cols < ww)
+    colmask = sum(np.where(inside[..., j], u64(0xFF << 8 * j), u64(0))
+                  for j in range(4))
+    ax = (np.minimum(cols + rs, ww - 1) - np.maximum(cols - rs, 0)
+          + 1).astype(np.float32)
+    cfull = (cols >= rs) & (cols + rs < ww)
+    out_lane = (cols[..., 0] >= x0) & (cols[..., 0] < x0 + f["sw"]) \
+        & (cols[..., 0] < ww)
+    ring_cols = np.where(vec, o + np.arange(160),
+                         stx[np.clip(o + np.arange(160) + g, 0,
+                                     ww + 2 * g - 1)])
+    out = np.full(planes.shape, 7, np.uint8)  # every byte is written
+
+    def inplane(r):
+        return (r >= 0) & (r < hh)
+
+    def over(bv, s, ay, ax, inv):  # the f32 form: int forms take the tiles
+        with np.errstate(invalid="ignore"):
+            mean = s.astype(np.float32) * inv
+        v = np.float32(2) * bv.astype(np.float32) - mean
+        return np.clip(np.floor(v + np.float32(0.5)), 0, 255) \
+            > np.float32(thr)
+
+    def zeros():
+        return np.zeros(item.shape[:1] + (32,), np.uint64)
+
+    ar = {}                     # width-pass rows (a ring of 32)
+    blr = {}                    # blurred rows (a ring of 16)
+    w02, w13 = {}, {}           # box width sums (a ring of 8)
+    s02, s13 = zeros(), zeros()
+    hm0 = hm1 = hm2 = he0 = he1 = he2 = zeros()
+    for i0 in range(0, int(n.max()), 4):
+        for i in range(i0, i0 + 4):  # 1. width pass
+            r = y0 - g + np.minimum(i, n - 1)
+            r = np.where(inplane(r), r, sty[np.clip(r + g, 0,
+                                                    len(sty) - 1)])
+            row = planes[z, r, ring_cols].astype(np.uint64)  # the ring row
+            base = (e & ~3) + 4 * lane
+            ws = [sum(np.take_along_axis(row, base + 4 * m + k, 1)
+                      << u64(8 * k) for k in range(4)) for m in range(nw)]
+            av = []
+            for j in range(4):  # four taps a __dp4a of the window at a + j
+                acc = 0
+                for c in range(nt):
+                    at = a + j + 4 * c
+                    win = _fshr(ws[at >> 2], ws[(at >> 2) + 1], 8 * (at & 3)) \
+                        if at & 3 else ws[at >> 2]
+                    acc = acc + sum(((win >> u64(8 * t)) & u64(0xFF))
+                                    * u64((tq[c] >> 8 * t) & 0xFF)
+                                    for t in range(4))
+                assert (acc < 2 ** 16).all()
+                av.append(acc)
+            ar[i % 32] = (_byte_perm(av[0], av[2], 0x5410),
+                          _byte_perm(av[1], av[3], 0x5410))
+        if i0 + 4 > 2 * rb:  # 2. height pass: 4 rows from kb + 3
+            for r4 in range(4):
+                i = i0 + r4
+                blw = zeros()
+                for j in range(4):
+                    acc = 32768
+                    for k in range(kb):
+                        pr = ar.get((i - 2 * rb + k) % 32,
+                                    (zeros(), zeros()))[j & 1]
+                        acc = acc + staps[k] * ((pr >> u64(16 * (j >> 1)))
+                                                & u64(0xFFFF)).astype(np.int64)
+                    blw |= np.minimum(acc >> 16, 255).astype(np.uint64) \
+                        << u64(8 * j)
+                br = y0 - g + i - rb
+                blr[i % 16] = np.where(inplane(br), blw & colmask, u64(0))
+        for i in range(max(i0, 2 * rb), i0 + 4):  # 3. per row
+            live = i < n  # a warp past its n has stopped
+            br = y0 - g + i - rb
+            blw = blr[i % 16]
+            q = _byte_pairs([_shfl_up(blw), blw, _shfl_down(blw)])
+            n02, n13 = q[4], q[5]
+            for d in range(1, rs + 1):
+                n02 = n02 + q[4 - d] + q[4 + d]
+                n13 = n13 + q[5 - d] + q[5 + d]
+            old = (i - 2 * rs - 1) % 8
+            s02 = (s02 + n02 - w02.get(old, 0)) & _M32
+            s13 = (s13 + n13 - w13.get(old, 0)) & _M32
+            w02[i % 8], w13[i % 8] = n02, n13
+            if i < 2 * g - 4:
+                continue
+            my = br - rs
+            bc = blr[(i - rs) % 16]
+            s = [s02 & u64(0xFFFF), s13 & u64(0xFFFF), s02 >> u64(16),
+                 s13 >> u64(16)]
+            row_full = (my >= rs) & (my + rs < hh)
+            ay = np.where(row_full, full, (np.minimum(my + rs, hh - 1)
+                                           - np.maximum(my - rs, 0)
+                                           + 1).astype(np.float32))
+            mw = zeros()
+            for j in range(4):
+                bv = ((bc >> u64(8 * j)) & u64(0xFF)).astype(np.int64)
+                with np.errstate(divide="ignore"):
+                    invc = np.where(cfull[..., j], inv_full,
+                                    np.float32(1) / (full * ax[..., j]))
+                    inv = np.where(row_full, invc,
+                                   np.float32(1) / (ay * ax[..., j]))
+                m = over(bv, s[j].astype(np.int64), ay, ax[..., j], inv)
+                mw |= np.where(m, u64(0xFF << 8 * j), u64(0))
+            mw = np.where(inplane(my), mw & colmask, u64(0))
+            hm0, hm1, hm2 = (mw | _fshl(_shfl_up(mw), mw, 8)
+                             | _fshr(mw, _shfl_down(mw), 8)), hm0, hm1
+            if i < 2 * g - 2:
+                continue
+            d = np.where(inplane(my - 1), (hm0 | hm1 | hm2) & colmask,
+                         u64(0))
+            he0, he1, he2 = (d & _fshl(_shfl_up(d), d, 8)
+                             & _fshr(d, _shfl_down(d), 8)), he0, he1
+            if i < 2 * g:
+                continue
+            v = he0 & he1 & he2
+            for j in range(4):
+                put = out_lane & live & (cols[..., j] < ww)
+                wz, wl = np.nonzero(put)
+                out[z[wz, 0], (my - 2)[wz, 0], cols[wz, wl, j]] = \
+                    (v[wz, wl] >> u64(8 * j)) & u64(0xFF)
+    return out.reshape(x.shape)
+
+
+# the streamed kernel's edges: planes just below, at and above one strip
+# width (120 output columns at r <= 2, 112 at r 3) and two, and one and two
+# segment lengths (9 rows where the card's warps outnumber the rows), and
+# heights under the 20-row warm-up
+STREAM_SIDES = [(1, 120), (5, 119), (19, 121), (21, 240), (8, 241), (9, 64),
+                (10, 113), (18, 250), (64, 129)]
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("hw", STREAM_SIDES, ids=lambda s: "x".join(map(str, s)))
+def test_streamed_schedule_reproduces_plain(batch, hw, monkeypatch):
+    """The streamed kernel's strips, segments, warm-up rows, rings and
+    carried windows, transcribed, give the plain version's mask at the
+    main paths' filters, on 16-byte rows (cp.async) and through the halo
+    tables (the gather), the edge strips through the tables; at every
+    segment length, those the plan leaves to the tiles for their warm-up
+    too."""
+    monkeypatch.setattr(fc, "MAX_WARMUP", float("inf"))
+    x = _u8((batch, *hw), 31)
+    for sigma, rs, thr in ((2.0, 2, 128.0), (1.0, 1, 127.5), (1.5, 3, 90.0)):
+        want = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x),
+                                                     sigma, rs, thr).numpy()
+        for vec_in in (True, False):
+            got = _kernel_stream(x, sigma, rs, thr, vec_in)
+            assert np.array_equal(got, want), (sigma, rs, vec_in)
+
+
+def test_streamed_schedule_at_the_main_path_geometry():
+    """One plane of 1024^2 at sigma 2, r 2: 9 strips (the last one 64
+    columns wide, its right edge through the tables) of 114 segments of 9
+    rows."""
+    x = _u8((1, 1024, 1024), 32)
+    want = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x))
+    assert np.array_equal(_kernel_stream(x, 2.0, 2, 128.0), want.numpy())
+
+
+def test_int_form_takes_the_tile_path(monkeypatch):
+    """The streamed kernel computes the sharpen's f32 form only. JAX's
+    bound rule takes the int form only past r = 3, where the tile kernel
+    runs anyway; where it would take it at r <= 3, the plan sends the
+    filter to the tile kernel, whose transcription gives the plain mask."""
+    assert all(integral.sums_fit_f32(h, w, rs) for h, w in
+               ((1, 1), (1024, 1024), (1 << 20, 1 << 20)) for rs in range(4))
+    monkeypatch.setattr(fc, "sums_fit_f32", lambda *a: False)
+    monkeypatch.setattr(integral, "sums_fit_f32", lambda *a: False)
+    x = _u8((45, 130), 33)
+    for sigma, rs, thr in ((1.5, 3, 120.0), (2.0, 2, 128.0), (0.5, 0, 60.0)):
+        plan = fc._Plan(1, 45, 130, sigma, rs, "cpu")
+        f = dict(zip(fc._FIELDS, plan.base.tolist()))
+        assert plan.stream is None and (f["stream"], f["int_form"]) == (0, 1)
+        assert fc._stream_plan(fc._taps(sigma), rs, 45, 130, 1, 132) is None
+        want = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x),
+                                                     sigma, rs, thr)
+        assert np.array_equal(_kernel_tiles(x, sigma, rs, thr, 16),
+                              want.numpy()), (sigma, rs)
+
+
+@pytest.mark.parametrize("b,sms", [(16, 132), (1, 132), (16, 114), (4, 132)])
+def test_stream_plan_fits_and_fills_the_card(b, sms):
+    """At the main path's planes the streamed plan's warps fit one wave of
+    resident warps (16 an SM: 128 registers, 8,832 bytes of shared memory
+    and the 1 KB a block reserves, of 228 KB) and give every SM at least 7
+    warps, with segments of at least 9 rows."""
+    smem = 4 * 160 + 2 * 32 * 32 * 4  # the kernel's rings: 4 input rows of
+    assert fc.RESIDENT_WARPS * (smem + 1024) <= 233472  # 160 B, 32 of 2 words
+    st = fc._stream_plan(fc._taps(2.0), 2, 1024, 1024, b, sms)
+    assert (st.kb, st.h4, st.sw, st.strips) == (13, 4, 120, 9)
+    assert st.warps == b * st.strips * st.segs
+    assert 7 * sms <= st.warps <= fc.RESIDENT_WARPS * sms
+    assert st.seg >= fc.MIN_SEG_ROWS
+    assert (st.segs - 1) * st.seg < 1024 <= st.segs * st.seg
+
+
+def test_stream_plan_at_the_main_paths():
+    """B=16 of 1024^2 takes 14 segments of 74 rows (2016 warps), B=1 114 of
+    9 (1026 warps)."""
+    big = fc._stream_plan(fc._taps(2.0), 2, 1024, 1024, 16, 132)
+    assert (big.seg, big.segs, big.warps) == (74, 14, 2016)
+    small = fc._stream_plan(fc._taps(2.0), 2, 1024, 1024, 1, 132)
+    assert (small.seg, small.segs, small.warps) == (9, 114, 1026)
+
+
+@pytest.mark.parametrize("b,h,w", [(16, 1024, 1024), (1, 1024, 1024),
+                                   (1, 63, 129), (3, 1, 65), (1, 1, 1),
+                                   (2, 5000, 37)])
+def test_stream_plan_covers_every_row_and_column(b, h, w, monkeypatch):
+    """Every (0 < sigma <= 2, r <= 3) filter can take the streamed kernel:
+    its strips and segments cover the plane, once, its taps are the blur's,
+    centred among zeros in 7 or 13, and its halo tables reach g = 2 + r +
+    (padded taps) // 2 past each border."""
+    monkeypatch.setattr(fc, "MAX_WARMUP", float("inf"))
+    for sigma in np.arange(0.5, 2.01, 0.5):
+        kint = fc._taps(float(sigma))
+        for rs in range(4):
+            plan = fc._Plan(b, h, w, float(sigma), rs, "cpu")
+            f = dict(zip(fc._FIELDS, plan.base.tolist()))
+            st = plan.stream
+            assert f["stream"] == 1 and st is not None
+            assert f["skb"] == st.kb == (7 if len(kint) <= 7 else 13)
+            assert f["h4"] % 4 == 0 and f["h4"] >= rs + 2
+            assert f["sw"] == 128 - 2 * f["h4"] and f["sw"] % 4 == 0
+            assert (f["strips"] - 1) * f["sw"] < w <= f["strips"] * f["sw"]
+            assert (f["segs"] - 1) * f["seg"] < h <= f["segs"] * f["seg"]
+            at = len(fc._FIELDS) + 2 + fc.MAX_TAPS
+            staps = plan.base[at:at + fc._STAPS]
+            pad = (st.kb - len(kint)) // 2
+            assert np.array_equal(staps[pad:pad + len(kint)], kint)
+            assert not staps[:pad].any() and not staps[pad + len(kint):].any()
+            g = 2 + rs + st.kb // 2
+            assert len(plan.sty) == h + 2 * g and len(plan.stx) == w + 2 * g
+
+
+def test_stream_plan_sends_wide_filters_to_the_tile_path():
+    """A blur of more than 13 taps, a sharpen radius above 3, a tap above
+    255 (sigma 0's one tap of 256 is not a byte) or taps that sum past 257
+    (two columns a word would carry) take the tile kernel, whose plan is
+    the one it always had."""
+    assert len(fc._taps(3.5)) > 13
+    assert list(fc._taps(0.0)) == [256]
+    assert fc._stream_plan(fc._taps(0.0), 2, 1024, 1024, 16, 132) is None
+    assert fc._stream_plan(fc._taps(3.5), 2, 1024, 1024, 16, 132) is None
+    assert fc._stream_plan(fc._taps(2.0), 4, 1024, 1024, 16, 132) is None
+    heavy = fc._taps(2.0).copy()
+    heavy[6] += 1
+    assert heavy.sum() == 258
+    assert fc._stream_plan(heavy, 2, 1024, 1024, 16, 132) is None
+    plan = fc._Plan(16, 1024, 1024, 3.5, 3, "cpu")
+    f = dict(zip(fc._FIELDS, plan.base.tolist()))
+    assert plan.stream is None and f["stream"] == 0
+    assert (f["th"], f["tw"]) == (plan.tile.th, plan.tile.tw)
+
+
+def test_stream_plan_leaves_warm_up_heavy_segments_to_the_tiles():
+    """A segment whose 2 g warm-up rows exceed 9/4 of its rows takes the
+    tile kernel: at B=1 of 1024^2 (9-row segments) r 3 with 13 taps (22
+    rows) does, r 2 (20) and 7 taps at r 3 (16) stream; at B=2 (10-row
+    segments) and B=16 every filter streams; a plane of one row never
+    does."""
+    def plan(sigma, rs, b, h=1024, w=1024):
+        return fc._stream_plan(fc._taps(sigma), rs, h, w, b, 132)
+
+    assert plan(1.5, 3, 1) is None and plan(2.0, 3, 1) is None
+    assert plan(2.0, 2, 1).seg == plan(1.0, 3, 1).seg == 9
+    for sigma in (0.5, 1.0, 1.5, 2.0):
+        for rs in range(4):
+            assert plan(sigma, rs, 2) is not None
+            assert plan(sigma, rs, 16) is not None
+            assert plan(sigma, rs, 3, 1, 65) is None
+    p = fc._Plan(1, 1024, 1024, 1.5, 3, "cpu")
+    f = dict(zip(fc._FIELDS, p.base.tolist()))
+    assert p.stream is None and f["stream"] == 0
+    assert (f["th"], f["tw"]) == (p.tile.th, p.tile.tw)
+
+
+def test_streamed_counter_is_a_plain_integer_beside_launches():
+    assert isinstance(fc.STREAMED, int) and isinstance(fc.LAUNCHES, int)
+    x = _u8((2, 48, 80), 34)
+    before = (fc.LAUNCHES, fc.STREAMED)
+    pipeline.filter_chain(torch.from_numpy(x))
+    assert (fc.LAUNCHES, fc.STREAMED) == before  # the CPU runs no kernel
+
+
 @pytest.mark.parametrize("shape,sigma,radius,thr,tile", [
     ((70, 45), 2.0, 2, 128.0, 32),
     ((70, 45), 2.0, 2, 128.0, 8),

@@ -271,6 +271,7 @@ def test_filter_kernel_at_tile_edges_equals_plain(cuda, batch, hw, sigma):
 def test_filter_kernel_every_tile_equals_plain(cuda, tile, monkeypatch):
     monkeypatch.setattr(fc, "TILES", (tile,))
     monkeypatch.setattr(fc, "_TABLES", {})
+    monkeypatch.setattr(fc, "_stream_plan", lambda *a: None)  # the tiles
     for shape, sigma, radius, thr in (((3, 200, 300), 2.0, 2, 128.0),
                                       ((2, 130, 70), 1.0, 1, -1.0),
                                       ((1, 90, 250), 3.5, 3, 300.0),
@@ -292,12 +293,103 @@ def test_filter_kernel_int_form_equals_plain(cuda, monkeypatch):
     from zignal_tpu_torch.ops import integral
 
     monkeypatch.setattr(fc, "_TABLES", {})
+    monkeypatch.setattr(fc, "_stream_plan", lambda *a: None)  # the tiles
     monkeypatch.setattr(fc, "sums_fit_f32", lambda *a: False)
     monkeypatch.setattr(integral, "sums_fit_f32", lambda *a: False)
     x = _u8((2, 300, 200), 6, cuda)
+    launches, streamed = fc.LAUNCHES, fc.STREAMED
     got = fc.fused_blur_sharpen_morph(x, 2.0, 3, 128.0)
+    assert (fc.LAUNCHES, fc.STREAMED) == (launches + 1, streamed)
     assert torch.equal(got, fc.fused_blur_sharpen_morph_reference(x, 2.0, 3,
                                                                   128.0))
+
+
+# the streamed kernel at its edges: planes just below, at and above one
+# and two strip widths (120 output columns, 112 at r 3) and one and two
+# segments of 9 rows, heights under its 20-row warm-up, B=1 and B=16
+STREAM_SIDES = [(1, 120), (5, 119), (19, 121), (21, 240), (8, 241), (9, 64),
+                (10, 113), (18, 250), (64, 129), (75, 1024)]
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("hw", STREAM_SIDES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sigma", [0.5, 1.0, 1.5, 2.0])
+def test_streamed_kernel_at_strip_and_segment_edges_equals_plain(
+        cuda, batch, hw, sigma, monkeypatch):
+    """Every segment length streams here, those whose warm-up sends the
+    plan to the tile kernel too."""
+    monkeypatch.setattr(fc, "MAX_WARMUP", float("inf"))
+    monkeypatch.setattr(fc, "_TABLES", {})
+    x = _u8((batch, *hw), 24, cuda)
+    for radius, thr in ((0, 128.0), (1, 127.5), (2, 128.0), (3, 90.0)):
+        streamed = fc.STREAMED
+        got = fc.fused_blur_sharpen_morph(x, sigma, radius, thr)
+        want = fc.fused_blur_sharpen_morph_reference(x, sigma, radius, thr)
+        assert fc.STREAMED == streamed + 1
+        assert torch.equal(got, want), (radius, thr)
+
+
+def test_warm_up_heavy_segments_take_the_tile_kernel(cuda):
+    """B=1 of 1024^2 at sigma 1.5, r 3 (22 warm-up rows for 9-row
+    segments) takes the tile kernel, B=16 the streamed one; both exact."""
+    for b, streams in ((1, 0), (16, 1)):
+        x = _u8((b, 1024, 1024), 28, cuda)
+        launches, streamed = fc.LAUNCHES, fc.STREAMED
+        got = fc.fused_blur_sharpen_morph(x, 1.5, 3, 120.0)
+        assert (fc.LAUNCHES, fc.STREAMED) == (launches + 1, streamed + streams)
+        assert torch.equal(got, fc.fused_blur_sharpen_morph_reference(
+            x, 1.5, 3, 120.0))
+
+
+@pytest.mark.parametrize("w", [1024, 1000, 130])
+def test_streamed_kernel_unaligned_plane_equals_plain(cuda, w):
+    """Rows that are not 16-byte aligned: every strip gathers through the
+    halo tables."""
+    base = _u8((4 * 75 * w + 3,), 25, cuda)
+    x = base[3:].view(4, 75, w)
+    for sigma, radius in ((2.0, 2), (1.0, 1)):
+        assert torch.equal(fc.fused_blur_sharpen_morph(x, sigma, radius),
+                           fc.fused_blur_sharpen_morph_reference(x, sigma,
+                                                                 radius))
+
+
+def test_int_form_takes_the_tile_kernel(cuda, monkeypatch):
+    """The streamed kernel computes the f32 form only: where the bound rule
+    takes the int form, the launch takes the tile kernel, exact at the
+    streamed kernel's strip and segment edges too."""
+    from zignal_tpu_torch.ops import integral
+
+    monkeypatch.setattr(fc, "_TABLES", {})
+    monkeypatch.setattr(fc, "sums_fit_f32", lambda *a: False)
+    monkeypatch.setattr(integral, "sums_fit_f32", lambda *a: False)
+    for shape in ((16, 21, 241), (1, 75, 1024), (16, 9, 120)):
+        x = _u8(shape, 26, cuda)
+        for sigma, radius, thr in ((2.0, 2, 128.0), (1.5, 3, 120.0),
+                                   (0.5, 0, 60.0)):
+            launches, streamed = fc.LAUNCHES, fc.STREAMED
+            got = fc.fused_blur_sharpen_morph(x, sigma, radius, thr)
+            assert (fc.LAUNCHES, fc.STREAMED) == (launches + 1, streamed)
+            assert torch.equal(got, fc.fused_blur_sharpen_morph_reference(
+                x, sigma, radius, thr)), (shape, sigma, radius)
+
+
+def test_streamed_counts_the_main_path_launch(cuda):
+    """pipeline.filter_chain on B=16 planes of 1024^2: one launch, and it
+    took the streamed kernel; a blur of 23 taps, or sigma 0, takes the
+    tile kernel."""
+    x = _u8((16, 1024, 1024), 27, cuda)
+    launches, streamed = fc.LAUNCHES, fc.STREAMED
+    mask = pipeline.filter_chain(x)
+    assert (fc.LAUNCHES, fc.STREAMED) == (launches + 1, streamed + 1)
+    assert torch.equal(mask, fc.fused_blur_sharpen_morph_reference(x))
+    wide = fc.fused_blur_sharpen_morph(x[:2], 3.5, 3, 128.0)
+    assert (fc.LAUNCHES, fc.STREAMED) == (launches + 2, streamed + 1)
+    assert torch.equal(wide, fc.fused_blur_sharpen_morph_reference(
+        x[:2], 3.5, 3, 128.0))
+    none = fc.fused_blur_sharpen_morph(x[:2], 0.0, 2, 128.0)
+    assert (fc.LAUNCHES, fc.STREAMED) == (launches + 3, streamed + 1)
+    assert torch.equal(none, fc.fused_blur_sharpen_morph_reference(
+        x[:2], 0.0, 2, 128.0))
 
 
 @pytest.mark.parametrize("shape,kernel,border", CONV_CASES)

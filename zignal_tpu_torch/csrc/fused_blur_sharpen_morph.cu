@@ -7,11 +7,15 @@
 // its blocks do: the TPU version carries base-256 digits through bf16 band
 // dots and shifts the masks with lane rolls; here the int32 ALUs are exact.
 //
-// What bounds it on this card: the integer pipes and shared memory, not
-// HBM. A pixel costs 2 B of HBM traffic (33.5 MB at B=16 of 1024^2, 0.010
-// ms at 3.35 TB/s) against 26 blur MACs plus the halo the tile recomputes,
-// the box sums, the sharpen and 2 mask passes. The design keeps each of
-// those at a few instructions an element:
+// What bounds it on this card: the instructions it issues, not HBM. A
+// pixel costs 2 B of HBM traffic (33.5 MB at B=16 of 1024^2, 0.010 ms at
+// 3.35 TB/s) against 26 blur MACs, the box sums, the sharpen and 2 mask
+// passes. Two kernels compute it, and the wrapper's plan picks one: the
+// streamed kernel (further down: warps walk down column strips, so no row
+// is computed twice and no block waits at a barrier) wherever its blur and
+// sharpen fit its registers and a segment is more than its warm-up rows,
+// else this tile kernel, which recomputes each tile's halo. The tile
+// kernel keeps each stage at a few instructions an element:
 // - one block owns a th x tw output tile of one plane (the wrapper picks
 //   the tile by shared memory and grid size; the block finds its tile in
 //   the 1-D grid with two divisions); every intermediate row has a pitch
@@ -70,6 +74,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;  // rows a thread computes in a vertical pass
 constexpr int kMaxTaps = 512;
 constexpr int kLgBW = 6;  // log2 of the row pitch compiled as a constant
+constexpr int kStreamTaps = 16;
 
 // The wrapper's ops/filter_chain.py:_params writes this layout.
 struct FilterParams {
@@ -83,9 +88,16 @@ struct FilterParams {
   int vec_out;         // rows of dst are 4-byte aligned
   int int_form;        // sharpen in integers (JAX's bound rule)
   int off_a, off_bl, off_m0, off_m1, smem;  // shared-memory layout, bytes
+  int stream;          // 1: the streamed kernel, with the fields below
+  int skb;             // its tap count: kb padded with zero taps
+  int h4;              // blurred columns left of a strip's output, % 4 == 0
+  int sw;              // output columns of a strip
+  int strips;          // strips of a plane
+  int seg, segs;       // output rows of a segment, segments of a strip
   float thr;
   float inv_full;      // f32(1) / f32((2 rs + 1)^2)
   int taps[kMaxTaps];
+  int staps[kStreamTaps];  // the taps centred in skb, zeros around them
 };
 
 // The mask of one pixel: sharpen(b, s) > thr, for the blurred value b and
@@ -477,6 +489,402 @@ int launch_pitch(const void* src, void* dst, const void* ty, const void* tx,
   return launch_taps<0, INT_FORM>(src, dst, ty, tx, p, s);
 }
 
+// ---------------------------------------------------------------------------
+// The streamed path: no tiles. A warp owns a column strip of one plane and
+// walks down a segment of its rows, kBlock input rows an iteration, and carries
+// every vertical window from row to row, so a row is computed once a
+// segment, not once a tile that overlaps it:
+// - lane l computes the blurred columns cb + 4 l .. cb + 4 l + 3, so a strip
+//   computes 128 blurred columns; its output is the sw = 128 - 2 h4 columns
+//   from x0 = cb + h4 (h4: h = rs + 2 rounded up to 4, so each output lane
+//   stores one aligned word);
+// - an iteration takes kBlock input rows: their copy into shared memory
+//   was issued during the iteration before, and the next block's copy is
+//   issued as soon as this one's width pass has read its rows: cp.async
+//   where the strip's span of a row lies inside 16-byte aligned rows, else
+//   each lane gathers its 5 bytes a row through the MIRROR table, all the
+//   block's loads in flight before any store;
+// - the blur width pass reads its lane's bytes as words and takes four taps
+//   a __dp4a (taps <= 255); its columns travel two a word, each < 2^16 (the
+//   taps sum to at most 257, 255 * 257 < 2^16);
+// - the width-pass rows go to a per-lane ring of the last 32 in shared
+//   memory (each lane reads only what it wrote, so it needs no barrier);
+//   the height pass computes the block's kBlock blurred rows at once from
+//   KB + kBlock - 1 of them;
+// - the block's rows then run the box sums (two columns a word, each
+//   < 2^16, with a running sum over rows), the sharpen, the threshold and
+//   the 3x3 OR and AND, unrolled so that the rows interleave; what a row
+//   needs of the block before (2 RS + 1 width sums, RS blurred rows, 2 rows
+//   of the dilate's and the erode's) is carried in registers;
+// - horizontal neighbours come from the next lanes (__shfl_*), merged with
+//   __funnelshift; nothing waits for another warp (a block is one warp);
+// - a segment starts 2 g input rows above its first output row (the only
+//   vertical halo); those warm-up rows skip the stages whose window is not
+//   full yet. Rows outside the plane are zeroed row by row (one test a
+//   row), columns outside by a mask word.
+// The arithmetic is the tile kernel's: the same integer sums, the same
+// rounding, OR and AND, and the f32 form of over: the wrapper's plan keeps
+// the int form on the tile kernel (at r <= 3 JAX's bound rule never takes
+// it).
+
+constexpr int kBlock = 4;                // input rows an iteration
+constexpr int kRowBytes = 160;           // a ring row: >= 128 + 12 + 15
+constexpr int kChunks = kRowBytes / 16;  // 16-byte copies a row
+constexpr int kGather = kRowBytes / 32;  // bytes a lane gathers a row
+constexpr int kARows = 32;               // width-pass rows kept
+constexpr int kWCarry = 8;               // width sums carried: >= 2 RS + 1
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// byte i | byte i + 2 << 16 of the little-endian bytes of the words w, for
+// i in [0, 4 NW - 2)
+template <int NW>
+__device__ __forceinline__ void byte_pairs(const uint32_t (&w)[NW],
+                                           uint32_t (&e)[4 * NW - 2]) {
+  uint32_t lo[NW], hi[NW];
+#pragma unroll
+  for (int m = 0; m < NW; ++m) {
+    lo[m] = __byte_perm(w[m], 0, 0x4240);  // bytes 0 and 2
+    hi[m] = __byte_perm(w[m], 0, 0x4341);  // bytes 1 and 3
+  }
+#pragma unroll
+  for (int m = 0; m < NW; ++m) {
+    e[4 * m] = lo[m];
+    e[4 * m + 1] = hi[m];
+    if (m + 1 < NW) {
+      e[4 * m + 2] = __funnelshift_r(lo[m], lo[m + 1], 16);
+      e[4 * m + 3] = __funnelshift_r(hi[m], hi[m + 1], 16);
+    }
+  }
+}
+
+template <int KB>
+struct Stream {
+  static constexpr int RB = KB / 2;
+  // the byte of a lane's first word where its window starts: (-rb) & 3,
+  // as cb is a multiple of 4 and the ring row starts 16-byte aligned
+  static constexpr int A = (4 - RB % 4) % 4;
+  // __dp4a a column of the width pass, and the words a lane reads a row
+  static constexpr int NT = (KB + 3) / 4;
+  static constexpr int NW = (A + 4 * NT + 2) / 4 + 1;
+  // width-pass rows one height pass reads
+  static constexpr int VR = KB + kBlock - 1;
+};
+
+// Blur width pass of a lane's 4 columns, A_j = sum_k t_k byte[a + j + k]
+// of the bytes of its words w: four taps a __dp4a (tq[c]: taps 4c .. 4c +
+// 3 as bytes, so each <= 255), returned as the pairs A_0 | A_2 << 16 and
+// A_1 | A_3 << 16 (each A <= 255 * 257 < 2^16)
+template <int KB>
+__device__ __forceinline__ void blur_row_dp4a(
+    const uint32_t (&w)[Stream<KB>::NW], const uint32_t (&tq)[Stream<KB>::NT],
+    uint32_t& a02, uint32_t& a13) {
+  using S = Stream<KB>;
+  uint32_t a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j] = 0;
+#pragma unroll
+    for (int c = 0; c < S::NT; ++c) {
+      const int b = S::A + j + 4 * c, q = b >> 2, sh = b & 3;
+      a[j] = __dp4a(sh ? __funnelshift_r(w[q], w[q + 1], 8 * sh) : w[q],
+                    tq[c], a[j]);
+    }
+  }
+  a02 = __byte_perm(a[0], a[2], 0x5410);
+  a13 = __byte_perm(a[1], a[3], 0x5410);
+}
+
+// One warp: the strip blockIdx.x % strips of segment (blockIdx.x / strips)
+// % segs of plane blockIdx.x / (strips segs), for KB taps and sharpen
+// radius RS.
+// ty/tx: int32 [n + 2g] MIRROR-resolved input positions of [-g, n + g),
+// g = 2 + RS + KB / 2.
+template <int KB, int RS>
+__global__ void __launch_bounds__(32, 16)
+streamed_filter_kernel(const uint8_t* __restrict__ src,
+                       uint8_t* __restrict__ dst,
+                       const int* __restrict__ ty, const int* __restrict__ tx,
+                       const __grid_constant__ FilterParams p) {
+  using S = Stream<KB>;
+  constexpr int RB = S::RB, NW = S::NW, NT = S::NT, VR = S::VR;
+  __shared__ __align__(16) uint8_t ring[kBlock * kRowBytes];  // input
+  __shared__ uint32_t a02r[kARows][32], a13r[kARows][32];      // width pass
+
+  constexpr int g = 2 + RS + RB;
+  constexpr float full = 2 * RS + 1;
+  const int lane = threadIdx.x;
+  const int H = p.H, W = p.W;
+
+  // the warp's strip and segment; n iterations read input rows y0 - g + i
+  const int per = p.strips * p.segs;
+  const int z = blockIdx.x / per, rem = blockIdx.x - z * per;
+  const int sy = rem / p.strips, sx = rem - sy * p.strips;
+  const int x0 = sx * p.sw, cb = x0 - p.h4;
+  const int y0 = sy * p.seg, y1 = min(y0 + p.seg, H);
+  const int n = y1 - y0 + 2 * g;
+  // ring byte q holds input column o + q; a lane's window starts at e + 4 l
+  const int o = (cb - RB) & ~15, e = cb - RB - o;
+  const bool vec = p.vec_in && o >= 0 && o + kRowBytes <= W;
+  const uint8_t* img = src + (size_t)z * H * W;
+  uint8_t* out = dst + (size_t)z * H * W;
+
+  // the lane's columns: inside the plane, window extents, the reciprocal
+  // of a full row's window area, the bytes it stores
+  const int c0 = cb + 4 * lane;
+  uint32_t colmask = 0;
+  float ax[4], invc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c0 + j;
+    if (c >= 0 && c < W) colmask |= 0xFFu << (8 * j);
+    ax[j] = extent(c, W, RS);
+    invc[j] = c >= RS && c + RS < W ? p.inv_full
+                                    : __frcp_rn(__fmul_rn(full, ax[j]));
+  }
+  const bool out_lane = c0 >= x0 && c0 < x0 + p.sw && c0 < W;
+  const bool out_word = out_lane && p.vec_out && c0 + 4 <= W;
+
+  // the gather's columns: ring bytes lane + 32 t, MIRROR-resolved
+  int gcol[kGather];
+  if (!vec) {
+#pragma unroll
+    for (int t = 0; t < kGather; ++t)
+      gcol[t] = tx[min(max(o + lane + 32 * t + g, 0), W + 2 * g - 1)];
+  }
+  // input rows i0 .. i0 + kBlock - 1 (clamped to the last) into the ring,
+  // row i0 + r at slot r: cp.async copies, or the gather's loads, all in
+  // flight before any store
+  auto stage = [&](int i0) {
+    const uint8_t* rows[kBlock];
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) {
+      const int y = y0 - g + min(i0 + r, n - 1);
+      rows[r] = img + (size_t)(y >= 0 && y < H ? y : ty[y + g]) * W;
+    }
+    if (vec) {
+      if (lane < kChunks) {
+#pragma unroll
+        for (int r = 0; r < kBlock; ++r)
+          cp_async16(ring + r * kRowBytes + 16 * lane, rows[r] + o + 16 * lane);
+      }
+      cp_async_commit();
+    } else {
+      uint8_t v[kBlock][kGather];
+#pragma unroll
+      for (int r = 0; r < kBlock; ++r)
+#pragma unroll
+        for (int t = 0; t < kGather; ++t) v[r][t] = rows[r][gcol[t]];
+#pragma unroll
+      for (int r = 0; r < kBlock; ++r)
+#pragma unroll
+        for (int t = 0; t < kGather; ++t)
+          ring[r * kRowBytes + lane + 32 * t] = v[r][t];
+    }
+  };
+  stage(0);
+  uint32_t tq[NT];  // the taps as bytes, zeros past KB
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    tq[c] = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * c + b < KB) tq[c] |= (uint32_t)p.staps[4 * c + b] << (8 * b);
+  }
+
+  // carried from block to block: the box sums over rows, the last 2 RS + 1
+  // width sums, the last RS blurred rows, the last 2 rows of the dilate's
+  // column ORs and of the erode's column ANDs
+  uint32_t s02 = 0, s13 = 0, pw02[kWCarry] = {}, pw13[kWCarry] = {},
+           pbl[kBlock] = {}, phm[2] = {}, phe[2] = {};
+
+  for (int i0 = 0; i0 < n; i0 += kBlock) {
+    // 1. blur width pass of input rows y0 - g + i, i in [i0, i0 + kBlock)
+    if (vec) cp_async_wait<0>();
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) {
+      const uint8_t* rowp = ring + r * kRowBytes + (e & ~3) + 4 * lane;
+      uint32_t w[NW], a02, a13;
+#pragma unroll
+      for (int m = 0; m < NW; ++m)
+        w[m] = *reinterpret_cast<const uint32_t*>(rowp + 4 * m);
+      blur_row_dp4a<KB>(w, tq, a02, a13);
+      a02r[(i0 + r) & (kARows - 1)][lane] = a02;
+      a13r[(i0 + r) & (kARows - 1)][lane] = a13;
+    }
+    __syncwarp();
+    if (i0 + kBlock < n) stage(i0 + kBlock);  // in flight during 2. and 3.
+
+    // 2. blur height pass and divClampU8 of blurred rows y0 - g + i - RB,
+    //    i in [i0, i0 + kBlock), from width-pass rows i0 - 2 RB .. i0 +
+    //    kBlock - 1; 0 outside the image
+    uint32_t blw[kBlock] = {};
+    if (i0 + kBlock > 2 * RB) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // column j: the pair j & 1, half j >> 1
+        int v[VR];
+#pragma unroll
+        for (int t = 0; t < VR; ++t) {
+          const int row = (i0 - 2 * RB + t) & (kARows - 1);
+          const uint32_t pr = (j & 1) ? a13r[row][lane] : a02r[row][lane];
+          v[t] = (j >> 1) ? (int)(pr >> 16) : (int)(pr & 0xFFFF);
+        }
+#pragma unroll
+        for (int r = 0; r < kBlock; ++r) {
+          int acc = 32768;
+#pragma unroll
+          for (int k = 0; k < KB; ++k) acc += p.staps[k] * v[r + k];
+          blw[r] |= (uint32_t)min(acc >> 16, 255) << (8 * j);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kBlock; ++r) {
+        const int br = y0 - g + i0 + r - RB;
+        blw[r] = br >= 0 && br < H ? blw[r] & colmask : 0;
+      }
+    }
+
+    // 3. each row of the block: box sums, sharpen, threshold, dilate,
+    //    erode; a stage runs where its window is full
+    uint32_t n02[kBlock], n13[kBlock], hm[kBlock], he[kBlock];
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) {
+      const int i = i0 + r;
+      const int br = y0 - g + i - RB;  // the blurred row
+      // box width sums of row br (two columns a word), 0 before the first
+      n02[r] = n13[r] = 0;
+      if (i >= 2 * RB) {
+        const uint32_t w3[3] = {__shfl_up_sync(~0u, blw[r], 1), blw[r],
+                                __shfl_down_sync(~0u, blw[r], 1)};
+        uint32_t q[10];  // q[4 + d]: column d | column d + 2 << 16
+        byte_pairs<3>(w3, q);
+        n02[r] = q[4];
+        n13[r] = q[5];
+#pragma unroll
+        for (int d = 1; d <= RS; ++d) {
+          n02[r] += q[4 - d] + q[4 + d];
+          n13[r] += q[5 - d] + q[5 + d];
+        }
+      }
+      // the running sum over rows br - 2 RS .. br: each half stays in
+      // [0, 2^16), so the word arithmetic is exact
+      constexpr int back = 2 * RS + 1;
+      s02 += n02[r] - (r >= back ? n02[r - back] : pw02[kWCarry + r - back]);
+      s13 += n13[r] - (r >= back ? n13[r - back] : pw13[kWCarry + r - back]);
+
+      // sharpen and threshold: mask row my = br - RS, 0 outside
+      const int my = br - RS;
+      uint32_t mw = 0;
+      if (i >= 2 * g - 4 && my >= 0 && my < H) {
+        const uint32_t bc = r >= RS ? blw[r - RS] : pbl[kBlock + r - RS];
+        const int s[4] = {(int)(s02 & 0xFFFF), (int)(s13 & 0xFFFF),
+                          (int)(s02 >> 16), (int)(s13 >> 16)};
+        float ay = full, inv[4] = {invc[0], invc[1], invc[2], invc[3]};
+        if (!(my >= RS && my + RS < H)) {  // a row near the top or bottom
+          ay = extent(my, H, RS);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) inv[j] = __frcp_rn(__fmul_rn(ay, ax[j]));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (over<false>((bc >> (8 * j)) & 0xFF, s[j], ay, ax[j], inv[j],
+                          p.thr))
+            mw |= 0xFFu << (8 * j);
+        mw &= colmask;
+      }
+      // the OR of columns c - 1, c, c + 1 of mask row my
+      hm[r] = mw | __funnelshift_l(__shfl_up_sync(~0u, mw, 1), mw, 8) |
+              __funnelshift_r(mw, __shfl_down_sync(~0u, mw, 1), 8);
+
+      // dilate: row my - 1, the OR of mask rows my - 2 .. my, back to 0
+      // outside the image before the erode; the AND of its columns
+      const int dy = my - 1;
+      uint32_t d = 0;
+      if (i >= 2 * g - 2 && dy >= 0 && dy < H)
+        d = (hm[r] | (r >= 1 ? hm[r - 1] : phm[1]) |
+             (r >= 2 ? hm[r - 2] : phm[r])) & colmask;
+      he[r] = d & __funnelshift_l(__shfl_up_sync(~0u, d, 1), d, 8) &
+              __funnelshift_r(d, __shfl_down_sync(~0u, d, 1), 8);
+
+      // erode: output row my - 2, the AND of dilated rows my - 3 .. my - 1
+      if (i >= 2 * g && i < n) {
+        const uint32_t v = he[r] & (r >= 1 ? he[r - 1] : phe[1]) &
+                           (r >= 2 ? he[r - 2] : phe[r]);
+        uint8_t* op = out + (size_t)(my - 2) * W + c0;
+        if (out_word) {
+          *reinterpret_cast<uint32_t*>(op) = v;
+        } else if (out_lane) {
+          op[0] = (uint8_t)v;
+          if (c0 + 1 < W) op[1] = (uint8_t)(v >> 8);
+          if (c0 + 2 < W) op[2] = (uint8_t)(v >> 16);
+          if (c0 + 3 < W) op[3] = (uint8_t)(v >> 24);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kWCarry; ++c) {
+      pw02[c] = c + kBlock < kWCarry ? pw02[c + kBlock]
+                                     : n02[c + kBlock - kWCarry];
+      pw13[c] = c + kBlock < kWCarry ? pw13[c + kBlock]
+                                     : n13[c + kBlock - kWCarry];
+    }
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) pbl[r] = blw[r];
+    phm[0] = hm[kBlock - 2];
+    phm[1] = hm[kBlock - 1];
+    phe[0] = he[kBlock - 2];
+    phe[1] = he[kBlock - 1];
+  }
+  if (vec) cp_async_wait<0>();
+}
+
+template <int KB, int RS>
+int launch_streamed(const void* src, void* dst, const void* ty,
+                    const void* tx, const FilterParams& p,
+                    cudaStream_t stream) {
+  const long long grid = (long long)p.B * p.strips * p.segs;
+  if (grid < 1 || grid > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
+  streamed_filter_kernel<KB, RS><<<(unsigned)grid, 32, 0, stream>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
+      static_cast<const int*>(ty), static_cast<const int*>(tx), p);
+  return cudaGetLastError();
+}
+
+template <int RS>
+int launch_stream_taps(const void* src, void* dst, const void* ty,
+                       const void* tx, const FilterParams& p,
+                       cudaStream_t s) {
+  switch (p.skb) {
+    case 7:
+      return launch_streamed<7, RS>(src, dst, ty, tx, p, s);
+    case 13:
+      return launch_streamed<13, RS>(src, dst, ty, tx, p, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int launch_stream_radius(const void* src, void* dst, const void* ty,
+                         const void* tx, const FilterParams& p,
+                         cudaStream_t s) {
+  switch (p.rs) {
+    case 0:
+      return launch_stream_taps<0>(src, dst, ty, tx, p, s);
+    case 1:
+      return launch_stream_taps<1>(src, dst, ty, tx, p, s);
+    case 2:
+      return launch_stream_taps<2>(src, dst, ty, tx, p, s);
+    case 3:
+      return launch_stream_taps<3>(src, dst, ty, tx, p, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -494,6 +902,13 @@ int zt_fused_blur_sharpen_morph(const void* src, void* dst, const void* ty,
   memcpy(&p, params, sizeof(p));
   if (p.kb < 1 || p.kb > kMaxTaps || p.lg_bw < 4) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.stream) {
+    if (p.kb > p.skb) return cudaErrorInvalidValue;
+    for (int k = 0; k < kStreamTaps; ++k)  // bytes of a __dp4a
+      if (p.staps[k] < 0 || p.staps[k] > 255) return cudaErrorInvalidValue;
+    if (p.int_form) return cudaErrorInvalidValue;  // the tile kernel's
+    return launch_stream_radius(src, dst, ty, tx, p, s);
+  }
   if (p.int_form) return launch_pitch<true>(src, dst, ty, tx, p, s);
   return launch_pitch<false>(src, dst, ty, tx, p, s);
 }

@@ -8,6 +8,12 @@ zignal_tpu/ops/pallas_filter.py.
 the stages exactly as the JAX package's ``_filter_chain_xla``
 (zignal_tpu/pipeline.py:95-104) composes them. The kernel takes any
 H, W >= 1, so, unlike the TPU kernel, it needs no shape gate.
+
+The plan picks one of the file's two kernels from the shape and the
+filter: the streamed kernel (warps walking down column strips, its plan
+``_stream_plan``) where its blur and sharpen windows fit its registers
+and its segments are more than their warm-up rows, else the tile kernel
+(one block a tile, ``_tile_plan``).
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ from .tables import _kernel_to_int, blur_radius, gaussian_kernel, \
 
 __all__ = ["fused_blur_sharpen_morph", "fused_blur_sharpen_morph_reference"]
 
-# kernel launches since import, read as filter_chain.LAUNCHES
+# kernel launches since import, read as filter_chain.LAUNCHES; STREAMED
+# counts those that took the streamed kernel
 LAUNCHES = 0
+STREAMED = 0
 
 # per-shape plans: (B, H, W, sigma, sharpen_radius, device) -> _Plan
 _TABLES: dict = {}
@@ -46,10 +54,35 @@ TILES = ((6, 56), (6, 24), (7, 24), (7, 56), (5, 24), (6, 8), (7, 8),
          (5, 8), (4, 8), (8, 56), (8, 24), (8, 8))
 # a grid of fewer blocks than this many per SM takes the next tile
 MIN_BLOCKS_PER_SM = 4
+# The streamed kernel: a warp computes STRIP blurred columns of a column
+# strip, 4 a lane, down a segment of rows. It is compiled for the tap
+# counts STREAM_TAPS (a shorter blur is padded with zero taps to the next)
+# and sharpen radii up to STREAM_MAX_RS; it multiplies four taps at once as
+# bytes (each <= 255: sigma 0's one tap of 256 is not) and keeps two
+# columns of the width pass a word (the taps sum to at most 257, 255 * 257
+# < 2^16).
+STRIP = 128
+STREAM_TAPS = (7, 13)
+STREAM_MAX_RS = 3
+# A warp is a block, and an SM holds RESIDENT_WARPS of them (the kernel's
+# launch bounds; 8.6 KB of shared memory a warp). The plan cuts a strip into
+# as many segments as one wave of resident warps holds, since more warps an
+# SM hide more latency, but none shorter than MIN_SEG_ROWS: a segment
+# starts with 2 g warm-up rows, which a shorter one no longer pays for.
+RESIDENT_WARPS = 16
+MIN_SEG_ROWS = 9
+# Where a segment's 2 g warm-up rows (g = 2 + r + taps // 2) outnumber its
+# output rows more than MAX_WARMUP times, the tile kernel was as fast or
+# faster on the H100 (at B=1 of 1024^2, 9-row segments: r 3 with 13 taps,
+# 22 warm-up rows, ran 18.9 us streamed against 18.0-18.9 tiled; r 2, 20
+# rows, 15.7 against 17.2), so the plan leaves those to the tile kernel.
+MAX_WARMUP = 9 / 4
 # the fields of the kernel's FilterParams ahead of thr and the taps
 _FIELDS = ("B", "H", "W", "rb", "rs", "kb", "th", "tw", "tiles_x",
            "tiles_y", "lg_bw", "iws", "vec_in", "vec_out", "int_form",
-           "off_a", "off_bl", "off_m0", "off_m1", "smem")
+           "off_a", "off_bl", "off_m0", "off_m1", "smem", "stream", "skb",
+           "h4", "sw", "strips", "seg", "segs")
+_STAPS = 16  # the kernel's kStreamTaps
 
 
 def _a16(n: int) -> int:
@@ -105,6 +138,42 @@ def _tile_plan(rb: int, rs: int, h: int, w: int, b: int,
     return best
 
 
+class StreamPlan:
+    """The streamed kernel's plan: ``kb`` taps (the blur's, padded with
+    zeros), strips of ``sw`` output columns after ``h4`` blurred ones, and
+    ``segs`` segments of ``seg`` output rows a strip; one warp (a block) a
+    segment of a strip of a plane, ``warps`` in all."""
+
+    __slots__ = ("kb", "h4", "sw", "strips", "seg", "segs", "warps")
+
+    def __init__(self, kb, h4, strips, seg, segs, b):
+        self.kb, self.h4, self.sw = kb, h4, STRIP - 2 * h4
+        self.strips, self.seg, self.segs = strips, seg, segs
+        self.warps = b * strips * segs
+
+
+def _stream_plan(kint, rs: int, h: int, w: int, b: int,
+                 sms: int) -> StreamPlan | None:
+    """The streamed plan for the 8.8 taps ``kint`` and sharpen radius
+    ``rs`` on ``B = b`` planes of ``h x w`` on a card of ``sms`` SMs, or
+    None where the kernel does not take the filter. It computes the
+    sharpen's f32 form only: the int form (which JAX's bound rule takes
+    only past r = 3) stays on the tile kernel."""
+    kb = next((k for k in STREAM_TAPS if k >= len(kint)), None)
+    if kb is None or rs > STREAM_MAX_RS or int(np.max(kint)) > 255 \
+            or int(np.sum(kint)) > 257 or not sums_fit_f32(h, w, rs):
+        return None
+    h4 = (rs + 5) & ~3
+    strips = -(-w // (STRIP - 2 * h4))
+    segs = max(1, RESIDENT_WARPS * sms // (b * strips))
+    seg = max(-(-h // segs), min(MIN_SEG_ROWS, h))
+    segs = -(-h // seg)
+    if 2 * (2 + rs + kb // 2) > MAX_WARMUP * seg or \
+            b * strips * segs >= 2 ** 31:
+        return None
+    return StreamPlan(kb, h4, strips, seg, segs, b)
+
+
 def _taps(sigma: float) -> np.ndarray:
     """The blur's 8.8 taps; sigma 0 blurs with the one tap 256:
     (x * 256 * 256) >> 16 is x."""
@@ -114,7 +183,13 @@ def _taps(sigma: float) -> np.ndarray:
 
 
 class _Plan:
-    __slots__ = ("tile", "ty", "tx", "base", "inv_full", "params")
+    """Both kernels' plans for one shape: ``stream`` (None where the
+    streamed kernel does not take the filter) is launched when there is
+    one, with its halo tables ``sty``/``stx``; ``tile``, ``ty``/``tx``
+    otherwise."""
+
+    __slots__ = ("tile", "ty", "tx", "stream", "sty", "stx", "base",
+                 "inv_full", "params")
 
     def __init__(self, b, h, w, sigma, rs, device):
         kint = _taps(sigma)
@@ -124,21 +199,34 @@ class _Plan:
         g = 2 + rs + rb
         sms = sm_count(device)
 
-        def halo(n):  # MIRROR-resolved input positions of [-g, n + g)
+        def halo(n, g=g):  # MIRROR-resolved input positions of [-g, n + g)
             pos = resolve_index_np(np.arange(-g, n + g), n, BorderMode.MIRROR)
             return torch.from_numpy(pos.astype(np.int32)).to(device)
 
         t = self.tile = _tile_plan(rb, rs, h, w, b, sms)
         self.ty, self.tx = halo(h), halo(w)
+        st = self.stream = _stream_plan(kint, rs, h, w, b, sms)
+        self.sty, self.stx = self.ty, self.tx
+        if st is not None and st.kb != len(kint):
+            sg = 2 + rs + st.kb // 2  # the padded blur's halo
+            self.sty, self.stx = halo(h, sg), halo(w, sg)
         fields = dict(B=b, H=h, W=w, rb=rb, rs=rs, kb=len(kint), th=t.th,
                       tw=t.tw, tiles_x=-(-w // t.tw), tiles_y=-(-h // t.th),
                       lg_bw=t.lg_bw, iws=t.iws, vec_in=0, vec_out=0,
                       int_form=int(not sums_fit_f32(h, w, rs)),
                       off_a=t.off_a, off_bl=t.off_bl,
-                      off_m0=t.off_m0, off_m1=t.off_m1, smem=t.smem)
-        base = np.zeros(len(_FIELDS) + 2 + MAX_TAPS, np.int32)
+                      off_m0=t.off_m0, off_m1=t.off_m1, smem=t.smem,
+                      stream=int(st is not None), skb=0, h4=0, sw=0,
+                      strips=0, seg=0, segs=0)
+        taps = len(_FIELDS) + 2
+        base = np.zeros(taps + MAX_TAPS + _STAPS, np.int32)
+        base[taps:taps + len(kint)] = kint
+        if st is not None:
+            fields.update(skb=st.kb, h4=st.h4, sw=st.sw, strips=st.strips,
+                          seg=st.seg, segs=st.segs)
+            at = taps + MAX_TAPS + (st.kb - len(kint)) // 2
+            base[at:at + len(kint)] = kint
         base[:len(_FIELDS)] = [fields[f] for f in _FIELDS]
-        base[len(_FIELDS) + 2:len(_FIELDS) + 2 + len(kint)] = kint
         self.base = base
         # the sharpen's reciprocal of a full window, correctly rounded as
         # __frcp_rn rounds it
@@ -214,7 +302,7 @@ def fused_blur_sharpen_morph(x, sigma: float = 2.0, sharpen_radius: int = 2,
     runs the plain version. During a profiler session the kernel's route
     adds the recorder's spans ``K2.check``, ``K2.plan``, ``K2.alloc`` and
     ``K2.params``, one after the other."""
-    global LAUNCHES
+    global LAUNCHES, STREAMED
     t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
         else 0
     sigma, rs, thr = float(sigma), int(sharpen_radius), float(thr)
@@ -231,7 +319,9 @@ def fused_blur_sharpen_morph(x, sigma: float = 2.0, sharpen_radius: int = 2,
     if t0:
         t0 = RECORDER.add("K2.check", t0)
     plan = _plan(b, h, w, sigma, rs, x.device)
-    if b * -(-h // plan.tile.th) * -(-w // plan.tile.tw) >= 2 ** 31:
+    stream = plan.stream
+    if stream is None and \
+            b * -(-h // plan.tile.th) * -(-w // plan.tile.tw) >= 2 ** 31:
         raise ValueError("batch or plane too large for one launch grid")
     if t0:
         t0 = RECORDER.add("K2.plan", t0)
@@ -243,8 +333,10 @@ def fused_blur_sharpen_morph(x, sigma: float = 2.0, sharpen_radius: int = 2,
                      w % 4 == 0 and out.data_ptr() % 4 == 0)
     if t0:
         RECORDER.add("K2.params", t0)
+    ty, tx = (plan.ty, plan.tx) if stream is None else (plan.sty, plan.stx)
     launch("zt_fused_blur_sharpen_morph", x.device, planes.data_ptr(),
-           out.data_ptr(), plan.ty.data_ptr(), plan.tx.data_ptr(), params)
+           out.data_ptr(), ty.data_ptr(), tx.data_ptr(), params)
     with COUNT_LOCK:
         LAUNCHES += 1
+        STREAMED += stream is not None
     return out.view(x.shape)
