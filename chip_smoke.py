@@ -63,7 +63,12 @@ Phases (any failure raises and exits non-zero):
    on the card: pipeline.color_chain_u8 on [4, 1024, 1024, 3] and
    [16, 1024, 1024, 3] (K3, and K3p once, before K3's first launch), the
    config-2 step of bench.py (color_chain_u8 -> equalize(u8[0]) ->
-   autocontrast(u8[1])), and ImageBatch of [16, 1024, 1024, 3] RGB through
+   autocontrast(u8[1])), the colorspace step (equalize of four photo-like
+   camera frames of 4608x3456 made on the card, then
+   pipeline.color_chain_values(..., ("rgb", "lab")): K3 once, counted by
+   VALUES, the Lab values within CHAIN_UNIT of the plain version on the
+   card, the equalized bytes equal to the CPU's and most of them moved),
+   and ImageBatch of [16, 1024, 1024, 3] RGB through
    .resize((512, 512)).gaussian_blur(1.5).autocontrast(0.01)
    .convert(Gray).equalize() (K1, K4) and .convert(Gray)
    .threshold_otsu();
@@ -77,7 +82,8 @@ Phases (any failure raises and exits non-zero):
    small and odd shapes and the extreme-values plane;
 12. K3 and plain times at B=4 and B=16 of 1024^2 on the bench chain, and the
    plain equalize and autocontrast and the config-2 step at the same B,
-   timed in turns in this one process, and K3's bound on this batch;
+   timed in turns in this one process, and K3's bound on this batch; then
+   the colorspace step, its equalize and K3's values route alone;
 13. the resize, convolution, order-statistic, edge and pyramid paths, each
    through the user's entry point and with the launch counts zeroed just
    before and read just after: ImageBatch of [16, 1024, 1024, 3] RGB
@@ -225,7 +231,8 @@ Phases (any failure raises and exits non-zero):
    a summary under 2000 bytes whose values hold all six, and K1, K2, K3,
    K4 launched (K3p once); the bench's lines are printed and its launches
    join the kernels line.
-The last two lines are a JSON summary of the kernels (each with its
+The last two lines are a JSON summary of the kernels (K3's with the
+launches of its values route, ``values``; each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
 counted at CBRTF_OPS and POWF_OPS) and the device line.
@@ -610,6 +617,28 @@ def _extremes():
     return torch.from_numpy(x).cuda()
 
 
+# the colorspace step's batch (4 camera frames of 4608 x 3456) and chain
+CAMERA = (4, 3456, 4608, 3)
+VALUES_CHAIN = ("rgb", "lab")
+
+
+def _camera_frames(shape, seed: int = 19):
+    """Photo-like u8 frames made on the card: a smooth 28 x 37 grid
+    upsampled, under a 1.8 gamma from 16 to 144, with grain of +-6. The
+    histogram is peaked and the highlights empty, so equalize moves most
+    values."""
+    import torch.nn.functional as F
+
+    b, h, w, c = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    grid = torch.rand((b, c, 28, 37), generator=gen, device="cuda")
+    s = F.interpolate(grid, size=(h, w), mode="bilinear", align_corners=True)
+    grain = torch.randint(-6, 7, (b, c, h, w), generator=gen, device="cuda")
+    v = torch.round(16 + 128 * s.clamp(0, 1) ** 1.8) + grain
+    return v.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+
+
 def _check_chain(label, x, spaces):
     """K3 vs plain on ``x`` in u8 and in f32; returns (f32 max-abs, max
     distance of f*255 from an integer)."""
@@ -685,6 +714,40 @@ def _color_phases(card, rng):
     _check_equal("config-2 step autocontrast(u8[1]) vs the CPU", ac.cpu(),
                  enhancement.autocontrast(ref[1].cpu()))
     k3_launches += step_launches
+
+    # the colorspace step: four 16-MP camera frames equalized, then to
+    # CIELAB f32 on K3's values route
+    frames = _camera_frames(CAMERA)
+    torch.cuda.synchronize()
+    cc.LAUNCHES = cc.VALUES = 0
+    cs_eq = enhancement.equalize(frames)
+    cs_lab = pipeline.color_chain_values(cs_eq, VALUES_CHAIN)
+    torch.cuda.synchronize()
+    k3_values = cc.VALUES
+    print(f"colorspace step {list(frames.shape)}: K3 {cc.LAUNCHES} launch, "
+          f"VALUES {k3_values}, equalized output contiguous "
+          f"{cs_eq.is_contiguous()}")
+    if (cc.LAUNCHES, k3_values) != (1, 1) or not cs_eq.is_contiguous():
+        raise AssertionError("color_chain_values did not launch K3 once on "
+                             "its values route, or equalize's output needs "
+                             "a copy first")
+    if not torch.equal(cs_eq.cpu(), enhancement.equalize(frames.cpu())):
+        raise AssertionError("the colorspace step's equalize differs from "
+                             "the CPU")
+    moved = float((cs_eq != frames).to(torch.float32).mean())
+    want = cc.fused_color_chain_u8_reference(cs_eq, VALUES_CHAIN,
+                                             quantize=False)
+    if cs_lab.shape != frames.shape or cs_lab.dtype != torch.float32:
+        raise AssertionError(f"bad Lab output {cs_lab.shape} {cs_lab.dtype}")
+    lab_err = float((cs_lab - want).abs().max())
+    ok = lab_err <= CHAIN_UNIT and bool(torch.isfinite(cs_lab).all())
+    print(f"colorspace step: equalize equal to the CPU ({moved:.3f} of the "
+          f"values moved), Lab max_abs_err={lab_err} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok or moved < 0.5:
+        raise AssertionError("the colorspace step disagrees with plain")
+    k3_launches += 1
+    del want
 
     x16 = batches[16]
     torch.cuda.synchronize()
@@ -795,6 +858,20 @@ def _color_phases(card, rng):
           f"{k3p_dev:.4f} ms (profiler, device); plain {p1:.4f} / {p2:.4f} "
           f"ms; bound {k3p_bound(pb.numel())[0]:.4f} ms")
 
+    colorspace = lambda: pipeline.color_chain_values(  # noqa: E731
+        enhancement.equalize(frames), VALUES_CHAIN)
+    values = lambda: cc.fused_color_chain_u8(  # noqa: E731
+        cs_eq, VALUES_CHAIN, quantize=False)
+    eq_only = lambda: enhancement.equalize(frames)  # noqa: E731
+    s1, v1, q1, q2, v2, s2 = (_time_ms(colorspace, 5), _time_ms(values, 5),
+                              _time_ms(eq_only, 5), _time_ms(eq_only, 5),
+                              _time_ms(values, 5), _time_ms(colorspace, 5))
+    print(f"[{card}] colorspace step {list(frames.shape)}: {s1:.4f} / "
+          f"{s2:.4f} ms ({frames[..., 0].numel() / 1e3 / min(s1, s2):.1f} "
+          f"MPix/s); equalize {q1:.4f} / {q2:.4f} ms; K3 values route "
+          f"rgb->lab {v1:.4f} / {v2:.4f} ms")
+    del frames, cs_eq, cs_lab
+
     k3b = k3_bound(x4)
     print(f"K3 bound at B=4 on the bench chain: {k3b[0]:.4f} ms "
           f"({k3b[1]})")
@@ -804,7 +881,8 @@ def _color_phases(card, rng):
         "source": "zignal_tpu_torch/csrc/fused_color_chain_u8.cu",
         "replaces": "zignal_tpu/ops/pallas_color.py:367",
         "launches": k3_launches,
-        "max_abs_err": k3_err,
+        "values": k3_values,
+        "max_abs_err": max(k3_err, lab_err),
         "ms": rows[4][0],
         "plain_ms": rows[4][1],
         "bound_ms": k3b[0],

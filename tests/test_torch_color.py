@@ -1,6 +1,6 @@
 """The port's colour graph, u8 edges and fused chain against zignal_tpu on
 JAX-CPU (zignal_tpu_torch/color/, ops/color_chain.py,
-pipeline.color_chain_u8).
+pipeline.color_chain_u8 and pipeline.color_chain_values).
 
 Tolerances, stated once:
 - UNIT = 1e-5 max-abs on unit-range channels (rgb, gray, ycbcr, lms,
@@ -633,6 +633,81 @@ def test_wrapper_rejects_bad_inputs():
         cc.fused_color_chain_u8(
             torch.zeros(1, 4, 4, 3, dtype=torch.uint8, device="meta"),
             BENCH_CHAIN)
+
+
+# -- pipeline.color_chain_values: K3's f32-values route ----------------------
+
+VALUE_CHAINS = [("rgb", "xyz"), ("rgb", "lab"), ("rgb", "oklab"),
+                ("rgb", "xyb"), ("rgb", "lab", "rgb", "oklch", "rgb", "lab")]
+
+
+@pytest.mark.parametrize("spaces", VALUE_CHAINS, ids=_ids(VALUE_CHAINS))
+@pytest.mark.parametrize("which", ["random", "extremes"])
+def test_color_chain_values_match_jax_convert_chain(spaces, which):
+    x = _u8((2, 32, 64, 3), 16) if which == "random" else _extremes()
+    got = pipeline.color_chain_values(torch.from_numpy(x), spaces)
+    want = np.asarray(jax_chain(jnp.asarray(x, jnp.float32) / 255.0, spaces))
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _assert_close(spaces[-1], got.numpy(), want)
+    assert cc.values_chain_supported(spaces)
+    # the route's plain version is the same values
+    assert torch.equal(got, cc.fused_color_chain_u8_reference(
+        torch.from_numpy(x), spaces, quantize=False))
+
+
+@pytest.mark.parametrize("spaces", VALUE_CHAINS, ids=_ids(VALUE_CHAINS))
+def test_compiled_steps_reproduce_the_values_chain(spaces):
+    x = np.concatenate([_u8((1, 40, 128, 3), 17), _extremes()[:, :24]], 1)
+    codes = cc.compile_chain(spaces)
+    assert "LINEAR_TO_GAMMA" not in [cc.STEPS[c] for c in codes]
+    want = cc.fused_color_chain_u8_reference(torch.from_numpy(x), spaces,
+                                             quantize=False).numpy()
+    _assert_close(spaces[-1], _interpret(codes, x), want)
+
+
+def test_values_gate_takes_cartesian_ends_from_rgb():
+    assert cc.values_chain_supported(["rgb", "lab"])
+    assert cc.values_chain_supported(("rgb", "lch", "lab"))
+    assert cc.values_chain_supported(("rgb", "oklch", "oklab", "xyz"))
+    for spaces in [("rgb", "lch"), ("rgb", "oklch"), ("rgb", "lab", "lch"),
+                   ("lab", "xyz"), ("xyz", "lab"), ("oklab", "rgb", "lab"),
+                   ("rgb",), ("lab",), ("rgb", "rgb"), ("rgb", "hsv"),
+                   ("rgb", "lms"), ("rgb", "hsv", "lab"), ("rgb", "gray"),
+                   ("rgb", "lch", "oklab"), *KERNEL_CHAINS]:
+        assert not cc.values_chain_supported(spaces), spaces
+    # the rgb-to-rgb gate is the TPU's still, and takes no values chain
+    for spaces in VALUE_CHAINS:
+        assert not cc.chain_supported(spaces)
+        assert not pallas_color._chain_supported(spaces)
+
+
+def test_values_chain_is_never_quantized():
+    x = torch.from_numpy(_u8((1, 4, 6, 3), 18))
+    with pytest.raises(ValueError, match="does not run .* quantized"):
+        cc.fused_color_chain_u8_reference(x, ("rgb", "lab"))
+    with pytest.raises(ValueError, match="does not run .* quantized"):
+        cc.fused_color_chain_u8(x, ("rgb", "lab"))
+    with pytest.raises(ValueError, match="does not run"):
+        cc.fused_color_chain_u8(x, ("rgb", "lch"), quantize=False)
+
+
+def test_color_chain_values_routes_from_the_chain_alone(monkeypatch):
+    calls = []
+    real = cc.fused_color_chain_u8
+    monkeypatch.setattr(pipeline, "fused_color_chain_u8",
+                        lambda b, s, quantize=True: calls.append(
+                            (s, quantize)) or real(b, s, quantize))
+    x = torch.from_numpy(_u8((1, 4, 6, 3), 19))
+    launches, values = cc.LAUNCHES, cc.VALUES
+    lab = pipeline.color_chain_values(x, ["rgb", "lab"])
+    lch = pipeline.color_chain_values(x, ("rgb", "lch"))
+    odd = pipeline.color_chain_values(x[:, :, ::2], ("rgb", "lab"))
+    flt = pipeline.color_chain_values(x.to(torch.float32), ("rgb", "lab"))
+    assert calls == [(("rgb", "lab"), False)] * 2
+    assert (cc.LAUNCHES, cc.VALUES) == (launches, values)  # the CPU's
+    assert torch.equal(lch, convert_chain(x.to(torch.float32) / 255.0,
+                                          ("rgb", "lch")))
+    assert torch.equal(odd, lab[:, :, ::2]) and torch.equal(flt, lab)
 
 
 # -- K3p's plain version ------------------------------------------------------

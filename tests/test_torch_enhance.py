@@ -70,6 +70,24 @@ def test_histogram256_multi_matches_jax(c):
         jax_binary.histogram256_multi(jnp.asarray(x[::-1] // 2))))
 
 
+@pytest.mark.parametrize("shape,count", [((2, 5, 7, 3), 7),
+                                         ((600, 3, 3, 9), 1 << 24),
+                                         ((3, 40, 50, 4), 1 << 24)])
+def test_histogram256_batch_counts_every_value(shape, count, monkeypatch):
+    """The f32 histogram's counts, whole or in slices of ``count`` pixels
+    an image, and over 1.4 M bins (600 images of 9 channels), equal an
+    int64 ``bincount``'s."""
+    monkeypatch.setattr(binary, "_F32_COUNT", count)
+    x = _u8(shape, 4)
+    b, c = shape[0], shape[-1]
+    flat = x.reshape(b, -1, c).astype(np.int64) + \
+        256 * np.arange(b * c).reshape(b, 1, c)
+    want = np.bincount(flat.ravel(), minlength=256 * b * c)
+    got = binary.histogram256_batch(_t(x))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().ravel(), want)
+
+
 @pytest.mark.parametrize("lut_shape", [(256,), (256, 3), (256, 1)])
 def test_lut_apply_u8_matches_jax(lut_shape):
     x = _u8((19, 31), 4)

@@ -624,6 +624,103 @@ def test_color_chain_u8_launches_the_kernel(cuda):
     assert torch.equal(other.cpu(), want)
 
 
+# the values route's one-hop chains, K3 against the plain version on the
+# card: within CHAIN_UNIT (over all 2^24 RGB triples on an H100, rgb->lab
+# reads 6.1e-5 on a, 7.6e-6 on L; xyz 0; oklab 3.9e-7; xyb 1.2e-7)
+VALUE_ENDS = ("xyz", "lab", "oklab", "xyb")
+
+
+def test_color_chain_values_launch_k3_once_at_the_camera_frame(cuda):
+    """``pipeline.color_chain_values`` on two 16-MP frames (4608 x 3456):
+    one K3 launch a call, counted by ``VALUES``, within CHAIN_UNIT of the
+    plain version; a cylindrical end takes the plain path."""
+    x = _u8((2, 3456, 4608, 3), 41, cuda)
+    for end in VALUE_ENDS:
+        spaces = ("rgb", end)
+        launches, values = cc.LAUNCHES, cc.VALUES
+        got = pipeline.color_chain_values(x, spaces)
+        assert (cc.LAUNCHES, cc.VALUES) == (launches + 1, values + 1)
+        want = convert_chain(x.to(torch.float32) / 255.0, spaces)
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        assert float((got - want).abs().max()) <= CHAIN_UNIT, end
+    launches = cc.LAUNCHES
+    got = pipeline.color_chain_values(x[:, :8], ("rgb", "lch"))
+    assert cc.LAUNCHES == launches
+    assert torch.equal(got, convert_chain(
+        x[:, :8].to(torch.float32) / 255.0, ("rgb", "lch")))
+
+
+# longer values chains, K3 against the plain version: a hop back to linear
+# rgb and out again moves a dark channel's ulp-level error through a
+# second cube root near LAB_EPSILON, and a and b multiply it by 500 and
+# 200. Over all 2^24 RGB triples on an H100: 3.9e-4 (rgb-lab-rgb-oklch-
+# rgb-lab), 8.7e-4 (rgb-xyb-xyz-lab, b), 6.1e-5 (rgb-lch-lab), 6.0e-7
+# (rgb-oklch-oklab-xyb); rounded up
+VALUES_CHAIN_UNIT = 1e-3
+LONG_VALUE_CHAINS = [("rgb", "lab", "rgb", "oklch", "rgb", "lab"),
+                     ("rgb", "xyb", "xyz", "lab"), ("rgb", "lch", "lab"),
+                     ("rgb", "oklch", "oklab", "xyb")]
+
+
+@pytest.mark.parametrize("spaces", LONG_VALUE_CHAINS,
+                         ids=["-".join(c) for c in LONG_VALUE_CHAINS])
+def test_longer_values_chains_on_every_rgb_triple(cuda, spaces):
+    v = torch.arange(1 << 24, device=cuda, dtype=torch.int64)
+    x = torch.stack([v >> 16, (v >> 8) & 255, v & 255], -1) \
+        .to(torch.uint8).reshape(1, 4096, 4096, 3)
+    values = cc.VALUES
+    got = pipeline.color_chain_values(x, spaces)
+    assert cc.VALUES == values + 1
+    want = convert_chain(x.to(torch.float32) / 255.0, spaces)
+    assert float((got - want).abs().max()) <= VALUES_CHAIN_UNIT
+
+
+def test_batched_equalize_at_the_camera_frame_queues_without_a_sync(cuda):
+    """Equalize of four 16-MP frames on the card: no call waits for it
+    (``set_sync_debug_mode`` raises on one), and its bytes equal the
+    CPU's."""
+    from zignal_tpu_torch.ops import enhancement
+
+    x = _u8((4, 3456, 4608, 3), 42, cuda) // 2 + 40  # a peaked histogram
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = enhancement.equalize(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.cpu(), enhancement.equalize(x.cpu()))
+    assert int(got.max()) == 255 and int(got.min()) == 0
+
+
+def test_recorder_holds_the_colorspace_stages_on_the_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from zignal_tpu_torch.ops import enhancement
+    from zignal_tpu_torch.profiling import RECORDER
+
+    x = _u8((1, 33, 47, 3), 43, cuda)
+    pipeline.color_chain_values(x, ("rgb", "lab"))  # K3p's one launch
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for _ in range(2):
+            pipeline.color_chain_values(enhancement.equalize(x),
+                                        ("rgb", "lab"))
+        torch.cuda.synchronize()
+    spans = RECORDER.spans
+    call = ["equalize.hist", "equalize.lut", "equalize", "K3.check",
+            "K3.plan", "K3.alloc", "K3.params", "launch",
+            "color_chain_values"]
+    assert [s[0] for s in spans] == call * 2
+    for one in (spans[:9], spans[9:]):
+        by = {name: (t0, t1) for name, t0, t1, _ in one}
+        stages = [by[f"K3.{s}"] for s in ("check", "plan", "alloc",
+                                           "params")]
+        assert all(a[1] == b[0] for a, b in zip(stages, stages[1:]))
+        entry = by["color_chain_values"]
+        assert by["equalize"][1] <= entry[0] <= stages[0][0]
+        assert stages[-1][1] <= by["launch"][0] <= by["launch"][1] \
+            <= entry[1]
+
+
 def test_histogram_ops_on_the_card_equal_the_cpu(cuda):
     x = _u8((2, 40, 56, 3), 14, cuda)
     ib, cpu = ImageBatch(x, device=cuda), ImageBatch(x.cpu(), device="cpu")

@@ -213,6 +213,37 @@ def test_each_entry_call_records_one_span_and_a_session_starts_fresh():
     assert tprof.RECORDER.dropped == 0 and first is not tprof.RECORDER.spans
 
 
+def test_colorspace_spans_only_in_a_session():
+    """The photo-ingestion request, ``equalize`` then
+    ``color_chain_values``: outside a session it records nothing; inside
+    one, the equalize entry with its two stages one after the other, and
+    the values entry (the CPU route has no K3 stages or launch), and
+    ``color_chain.VALUES`` counts no launch on the CPU."""
+    from zignal_tpu_torch import pipeline
+    from zignal_tpu_torch.ops import color_chain, enhancement
+
+    x = _plane((2, 24, 32, 3))
+    log, before = tprof.RECORDER.spans, list(tprof.RECORDER.spans)
+    values = color_chain.VALUES
+    pipeline.color_chain_values(enhancement.equalize(x), ("rgb", "lab"))
+    assert tprof.RECORDER.spans is log and log == before
+    with _session():
+        for _ in range(2):
+            pipeline.color_chain_values(enhancement.equalize(x),
+                                        ("rgb", "lab"))
+    spans = tprof.RECORDER.spans
+    assert [s[0] for s in spans] == ["equalize.hist", "equalize.lut",
+                                     "equalize", "color_chain_values"] * 2
+    for call in (spans[:4], spans[4:]):
+        by = {name: (t0, t1) for name, t0, t1, _ in call}
+        hist, lut, entry = by["equalize.hist"], by["equalize.lut"], \
+            by["equalize"]
+        assert entry[0] == hist[0] and hist[1] == lut[0] \
+            and lut[1] == entry[1]
+        assert entry[1] <= by["color_chain_values"][0]
+    assert color_chain.VALUES == values
+
+
 def test_span_log_bound_counts_what_it_drops():
     p = tprof.Profile()
     assert p.spans is None and tprof.RECORDER.limit == 1 << 16

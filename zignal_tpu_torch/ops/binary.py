@@ -42,15 +42,29 @@ def histogram256(plane, weights=None):
     return counts.to(torch.int32)
 
 
+# pixels of one image a float32 histogram counts at a time: every count up
+# to 2^24 is exact in float32
+_F32_COUNT = 1 << 24
+
+
 def histogram256_batch(arr):
     """[B, ..., C] u8 -> int32 [B, C, 256]: each image's per-channel
-    histograms in one ``bincount`` over ``x + 256 * (c + C * b)``."""
+    histograms in one ``histc`` over ``x + 256 * (c + C * b)``, in float32
+    at bin centres (+0.5, so the histogram's f32 bin arithmetic cannot
+    round a value into its neighbour's bin), and in slices of at most 2^24
+    pixels an image, so that every count stays exact. Nothing waits for
+    the card (a ``bincount`` reads its input's maximum back to size its
+    output)."""
     b, c = arr.shape[0], arr.shape[-1]
-    x = arr.reshape(b, -1, c).to(torch.int64)
-    offs = 256 * torch.arange(b * c, device=arr.device,
-                              dtype=torch.int64).reshape(b, 1, c)
-    counts = torch.bincount((x + offs).reshape(-1), minlength=256 * b * c)
-    return counts.reshape(b, c, 256).to(torch.int32)
+    x = arr.reshape(b, -1, c)
+    bins = 256 * b * c
+    centres = 256 * torch.arange(b * c, device=arr.device,
+                                 dtype=torch.float32).reshape(b, 1, c) + 0.5
+    counts = torch.zeros(bins, dtype=torch.int32, device=arr.device)
+    for s in range(0, x.shape[1], _F32_COUNT):
+        counts += torch.histc(x[:, s:s + _F32_COUNT] + centres, bins, 0,
+                              bins).to(torch.int32)
+    return counts.reshape(b, c, 256)
 
 
 def histogram256_multi(arr):
@@ -67,17 +81,17 @@ def lut_apply_u8(plane, lut):
 def lut_apply_u8_per_channel(arr, luts):
     """``out[..., c] = luts[..., c, arr[..., c]]`` for u8 ``arr [..., C]``
     and ``luts [C, 256]``, or ``[B, C, 256]`` for a batch ``[B, ..., C]``
-    (one table per image and channel)."""
+    (one table per image and channel). A batch's lookup is one ``gather``
+    from the tables broadcast over its pixels: it reads one index a value,
+    where an advanced index by (table row, value) also reads the broadcast
+    row index, and on an H100 takes half its time."""
     luts = luts.to(torch.uint8)
     c = arr.shape[-1]
     if luts.ndim == 2:
         return luts[torch.arange(c, device=arr.device), arr.to(torch.int64)]
-    b = arr.shape[0]
-    flat = luts.reshape(b * c, 256)
-    row = (torch.arange(b, device=arr.device)[:, None] * c
-           + torch.arange(c, device=arr.device)[None, :])
-    row = row.reshape((b,) + (1,) * (arr.ndim - 2) + (c,))
-    return flat[row, arr.to(torch.int64)]
+    table = luts.reshape((arr.shape[0],) + (1,) * (arr.ndim - 2)
+                         + (c, 256)).expand(arr.shape + (256,))
+    return torch.gather(table, -1, arr.to(torch.int64)[..., None])[..., 0]
 
 
 def otsu_from_hists(hists) -> np.ndarray:

@@ -20,6 +20,13 @@ own ops (``gamma_table``), and takes its cube roots with the card's
 values are within 1e-4 of the plain version's (``CHAIN_UNIT`` in the
 tests), its u8 outputs equal.
 
+The same kernel runs a chain that ends off rgb, in a cartesian space of
+the linear family (``values_chain_supported``: u8 sRGB to xyz, lab, oklab
+or xyb), with ``quantize=False``: its f32 values are the result
+(``pipeline.color_chain_values``); ``VALUES`` counts those launches.
+During a profiler session the kernel's route adds the recorder's spans
+``K3.check``, ``K3.plan``, ``K3.alloc`` and ``K3.params``.
+
 ``transcendentals_probe`` is K3p: the probe expression of the TPU's
 ``mosaic_transcendentals_ok`` through the same device helpers as K3. The
 first K3 launch on a device runs it once and raises on a mismatch.
@@ -28,25 +35,30 @@ first K3 launch on a device runs it once and raises on a mismatch.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..color import _array as A
 from ..color._chain import _CYL_OF, _LINEAR_SPACES, convert_chain
 from ..color._path import conversion_path
+from ..profiling import RECORDER
 from ._build import COUNT_LOCK, launch, load
 
-__all__ = ["chain_supported", "compile_chain", "fused_color_chain_u8",
-           "fused_color_chain_u8_reference", "gamma_table",
-           "transcendentals_probe", "transcendentals_probe_reference",
-           "PROBE_TOL"]
+__all__ = ["chain_supported", "values_chain_supported", "compile_chain",
+           "fused_color_chain_u8", "fused_color_chain_u8_reference",
+           "gamma_table", "transcendentals_probe",
+           "transcendentals_probe_reference", "PROBE_TOL"]
 
 # kernel launches since import, read as color_chain.LAUNCHES and
 # color_chain.PROBE_LAUNCHES: a run shows with them that the main path
-# went through the kernels
+# went through the kernels; VALUES counts the K3 launches of a chain that
+# ends off rgb (the f32-values route)
 LAUNCHES = 0
 PROBE_LAUNCHES = 0
+VALUES = 0
 
 # K3p's bound against its plain version: max relative error
 PROBE_TOL = 1e-6
@@ -115,20 +127,46 @@ def chain_supported(spaces) -> bool:
     return True
 
 
+# the cartesian spaces a values chain may end in; the cylindrical ones
+# need atan2
+_VALUE_ENDS = ("xyz", "lab", "oklab", "xyb")
+
+
+def values_chain_supported(spaces) -> bool:
+    """True when the kernel runs the chain for its f32 values: it starts
+    on rgb, ends in xyz, lab, oklab or xyb, and followed by a hop back to
+    rgb would pass ``chain_supported``."""
+    spaces = tuple(spaces)
+    return (len(spaces) >= 2 and spaces[-1] in _VALUE_ENDS
+            and chain_supported(spaces + ("rgb",)))
+
+
+def _check_chain(spaces, quantize: bool) -> None:
+    """Raise unless the kernel runs ``spaces``: a values chain only
+    unquantized (its values are not colours on [0, 1])."""
+    if chain_supported(spaces):
+        return
+    values = values_chain_supported(spaces)
+    if values and not quantize:
+        return
+    raise ValueError(f"the colour-chain kernel does not run {spaces}"
+                     + (" quantized" if values else ""))
+
+
 _COMPILED: dict = {}
 
 
 def compile_chain(spaces) -> tuple:
-    """The kernel's step codes for a supported chain: the state machine of
-    ``convert_chain`` walked on the host. An rgb state is either gamma
-    (the input) or linear (after a hop back from a linear space); a
-    cylindrical space holds its cartesian shadow. Cached per chain."""
+    """The kernel's step codes for a supported chain or values chain: the
+    state machine of ``convert_chain`` walked on the host. An rgb state is
+    either gamma (the input) or linear (after a hop back from a linear
+    space); a cylindrical space holds its cartesian shadow. Cached per
+    chain."""
     spaces = tuple(spaces)
     codes = _COMPILED.get(spaces)
     if codes is not None:
         return codes
-    if not chain_supported(spaces):
-        raise ValueError(f"the colour-chain kernel does not run {spaces}")
+    _check_chain(spaces, quantize=False)
     steps = []
     space, linear = "rgb", False
     for dst in spaces[1:]:
@@ -151,7 +189,7 @@ def compile_chain(spaces) -> tuple:
         else:                                   # stock per-step conversion
             steps.extend(_EDGE[e] for e in conversion_path(src, dst))
         space = dst
-    if linear:
+    if linear and space == "rgb":
         steps.append("LINEAR_TO_GAMMA")
     if len(steps) > MAX_STEPS:
         raise ValueError(f"the chain needs {len(steps)} steps; one kernel "
@@ -220,12 +258,11 @@ def _quantize(f):
 def fused_color_chain_u8_reference(batch, spaces, quantize: bool = True):
     """Plain PyTorch version, on any device: ``convert_chain(x / 255)``,
     then ``clip(round(f * 255))`` as u8, or the f32 values when not
-    ``quantize``. The TPU kernel's math with its exact profile
-    (``_chain_planar_u8`` with ``_EXACT``)."""
+    ``quantize`` (then a values chain too). The TPU kernel's math with its
+    exact profile (``_chain_planar_u8`` with ``_EXACT``)."""
     _check(batch)
     spaces = tuple(spaces)
-    if not chain_supported(spaces):
-        raise ValueError(f"the colour-chain kernel does not run {spaces}")
+    _check_chain(spaces, quantize)
     f = convert_chain(batch.to(torch.int32).to(torch.float32) / 255.0,
                       spaces)
     return _quantize(f) if quantize else f
@@ -269,9 +306,14 @@ def _probe_once(device) -> None:
 def fused_color_chain_u8(batch, spaces, quantize: bool = True):
     """[B, H, W, 3] u8 through the chain ``spaces`` -> u8 of the same
     shape, or the f32 values before the quantization when not
-    ``quantize``. A CUDA tensor runs the kernel (or raises); a CPU tensor
-    runs the plain version."""
-    global LAUNCHES
+    ``quantize`` (then a values chain too). A CUDA tensor runs the kernel
+    (or raises); a CPU tensor runs the plain version. During a profiler
+    session the kernel's route adds the recorder's spans ``K3.check``,
+    ``K3.plan`` (K3p's one launch inside it on a device's first call),
+    ``K3.alloc`` and ``K3.params``, one after the other."""
+    global LAUNCHES, VALUES
+    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
     _check(batch)
     spaces = tuple(spaces)
     if batch.device.type == "cpu":
@@ -280,19 +322,29 @@ def fused_color_chain_u8(batch, spaces, quantize: bool = True):
         raise ValueError(f"no kernel for device {batch.device}")
     if not batch.is_contiguous():
         raise ValueError("the kernel needs a contiguous batch")
+    _check_chain(spaces, quantize)
+    if t0:
+        t0 = RECORDER.add("K3.check", t0)
     codes = compile_chain(spaces)
-    params = _params(codes)
     _probe_once(batch.device)
+    if t0:
+        t0 = RECORDER.add("K3.plan", t0)
     out = torch.empty(batch.shape, device=batch.device,
                       dtype=torch.uint8 if quantize else torch.float32)
+    if t0:
+        t0 = RECORDER.add("K3.alloc", t0)
+    params = _params(codes)
     n = batch.numel() // 3
     lut = gamma_table(batch.device).data_ptr() \
         if codes and codes[0] == _CODE["GAMMA_TO_LINEAR"] else None
     vec = batch.data_ptr() % 4 == 0 and out.data_ptr() % 16 == 0
+    if t0:
+        RECORDER.add("K3.params", t0)
     launch("zt_fused_color_chain_u8", batch.device, batch.data_ptr(),
            out.data_ptr(), lut, params, n, int(quantize), int(vec))
     with COUNT_LOCK:
         LAUNCHES += 1
+        VALUES += spaces[-1] != "rgb"
     return out
 
 

@@ -5,14 +5,23 @@ each channel through its CDF.
 
 Every function takes one image ``[H, W, C]`` with histograms ``[C, 256]``,
 or a batch ``[B, H, W, C]`` with ``[B, C, 256]``: the batch dimension is
-written out where the JAX package maps over images.
+written out where the JAX package maps over images. Nothing waits for the
+card: histograms, tables and lookups are queued on its stream.
+
+During a profiler session ``equalize`` is the recorder's span
+``equalize``, with ``equalize.hist`` (the histograms) and ``equalize.lut``
+(the tables and their lookup) inside it.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
+from ..profiling import RECORDER
 from .binary import histogram256_batch, histogram256_multi, \
     lut_apply_u8_per_channel
 
@@ -120,5 +129,13 @@ def equalize_from_hists(arr, hists, total: int, skip_alpha: bool = True):
 def equalize(arr, skip_alpha: bool = True):
     """Per-channel histogram equalization through an integer CDF LUT
     (enhancement.zig:84-150). ``arr``: u8 [H, W, C] or [B, H, W, C]."""
-    return equalize_from_hists(arr, _hists(arr),
-                               arr.shape[-3] * arr.shape[-2], skip_alpha)
+    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
+    hists = _hists(arr)
+    if t0:
+        t1 = RECORDER.add("equalize.hist", t0)
+    out = equalize_from_hists(arr, hists, arr.shape[-3] * arr.shape[-2],
+                              skip_alpha)
+    if t0:
+        RECORDER.add("equalize", t0, RECORDER.add("equalize.lut", t1))
+    return out

@@ -11,7 +11,8 @@ from torch.autograd import profiler as _autograd_profiler
 
 from .color import convert_array, convert_chain
 from .enums import Interpolation
-from .ops.color_chain import chain_supported, fused_color_chain_u8
+from .ops.color_chain import chain_supported, fused_color_chain_u8, \
+    values_chain_supported
 from .ops.convolution import gaussian_blur
 from .ops.filter_chain import fused_blur_sharpen_morph
 from .ops.fused_pipeline import fused_resize_blur_oklab
@@ -19,7 +20,7 @@ from .ops.interpolation import resize as resize_op
 from .profiling import RECORDER
 
 __all__ = ["resize_blur_oklab", "batched_resize", "batched_gaussian_blur",
-           "filter_chain", "color_chain_u8"]
+           "filter_chain", "color_chain_u8", "color_chain_values"]
 
 
 def color_chain_u8(batch, spaces):
@@ -37,6 +38,33 @@ def color_chain_u8(batch, spaces):
         return fused_color_chain_u8(batch.contiguous(), spaces)
     f = convert_chain(batch.to(torch.float32) / 255.0, spaces)
     return torch.clamp(torch.round(f * 255.0), 0, 255).to(torch.uint8)
+
+
+def color_chain_values(batch, spaces):
+    """[B, H, W, 3] u8 sRGB -> [B, H, W, 3] f32 values in ``spaces[-1]``,
+    as ``color.convert_chain(batch / 255, spaces)`` gives them: the
+    perceptual values themselves (Lab for colour search and Delta E), not
+    quantized back to u8.
+
+    The route is chosen from ``spaces`` alone: a u8 ``[B, H, W, 3]``
+    batch whose chain ``values_chain_supported`` accepts (rgb into xyz,
+    lab, oklab or xyb) runs the fused colour chain unquantized (one kernel
+    launch on the card, the plain version on the CPU); any other chain or
+    input runs the plain ``convert_chain`` on the batch's device. During
+    a profiler session the call is the recorder's span
+    ``color_chain_values``."""
+    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
+    spaces = tuple(spaces)
+    if (batch.dtype == torch.uint8 and batch.ndim == 4
+            and batch.shape[-1] == 3 and values_chain_supported(spaces)):
+        out = fused_color_chain_u8(batch.contiguous(), spaces,
+                                   quantize=False)
+    else:
+        out = convert_chain(batch.to(torch.float32) / 255.0, spaces)
+    if t0:
+        RECORDER.add("color_chain_values", t0)
+    return out
 
 
 def batched_resize(batch, rows: int, cols: int,
