@@ -64,10 +64,13 @@ Phases (any failure raises and exits non-zero):
    [16, 1024, 1024, 3] (K3, and K3p once, before K3's first launch), the
    config-2 step of bench.py (color_chain_u8 -> equalize(u8[0]) ->
    autocontrast(u8[1])), the colorspace step (equalize of four photo-like
-   camera frames of 4608x3456 made on the card, then
-   pipeline.color_chain_values(..., ("rgb", "lab")): K3 once, counted by
-   VALUES, the Lab values within CHAIN_UNIT of the plain version on the
-   card, the equalized bytes equal to the CPU's and most of them moved),
+   camera frames of 4608x3456 made on the card: the histogram, tables and
+   lookup kernels once each, HIST_LAUNCHES, TABLE_LAUNCHES and
+   LUT_LAUNCHES printed beside K3's count, the histograms and the
+   equalized bytes equal to the plain version's on the card and the bytes
+   to the CPU's, most of them moved; then pipeline.color_chain_values(...,
+   ("rgb", "lab")): K3 once, counted by VALUES, the Lab values within
+   CHAIN_UNIT of the plain version on the card),
    and ImageBatch of [16, 1024, 1024, 3] RGB through
    .resize((512, 512)).gaussian_blur(1.5).autocontrast(0.01)
    .convert(Gray).equalize() (K1, K4) and .convert(Gray)
@@ -80,10 +83,13 @@ Phases (any failure raises and exits non-zero):
    the quantization within 1e-4 max-abs (CHAIN_UNIT; every such chain is
    the identity on u8, so the u8 check alone would pass a copy); then
    small and odd shapes and the extreme-values plane;
-12. K3 and plain times at B=4 and B=16 of 1024^2 on the bench chain, and the
-   plain equalize and autocontrast and the config-2 step at the same B,
-   timed in turns in this one process, and K3's bound on this batch; then
-   the colorspace step, its equalize and K3's values route alone;
+12. K3 and plain times at B=4 and B=16 of 1024^2 on the bench chain, and
+   equalize, autocontrast and the config-2 step at the same B, timed in
+   turns in this one process, and K3's bound on this batch; then the
+   colorspace step, its equalize and K3's values route alone; then the
+   equalize passes alone on its frames (the histogram, the tables, the
+   lookup; profiler device time) beside their bounds, and the kernels
+   together beside the plain equalize and the library's histc + gather;
 13. the resize, convolution, order-statistic, edge and pyramid paths, each
    through the user's entry point and with the launch counts zeroed just
    before and read just after: ImageBatch of [16, 1024, 1024, 3] RGB
@@ -248,8 +254,8 @@ import time
 import numpy as np
 import torch
 
-from zignal_tpu_torch._bounds import CBRTF_OPS, F32_OPS_S, k1_bound, \
-    k2_bound, k3_bound, k3p_bound, k4_bound
+from zignal_tpu_torch._bounds import CBRTF_OPS, F32_OPS_S, hist_bound, \
+    k1_bound, k2_bound, k3_bound, k3p_bound, k4_bound, lut_bound
 from zignal_tpu_torch.bench import CHAIN_UNIT, FDM_SHARE, OKLAB_TOL, \
     cast_target, synth_photo
 from zignal_tpu_torch.bench import SPACES as BENCH_CHAIN
@@ -662,8 +668,10 @@ def _check_chain(label, x, spaces):
 
 
 def _color_phases(card, rng):
-    """Phases 9-12: K3 and K3p. Returns their entries of the kernels line."""
+    """Phases 9-12: K3, K3p and the equalize kernels. Returns their entries
+    of the kernels line."""
     from zignal_tpu_torch import Gray, ImageBatch, pipeline
+    from zignal_tpu_torch.ops import binary as eb
     from zignal_tpu_torch.ops import color_chain as cc
     from zignal_tpu_torch.ops import enhancement
     from zignal_tpu_torch.ops import fused_pipeline as fp
@@ -715,22 +723,36 @@ def _color_phases(card, rng):
                  enhancement.autocontrast(ref[1].cpu()))
     k3_launches += step_launches
 
-    # the colorspace step: four 16-MP camera frames equalized, then to
-    # CIELAB f32 on K3's values route
+    # the colorspace step: four 16-MP camera frames equalized (the
+    # histogram, tables and lookup kernels), then to CIELAB f32 on K3's
+    # values route
     frames = _camera_frames(CAMERA)
     torch.cuda.synchronize()
     cc.LAUNCHES = cc.VALUES = 0
+    eb.HIST_LAUNCHES = eb.LUT_LAUNCHES = 0
+    enhancement.TABLE_LAUNCHES = 0
     cs_eq = enhancement.equalize(frames)
     cs_lab = pipeline.color_chain_values(cs_eq, VALUES_CHAIN)
     torch.cuda.synchronize()
     k3_values = cc.VALUES
+    eq_launches = (eb.HIST_LAUNCHES, enhancement.TABLE_LAUNCHES,
+                   eb.LUT_LAUNCHES)
     print(f"colorspace step {list(frames.shape)}: K3 {cc.LAUNCHES} launch, "
-          f"VALUES {k3_values}, equalized output contiguous "
-          f"{cs_eq.is_contiguous()}")
+          f"VALUES {k3_values}, HIST_LAUNCHES {eq_launches[0]}, "
+          f"TABLE_LAUNCHES {eq_launches[1]}, LUT_LAUNCHES {eq_launches[2]}, "
+          f"equalized output contiguous {cs_eq.is_contiguous()}")
     if (cc.LAUNCHES, k3_values) != (1, 1) or not cs_eq.is_contiguous():
         raise AssertionError("color_chain_values did not launch K3 once on "
                              "its values route, or equalize's output needs "
                              "a copy first")
+    if eq_launches != (1, 1, 1):
+        raise AssertionError("equalize did not launch the histogram, "
+                             "tables and lookup kernels once each")
+    _check_equal("colorspace step histograms vs plain",
+                 eb.histogram256_batch(frames),
+                 eb.histogram256_batch_reference(frames))
+    _check_equal("colorspace step equalize vs plain", cs_eq,
+                 enhancement.equalize_reference(frames))
     if not torch.equal(cs_eq.cpu(), enhancement.equalize(frames.cpu())):
         raise AssertionError("the colorspace step's equalize differs from "
                              "the CPU")
@@ -840,8 +862,8 @@ def _color_phases(card, rng):
         e1, a1, s1, s2, a2, e2 = (_time_ms(eq, 5), _time_ms(ac, 5),
                                   _time_ms(step, 5), _time_ms(step, 5),
                                   _time_ms(ac, 5), _time_ms(eq, 5))
-        print(f"[{card}] B={b} {n}^2 plain equalize: {e1:.4f} / {e2:.4f} ms; "
-              f"plain autocontrast(0.01): {a1:.4f} / {a2:.4f} ms; config-2 "
+        print(f"[{card}] B={b} {n}^2 equalize: {e1:.4f} / {e2:.4f} ms; "
+              f"autocontrast(0.01): {a1:.4f} / {a2:.4f} ms; config-2 "
               f"step (K3 + equalize(u8[0]) + autocontrast(u8[1])): "
               f"{s1:.4f} / {s2:.4f} ms ({gpix / (min(s1, s2) / 1e3):.2f} "
               "GPix/s)")
@@ -870,7 +892,52 @@ def _color_phases(card, rng):
           f"{s2:.4f} ms ({frames[..., 0].numel() / 1e3 / min(s1, s2):.1f} "
           f"MPix/s); equalize {q1:.4f} / {q2:.4f} ms; K3 values route "
           f"rgb->lab {v1:.4f} / {v2:.4f} ms")
-    del frames, cs_eq, cs_lab
+
+    # the equalize passes alone on the same frames (device time, profiler)
+    # beside their bounds, the plain version and the library's yardstick,
+    # histc + gather, which the port never calls on the card
+    values_n = frames.numel()
+    hists = eb.histogram256_batch(frames)
+    tables = enhancement.equalize_tables(hists, CAMERA[1] * CAMERA[2])
+    passes = (("histogram", lambda: eb.histogram256_batch(frames),
+               "hist_kernel", hist_bound(values_n)),
+              ("tables", lambda: enhancement.equalize_tables(
+                  hists, CAMERA[1] * CAMERA[2]), "tables_kernel", None),
+              ("lookup", lambda: eb.lut_apply_u8_per_channel(frames, tables),
+               "lut_kernel", lut_bound(values_n)))
+    for label, fn, kernel, bnd in passes:
+        dev = _device_ms(fn, kernel, 10)
+        share = f", {100 * bnd[0] / dev:.1f} % of its bound " \
+            f"{bnd[0]:.4f} ms ({bnd[1]})" if bnd else ""
+        print(f"[{card}] equalize {label} {list(frames.shape)}: {dev:.4f} "
+              f"ms (profiler, device){share}; {_time_ms(fn, 5):.4f} ms "
+              "(events)")
+    eq_names = ("hist_kernel", "tables_kernel", "lut_kernel")
+    eq_dev = _device_ms(eq_only, eq_names, 10)
+    plain_eq = lambda: enhancement.equalize_reference(frames)  # noqa: E731
+    library = lambda: eb.lut_apply_u8_per_channel_reference(  # noqa: E731
+        frames, eb.histogram256_batch_reference(frames))
+    pq1, lb1, lb2, pq2 = (_time_ms(plain_eq, 3), _time_ms(library, 3),
+                          _time_ms(library, 3), _time_ms(plain_eq, 3))
+    eq_bound = hist_bound(values_n)[0] + lut_bound(values_n)[0]
+    print(f"[{card}] equalize {list(frames.shape)}: kernels {eq_dev:.4f} "
+          f"ms (profiler, device), {100 * eq_bound / eq_dev:.1f} % of the "
+          f"passes' bound {eq_bound:.4f} ms; plain {pq1:.4f} / {pq2:.4f} "
+          f"ms; library (histc + gather) {lb1:.4f} / {lb2:.4f} ms")
+    eqk = {
+        "name": "equalize",
+        "route": "cuda",
+        "source": "zignal_tpu_torch/csrc/equalize_u8.cu",
+        "replaces": None,  # the JAX package's equalize is plain jnp
+        "launches": eq_launches[0],
+        "max_abs_err": 0,
+        "ms": eq_dev,
+        "plain_ms": min(pq1, pq2),
+        "bound_ms": eq_bound,
+        "bound_by": "bytes",
+        "library_ms": min(lb1, lb2),
+    }
+    del frames, cs_eq, cs_lab, hists, tables
 
     k3b = k3_bound(x4)
     print(f"K3 bound at B=4 on the bench chain: {k3b[0]:.4f} ms "
@@ -902,7 +969,7 @@ def _color_phases(card, rng):
         "bound_by": k3p_bound(pb.numel())[1],
         "library_ms": None,  # the probe is a where() of two sums of powers
     }
-    return k3, k3p, (k1_ex, k4_ex)
+    return k3, k3p, eqk, (k1_ex, k4_ex)
 
 
 FLOAT_TOL = 1e-4  # max-abs on 0-255 data, the bound of the CPU tests
@@ -3351,7 +3418,7 @@ def main() -> int:
         "library_ms": None,  # F.interpolate's taps are float, not 8.8
     }
     k2, k4 = _filter_phases(card, rng)
-    k3, k3p, (k1_ex, k4_ex) = _color_phases(card, rng)
+    k3, k3p, eqk, (k1_ex, k4_ex) = _color_phases(card, rng)
     k1["bound_ms"], k1["bound_by"] = k1_bound(16, n, o)
     k1_s4, k4_s4 = _slice4_phases(card, rng)
     k1_s7, k4_s7, corpus, config1 = _file_phases(card, rng)
@@ -3373,7 +3440,7 @@ def main() -> int:
     k3p["launches"] += s14["K3p"]
     k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9 + k4_s11 + \
         k4_s12 + s14["K4"]
-    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4, eqk]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -208,6 +208,64 @@ def test_equalize_from_hists_wraps_as_the_reference_u32(skip_alpha):
                               (got.numpy()[:, 0, :].T))
 
 
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("skip_alpha", [True, False])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_cpu_tensors_take_the_plain_versions(c, skip_alpha, b):
+    """A CPU tensor runs the plain histograms, tables and lookup, equal to
+    the JAX package's equalize, and launches no kernel."""
+    x = _u8((b, 19, 23, c), 14)
+    x[-1] = 30 + x[-1] // 5
+    hists = binary.histogram256_batch(_t(x))
+    assert torch.equal(hists, binary.histogram256_batch_reference(_t(x)))
+    tables = enhancement.equalize_tables(hists, 19 * 23, skip_alpha)
+    assert tables.dtype == torch.uint8 and tables.shape == (b, c, 256)
+    assert torch.equal(tables, enhancement.equalize_tables_reference(
+        hists, 19 * 23, skip_alpha))
+    got = enhancement.equalize(_t(x), skip_alpha)
+    assert torch.equal(got, enhancement.equalize_reference(_t(x), skip_alpha))
+    assert torch.equal(got, binary.lut_apply_u8_per_channel(_t(x), tables))
+    for i in range(b):
+        want = jax_enh.equalize(jnp.asarray(x[i]), skip_alpha)
+        assert np.array_equal(got[i].numpy(), np.asarray(want))
+    assert (binary.HIST_LAUNCHES, binary.LUT_LAUNCHES,
+            enhancement.TABLE_LAUNCHES) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("values", [(77,), (3, 200)])
+def test_equalize_tables_of_one_and_two_values_match_jax(values):
+    """One value: denom is 0 and the table is the identity; two values."""
+    x = np.full((9, 14, 3), values[0], np.uint8)
+    x[::2, :, 1] = values[-1]
+    x[:, ::3, 2] = values[-1]
+    hists = binary.histogram256_batch(_t(x[None]))
+    want = jax_enh.equalize(jnp.asarray(x))
+    assert np.array_equal(enhancement.equalize(_t(x)).numpy(),
+                          np.asarray(want))
+    tables = enhancement.equalize_tables(hists, 9 * 14)
+    if len(values) == 1:
+        assert torch.equal(tables[0], torch.arange(256).to(torch.uint8)
+                           .expand(3, 256))
+
+
+def test_equalize_kernels_refuse_other_devices():
+    """Off the CPU, only a CUDA tensor with C in KERNEL_CHANNELS reaches
+    a kernel; anything else raises, with no fallback."""
+    meta = torch.empty((2, 4, 4, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="device meta"):
+        binary.histogram256_batch(meta)
+    with pytest.raises(ValueError, match="device meta"):
+        binary.lut_apply_u8_per_channel(
+            meta, torch.empty((2, 3, 256), dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="device meta"):
+        enhancement.equalize_tables(
+            torch.empty((2, 3, 256), dtype=torch.int32, device="meta"), 16)
+    with pytest.raises(ValueError, match="device meta"):
+        enhancement.equalize(meta)
+    assert (binary.HIST_LAUNCHES, binary.LUT_LAUNCHES,
+            enhancement.TABLE_LAUNCHES) == (0, 0, 0)
+
+
 # -- ImageBatch ---------------------------------------------------------------
 
 

@@ -11,7 +11,9 @@ import torch
 
 from zignal_tpu_torch import BorderMode, Gray, ImageBatch, pipeline
 from zignal_tpu_torch.color import convert_chain
+from zignal_tpu_torch.ops import binary as eb
 from zignal_tpu_torch.ops import color_chain as cc
+from zignal_tpu_torch.ops import enhancement as en
 from zignal_tpu_torch.ops import filter_chain as fc
 from zignal_tpu_torch.ops import fused_pipeline as fp
 from zignal_tpu_torch.ops import separable_conv as sc
@@ -706,12 +708,18 @@ def test_recorder_holds_the_colorspace_stages_on_the_card(cuda):
                                         ("rgb", "lab"))
         torch.cuda.synchronize()
     spans = RECORDER.spans
-    call = ["equalize.hist", "equalize.lut", "equalize", "K3.check",
-            "K3.plan", "K3.alloc", "K3.params", "launch",
-            "color_chain_values"]
+    # equalize's three kernel launches: the histogram's inside
+    # equalize.hist, the tables' and the lookup's inside equalize.lut
+    call = ["launch", "equalize.hist", "launch", "launch", "equalize.lut",
+            "equalize", "K3.check", "K3.plan", "K3.alloc", "K3.params",
+            "launch", "color_chain_values"]
     assert [s[0] for s in spans] == call * 2
-    for one in (spans[:9], spans[9:]):
-        by = {name: (t0, t1) for name, t0, t1, _ in one}
+    for one in (spans[:12], spans[12:]):
+        hist, lut = one[1], one[4]
+        assert hist[1] <= one[0][1] <= one[0][2] <= hist[2]
+        assert lut[1] <= one[2][1] <= one[2][2] <= one[3][1] \
+            <= one[3][2] <= lut[2]
+        by = {name: (t0, t1) for name, t0, t1, _ in one}  # K3's launch last
         stages = [by[f"K3.{s}"] for s in ("check", "plan", "alloc",
                                            "params")]
         assert all(a[1] == b[0] for a, b in zip(stages, stages[1:]))
@@ -1445,3 +1453,132 @@ def test_bench_smoke_on_the_card_checks_and_launches(cuda, capsys):
     assert all(x["value"] > 0 and x["device"] != "cpu" for x in configs)
     for k in ("K1", "K2", "K3", "K4"):
         assert sum(x["launches"][k] for x in configs) >= 1, k
+
+
+# -- equalize: the histogram, tables and lookup kernels (csrc/equalize_u8.cu)
+
+
+def _frames(shape, seed, device):
+    """Camera-like u8 frames: a smooth scene under a gamma, with grain of
+    +-6, so a warp's lanes crowd a few histogram bins."""
+    rng = np.random.default_rng(seed)
+    b, h, w, c = shape
+    y = np.linspace(0, 1, h)[:, None, None]
+    x = np.linspace(0, 1, w)[None, :, None]
+    phase = rng.random((b, 1, 1, c)) * 6
+    s = 0.5 + 0.5 * np.sin(3 * x + 2 * y + phase)
+    v = np.round(16 + 128 * s ** 1.8) + rng.integers(-6, 7, (b, h, w, c))
+    return torch.from_numpy(np.clip(v, 0, 255).astype(np.uint8)).to(device)
+
+
+def _check_equalize(x, skip_alpha=True):
+    """The kernels' histograms and equalized bytes equal the plain ones."""
+    before = (eb.HIST_LAUNCHES, eb.LUT_LAUNCHES, en.TABLE_LAUNCHES)
+    hists = eb.histogram256_batch(x)
+    got = en.equalize(x, skip_alpha)
+    torch.cuda.synchronize()
+    assert (eb.HIST_LAUNCHES, eb.LUT_LAUNCHES, en.TABLE_LAUNCHES) == tuple(
+        n + k for n, k in zip(before, (2, 1, 1)))
+    assert hists.dtype == torch.int32
+    assert torch.equal(hists, eb.histogram256_batch_reference(x))
+    assert got.is_contiguous() and got.shape == x.shape
+    assert torch.equal(got, en.equalize_reference(x, skip_alpha))
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("skip_alpha", [True, False])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_equalize_kernels_equal_plain(cuda, c, skip_alpha, b):
+    _check_equalize(_frames((b, 480, 640, c), 40 + c, cuda), skip_alpha)
+    _check_equalize(_u8((b, 97, 131, c), 41 + c, cuda), skip_alpha)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (1, 5), (3, 7), (17, 29), (33, 171),
+                                (255, 257), (1000, 999)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_equalize_kernels_at_ragged_tails_equal_plain(cuda, c, hw):
+    """Images whose bytes are no whole number of chunks (512 * C) or of
+    16-byte vectors, so each image of a batch starts at another offset."""
+    for b in (1, 3):
+        _check_equalize(_frames((b, *hw, c), 42, cuda))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 13])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_equalize_kernels_on_unaligned_views_equal_plain(cuda, c, offset):
+    shape = (2, 301, 403, c)
+    base = _frames((1, 1, 2 * 301 * 403 * c + 16, 1), 43, cuda).reshape(-1)
+    x = base[offset:offset + 2 * 301 * 403 * c].view(shape)
+    assert x.data_ptr() % 16 == offset % 16
+    _check_equalize(x)
+    luts = _u8((2, c, 256), 44, cuda)
+    assert torch.equal(eb.lut_apply_u8_per_channel(x, luts),
+                       eb.lut_apply_u8_per_channel_reference(x, luts))
+
+
+def test_equalize_kernels_take_strided_input(cuda):
+    x = _frames((2, 200, 300, 3), 45, cuda)[:, ::2, 1:]
+    assert not x.is_contiguous()
+    _check_equalize(x)
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_equalize_kernels_on_one_and_two_values_equal_plain(cuda, c):
+    """One value: every lane on one bin, denom 0, the identity table;
+    then two values."""
+    x = torch.full((2, 1024, 768, c), 77, dtype=torch.uint8, device=cuda)
+    _check_equalize(x)
+    assert torch.equal(en.equalize(x), x)
+    x[:, ::3] = 200
+    x[1, :, ::5] = 0
+    _check_equalize(x)
+
+
+def test_equalize_kernels_wrap_as_the_reference_u32(cuda):
+    """4352^2 = 18.9 Mpix in one channel: (cdf - cdf_min) * 255 passes
+    2^32, and the tables wrap as the reference's u32 arithmetic does."""
+    x = _frames((1, 4352, 4352, 1), 46, cuda)
+    _check_equalize(x)
+    hists = eb.histogram256_batch(x).to(torch.int64)
+    cdf = hists.cumsum(-1)
+    cdf_min = cdf[cdf > 0][0]
+    assert int(((cdf - cdf_min) * 255).max()) >= 1 << 32
+
+
+def test_equalize_from_hists_made_elsewhere(cuda):
+    """Histograms summed over two halves of each image, as the mesh sums
+    its ranks', in int32 and int64 and from the CPU, give the tables of
+    the whole image."""
+    x = _frames((2, 600, 800, 3), 47, cuda)
+    top, bottom = x[:, :300], x[:, 300:]
+    hists = eb.histogram256_batch(top) + eb.histogram256_batch(bottom)
+    want = en.equalize_reference(x)
+    for h in (hists, hists.to(torch.int64), hists.cpu().to(cuda)):
+        got = torch.cat([en.equalize_from_hists(part, h, 600 * 800)
+                         for part in (top, bottom)], dim=1)
+        assert torch.equal(got, want)
+    single = en.equalize_from_hists(x[1, :300], hists[1], 600 * 800, False)
+    assert torch.equal(single, en.equalize_reference(x[1:], False)[0, :300])
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_lut_kernel_equals_plain(cuda, c):
+    """Any tables, per image or one set for one image."""
+    x = _u8((3, 77, 91, c), 48, cuda)
+    luts = _u8((3, c, 256), 49, cuda)
+    before = eb.LUT_LAUNCHES
+    got = eb.lut_apply_u8_per_channel(x, luts)
+    one = eb.lut_apply_u8_per_channel(x[1], luts[1])
+    torch.cuda.synchronize()
+    assert eb.LUT_LAUNCHES == before + 2
+    assert torch.equal(got, eb.lut_apply_u8_per_channel_reference(x, luts))
+    assert torch.equal(one, got[1])
+
+
+def test_equalize_kernels_refuse_other_channel_counts(cuda):
+    x = _u8((1, 16, 16, 2), 50, cuda)
+    with pytest.raises(ValueError, match="C in"):
+        eb.histogram256_batch(x)
+    with pytest.raises(ValueError, match="C in"):
+        eb.lut_apply_u8_per_channel(x, _u8((1, 2, 256), 51, cuda))

@@ -86,3 +86,18 @@ def k3p_bound(values: int):
 def k4_bound(x, k):
     """K4: u8 in and out; 2 * len(k) multiply-adds (2 ops each) a value."""
     return bound(2 * x.numel(), x.numel() * 2 * 2 * len(k))
+
+
+def hist_bound(values: int):
+    """The equalize histogram over ``values`` u8 values: each read once,
+    a byte extracted and counted (2 ops); the counts are 1 KB an image
+    and channel."""
+    return bound(values, 2 * values)
+
+
+def lut_bound(values: int):
+    """The equalize lookup over ``values`` u8 values: each read and
+    written once, a byte extracted, looked up and placed (3 ops). The
+    tables between the two passes read 1 KB of counts an image and
+    channel and are not counted."""
+    return bound(2 * values, 3 * values)

@@ -30,7 +30,7 @@ __all__ = ["load", "launch", "sm_count", "TILES", "SMEM_LIMIT",
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / name for name in (
     "fused_resize_blur_oklab.cu", "fused_blur_sharpen_morph.cu",
-    "separable_u8.cu", "fused_color_chain_u8.cu"))
+    "separable_u8.cu", "fused_color_chain_u8.cu", "equalize_u8.cu"))
 _HEADERS = (_PKG / "csrc" / "tile_staging.cuh",)
 _BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the Oklab epilogue and the colour chain need IEEE
@@ -125,6 +125,14 @@ def load():
         _declare(lib, "zt_transcendentals_probe",
                  [_P, _P, _P, _L, _P])             # x y params n stream
         _declare(lib, "zt_color_chain_params_bytes", [])
+        _declare(lib, "zt_histogram256_u8",
+                 [_P, _P, _L, _L, _I, _P])         # src counts b n c stream
+        _declare(lib, "zt_equalize_tables",
+                 [_P, _I, _P, _L, _I, _L, _I, _P])  # hists wide luts b c
+                                                    # total skip_alpha stream
+        _declare(lib, "zt_lut_apply_u8",
+                 [_P, _P, _P, _L, _L, _I, _P])     # src dst luts b n c
+                                                   # stream
         lib.zt_error_string.argtypes = [_I]
         lib.zt_error_string.restype = ctypes.c_char_p
         _LIB = lib

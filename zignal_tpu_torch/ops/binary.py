@@ -1,11 +1,16 @@
 """Histograms, LUTs, Otsu, binary threshold and morphology (reference:
 src/image/binary.zig), the counterpart of zignal_tpu/ops/binary.py.
 
-Histogram counts are integer ``bincount``s (exact in any order, so the
-card's atomics give the JAX package's counts); a LUT is an index gather.
-The JAX package's nibble one-hot einsums exist to get these integers from
-the TPU's matrix unit and are not carried over. Otsu's 256-entry variance
-sweep runs on the host in f64, op for op as the JAX package runs it.
+Histogram counts are integer counts (exact in any order, so the card's
+atomics give the JAX package's counts); a LUT is an index gather. The
+JAX package's nibble one-hot einsums exist to get these integers from the
+TPU's matrix unit and are not carried over. A batch's per-channel
+histograms and its per-image, per-channel lookup run, for a CUDA tensor,
+as hand-written kernels over the u8 bytes (csrc/equalize_u8.cu), counted
+in ``HIST_LAUNCHES`` and ``LUT_LAUNCHES``; for a CPU tensor as their plain
+versions (``histogram256_batch_reference``,
+``lut_apply_u8_per_channel_reference``). Otsu's 256-entry variance sweep
+runs on the host in f64, op for op as the JAX package runs it.
 
 Morphology with the square all-ones structuring element is two separable
 min/max passes with zero padding (background), on ``[..., H, W]`` planes:
@@ -19,13 +24,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._build import COUNT_LOCK, launch
 from .integral import _box_sums_exact, _mean_f32, _quot_rem, sums_fit_f32
 
 __all__ = ["histogram256", "histogram256_multi", "histogram256_batch",
-           "lut_apply_u8", "lut_apply_u8_per_channel", "otsu_threshold",
-           "otsu_from_hists", "threshold_apply", "dilate", "erode",
-           "open_morph", "close_morph", "adaptive_mean_threshold",
+           "histogram256_batch_reference", "lut_apply_u8",
+           "lut_apply_u8_per_channel", "lut_apply_u8_per_channel_reference",
+           "otsu_threshold", "otsu_from_hists", "threshold_apply", "dilate",
+           "erode", "open_morph", "close_morph", "adaptive_mean_threshold",
            "adaptive_from_sums"]
+
+# kernel launches since import: a run shows with them that the histograms
+# and the lookup took the kernels
+HIST_LAUNCHES = 0
+LUT_LAUNCHES = 0
+KERNEL_CHANNELS = (1, 3, 4)
 
 
 def histogram256(plane, weights=None):
@@ -47,14 +60,45 @@ def histogram256(plane, weights=None):
 _F32_COUNT = 1 << 24
 
 
+def _kernel_input(arr, what: str):
+    """``arr`` as the equalize kernels take it: u8, ``C`` in
+    ``KERNEL_CHANNELS``, contiguous (a copy where it was not)."""
+    if arr.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {arr.device}")
+    if arr.dtype != torch.uint8 or arr.ndim < 2 \
+            or arr.shape[-1] not in KERNEL_CHANNELS:
+        raise ValueError(f"the {what} kernel takes a uint8 [B, ..., C] "
+                         f"tensor with C in {KERNEL_CHANNELS}, not "
+                         f"{arr.dtype} {list(arr.shape)}")
+    return arr.contiguous()
+
+
 def histogram256_batch(arr):
     """[B, ..., C] u8 -> int32 [B, C, 256]: each image's per-channel
-    histograms in one ``histc`` over ``x + 256 * (c + C * b)``, in float32
-    at bin centres (+0.5, so the histogram's f32 bin arithmetic cannot
-    round a value into its neighbour's bin), and in slices of at most 2^24
-    pixels an image, so that every count stays exact. Nothing waits for
-    the card (a ``bincount`` reads its input's maximum back to size its
-    output)."""
+    histograms. A CUDA tensor runs the histogram kernel (or raises), with
+    ``C`` in ``KERNEL_CHANNELS``; a CPU tensor the plain version. Nothing
+    waits for the card."""
+    global HIST_LAUNCHES
+    if arr.device.type == "cpu":
+        return histogram256_batch_reference(arr)
+    x = _kernel_input(arr, "histogram")
+    b, c = x.shape[0], x.shape[-1]
+    counts = torch.empty((b, c, 256), dtype=torch.int32, device=x.device)
+    launch("zt_histogram256_u8", x.device, x.data_ptr(), counts.data_ptr(),
+           b, x.numel() // b if b else 0, c)
+    with COUNT_LOCK:
+        HIST_LAUNCHES += 1
+    return counts
+
+
+def histogram256_batch_reference(arr):
+    """The plain version of ``histogram256_batch``, on any device: each
+    image's per-channel histograms in one ``histc`` over ``x + 256 * (c +
+    C * b)``, in float32 at bin centres (+0.5, so the histogram's f32 bin
+    arithmetic cannot round a value into its neighbour's bin), and in
+    slices of at most 2^24 pixels an image, so that every count stays
+    exact. Nothing waits for the card (a ``bincount`` reads its input's
+    maximum back to size its output)."""
     b, c = arr.shape[0], arr.shape[-1]
     x = arr.reshape(b, -1, c)
     bins = 256 * b * c
@@ -81,10 +125,37 @@ def lut_apply_u8(plane, lut):
 def lut_apply_u8_per_channel(arr, luts):
     """``out[..., c] = luts[..., c, arr[..., c]]`` for u8 ``arr [..., C]``
     and ``luts [C, 256]``, or ``[B, C, 256]`` for a batch ``[B, ..., C]``
-    (one table per image and channel). A batch's lookup is one ``gather``
-    from the tables broadcast over its pixels: it reads one index a value,
-    where an advanced index by (table row, value) also reads the broadcast
-    row index, and on an H100 takes half its time."""
+    (one table per image and channel): a new contiguous u8 tensor laid out
+    as ``arr``. A CUDA tensor runs the lookup kernel (or raises), with
+    ``C`` in ``KERNEL_CHANNELS``; a CPU tensor the plain version. The
+    kernel reads and writes 16-byte vectors at the same offsets, so an
+    input off a 16-byte boundary is copied to one on it first."""
+    global LUT_LAUNCHES
+    if arr.device.type == "cpu":
+        return lut_apply_u8_per_channel_reference(arr, luts)
+    x = _kernel_input(arr, "lookup")
+    c = x.shape[-1]
+    b, tables = (1, luts[None]) if luts.ndim == 2 else (x.shape[0], luts)
+    if tuple(tables.shape) != (b, c, 256):
+        raise ValueError(f"tables {list(luts.shape)} do not fit a batch "
+                         f"{list(x.shape)}")
+    tables = tables.to(device=x.device, dtype=torch.uint8).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    launch("zt_lut_apply_u8", x.device, x.data_ptr(), out.data_ptr(),
+           tables.data_ptr(), b, x.numel() // b if b else 0, c)
+    with COUNT_LOCK:
+        LUT_LAUNCHES += 1
+    return out
+
+
+def lut_apply_u8_per_channel_reference(arr, luts):
+    """The plain version of ``lut_apply_u8_per_channel``, on any device. A
+    batch's lookup is one ``gather`` from the tables broadcast over its
+    pixels: it reads one index a value, where an advanced index by (table
+    row, value) also reads the broadcast row index, and on an H100 takes
+    half its time."""
     luts = luts.to(torch.uint8)
     c = arr.shape[-1]
     if luts.ndim == 2:

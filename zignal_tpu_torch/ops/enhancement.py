@@ -6,7 +6,12 @@ each channel through its CDF.
 Every function takes one image ``[H, W, C]`` with histograms ``[C, 256]``,
 or a batch ``[B, H, W, C]`` with ``[B, C, 256]``: the batch dimension is
 written out where the JAX package maps over images. Nothing waits for the
-card: histograms, tables and lookups are queued on its stream.
+card: histograms, tables and lookups are queued on its stream. For a CUDA
+tensor, equalization is three hand-written kernels (csrc/equalize_u8.cu):
+the histograms (``binary.histogram256_batch``), the tables
+(``equalize_tables``, counted in ``TABLE_LAUNCHES``) and the lookup
+(``binary.lut_apply_u8_per_channel``); ``equalize_reference`` is its plain
+version, which a CPU tensor takes.
 
 During a profiler session ``equalize`` is the recorder's span
 ``equalize``, with ``equalize.hist`` (the histograms) and ``equalize.lut``
@@ -22,11 +27,17 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 from ..profiling import RECORDER
-from .binary import histogram256_batch, histogram256_multi, \
-    lut_apply_u8_per_channel
+from ._build import COUNT_LOCK, launch
+from .binary import histogram256_batch, histogram256_batch_reference, \
+    histogram256_multi, lut_apply_u8_per_channel, \
+    lut_apply_u8_per_channel_reference
 
 __all__ = ["autocontrast", "autocontrast_from_hists", "cutoff_pixels",
-           "equalize", "equalize_from_hists"]
+           "equalize", "equalize_from_hists", "equalize_reference",
+           "equalize_tables", "equalize_tables_reference"]
+
+# launches of the tables kernel since import
+TABLE_LAUNCHES = 0
 
 
 def _first_true(mask):
@@ -102,14 +113,13 @@ def autocontrast(arr, cutoff: float = 0.0, skip_alpha: bool = True):
                                    cutoff_pixels(total, cutoff), skip_alpha)
 
 
-def equalize_from_hists(arr, hists, total: int, skip_alpha: bool = True):
-    """Equalize u8 ``arr`` given its per-channel histograms and the whole
-    image's pixel count. The LUT is the reference's u32 arithmetic
-    (enhancement.zig): ``(cdf - cdf_min) * 255`` wraps modulo 2^32, past
-    ~16.84 Mpix, as it does in the JAX package; here it is computed in
-    int64 and masked to 32 bits before the floor division."""
-    x, h, squeeze = _batched(arr, hists)
-    cdf = torch.cumsum(h.to(torch.int64), dim=-1)          # [B, C, 256]
+def equalize_tables_reference(hists, total: int, skip_alpha: bool = True):
+    """The plain version of ``equalize_tables``, on any device. The
+    reference's u32 arithmetic (enhancement.zig): ``(cdf - cdf_min) *
+    255`` wraps modulo 2^32, past ~16.84 Mpix, as it does in the JAX
+    package; here it is computed in int64 and masked to 32 bits before the
+    floor division."""
+    cdf = torch.cumsum(hists.to(torch.int64), dim=-1)      # [B, C, 256]
     nonzero = cdf > 0
     first = torch.gather(cdf, -1, _first_true(nonzero)[..., None])[..., 0]
     cdf_min = torch.where(nonzero.any(dim=-1), first, 0)   # [B, C]
@@ -118,11 +128,46 @@ def equalize_from_hists(arr, hists, total: int, skip_alpha: bool = True):
     den = torch.clamp_min(denom, 1)[..., None] & 0xFFFFFFFF
     luts = torch.where(cdf >= cdf_min[..., None],
                        torch.div(num, den, rounding_mode="floor") & 0xFF, 0)
-    ident = torch.arange(256, device=x.device, dtype=torch.int64)
+    ident = torch.arange(256, device=hists.device, dtype=torch.int64)
     luts = torch.where((denom == 0)[..., None], ident, luts)
-    if skip_alpha and x.shape[-1] == 4:
+    if skip_alpha and hists.shape[-2] == 4:
         luts[:, 3] = ident                     # alpha passes through
-    out = lut_apply_u8_per_channel(x, luts)
+    return luts.to(torch.uint8)
+
+
+def equalize_tables(hists, total: int, skip_alpha: bool = True):
+    """u8 equalization tables ``[B, C, 256]`` from per-image, per-channel
+    histograms ``[B, C, 256]`` and an image's pixel count ``total`` (the
+    whole image's, where the histograms were summed over shards). A CUDA
+    tensor runs the tables kernel (or raises); a CPU tensor the plain
+    version."""
+    global TABLE_LAUNCHES
+    if hists.device.type == "cpu":
+        return equalize_tables_reference(hists, total, skip_alpha)
+    if hists.device.type != "cuda":
+        raise ValueError(f"no tables kernel for device {hists.device}")
+    if hists.ndim != 3 or hists.shape[-1] != 256:
+        raise ValueError(f"expected histograms [B, C, 256], not "
+                         f"{list(hists.shape)}")
+    if hists.dtype not in (torch.int32, torch.int64):
+        hists = hists.to(torch.int64)
+    hists = hists.contiguous()
+    b, c = hists.shape[0], hists.shape[1]
+    luts = torch.empty(hists.shape, dtype=torch.uint8, device=hists.device)
+    launch("zt_equalize_tables", hists.device, hists.data_ptr(),
+           int(hists.dtype == torch.int64), luts.data_ptr(), b, c,
+           int(total), int(skip_alpha))
+    with COUNT_LOCK:
+        TABLE_LAUNCHES += 1
+    return luts
+
+
+def equalize_from_hists(arr, hists, total: int, skip_alpha: bool = True):
+    """Equalize u8 ``arr`` given its per-channel histograms and the whole
+    image's pixel count: the tables (``equalize_tables``), then their
+    lookup."""
+    x, h, squeeze = _batched(arr, hists)
+    out = lut_apply_u8_per_channel(x, equalize_tables(h, total, skip_alpha))
     return out[0] if squeeze else out
 
 
@@ -139,3 +184,14 @@ def equalize(arr, skip_alpha: bool = True):
     if t0:
         RECORDER.add("equalize", t0, RECORDER.add("equalize.lut", t1))
     return out
+
+
+def equalize_reference(arr, skip_alpha: bool = True):
+    """The plain version of ``equalize``, on any device: the plain
+    histograms, tables and lookup."""
+    squeeze = arr.ndim == 3
+    x = arr[None] if squeeze else arr
+    tables = equalize_tables_reference(histogram256_batch_reference(x),
+                                       x.shape[-3] * x.shape[-2], skip_alpha)
+    out = lut_apply_u8_per_channel_reference(x, tables)
+    return out[0] if squeeze else out
