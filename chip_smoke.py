@@ -3152,8 +3152,8 @@ def kernel_times(tree) -> int:
     on ``TREE`` (another checkout, e.g. a ``git archive`` of the parent
     commit) or this one: CUDA events, the profiler's device time and the
     host time a call at the main-path shapes (K1 at B 16, 4 and 1 and its
-    plain resize, K2 at three filters, K4 with its library call, K3 at B 4
-    and 16), K3's
+    plain resize, K2 at three filters and ``pipeline.filter_chain`` at B=1,
+    K4 with its library call, K3 at B 4 and 16), K3's
     transcendental costs from chains of growing length with the bound
     they give, and, where the package has tile lists, each tile alone."""
     if tree:
@@ -3162,6 +3162,8 @@ def kernel_times(tree) -> int:
         for name in [m for m in sys.modules
                      if m.split(".")[0] == "zignal_tpu_torch"]:
             del sys.modules[name]
+    from zignal_tpu_torch import pipeline
+    from zignal_tpu_torch.ops import _build
     from zignal_tpu_torch.ops import color_chain as cc
     from zignal_tpu_torch.ops import filter_chain as fc
     from zignal_tpu_torch.ops import fused_pipeline as fp
@@ -3169,6 +3171,10 @@ def kernel_times(tree) -> int:
     from zignal_tpu_torch.ops.convolution import _div_clamp_u8, \
         convolve_separable
     from zignal_tpu_torch.ops.tables import gaussian_kernel
+
+    def clear_plans(mod):  # an older tree keeps them in the module
+        plans = getattr(_build, "PLANS", None)
+        (mod._TABLES if plans is None else plans).clear()
 
     card = _card()
     label = tree or "this tree"
@@ -3199,6 +3205,8 @@ def kernel_times(tree) -> int:
             cases.append((f"K2 B={b} {n}^2 gray sigma={sigma:g} r={r}",
                           k2_names, lambda p=p, sigma=sigma, r=r:
                           fc.fused_blur_sharpen_morph(p, sigma, r)))
+    cases.append((f"pipeline.filter_chain B=1 {n}^2 gray", k2_names,
+                  lambda p=p: pipeline.filter_chain(p)))
     x = _u8(rng, (FILTER_BATCH, n, n, 3))
     for sigma in (2.0, 1.0):
         k = gaussian_kernel(sigma)
@@ -3237,7 +3245,7 @@ def kernel_times(tree) -> int:
                 mod._stream_plan = lambda *a: None
             for tile in tiles[:8] if mod is fp else tiles[:5]:
                 setattr(mod, attr, (tile,))
-                mod._TABLES.clear()
+                clear_plans(mod)
                 print(f"[{card}] {label} {mod.__name__.rsplit('.', 1)[1]} "
                       f"B={FILTER_BATCH} tile {tile} alone: "
                       f"{_device_ms(fn, kernels):.4f} ms (profiler, device)",
@@ -3245,7 +3253,7 @@ def kernel_times(tree) -> int:
             setattr(mod, attr, tiles)
             if stream_plan is not None:
                 mod._stream_plan = stream_plan
-            mod._TABLES.clear()
+            clear_plans(mod)
     return 0
 
 

@@ -716,7 +716,9 @@ def test_color_chain_values_routes_from_the_chain_alone(monkeypatch):
 def test_gamma_table_matches_the_jax_gamma_curve():
     """K1's and K3's input gamma table against zignal_tpu's sRGB curve on
     the 256 bytes, on JAX-CPU: within UNIT, and 0 and 1 exactly."""
-    table = cc.gamma_table("cpu")
+    from zignal_tpu_torch.ops.tables import gamma_table
+
+    table = gamma_table("cpu")
     want = np.asarray(jax_array.gamma_to_linear(
         jnp.arange(256, dtype=jnp.float32) / 255.0))
     assert table.dtype == torch.float32 and table.shape == (256,)

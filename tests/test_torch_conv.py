@@ -195,8 +195,8 @@ def _conv_tiles(x, kx, ky, border, tw, th, f32):
     b, h, w, c = x.shape
     kx = tables._kernel_to_int(kx).astype(np.int64)
     ky = tables._kernel_to_int(ky).astype(np.int64)
-    ty = sc._halo(h, len(ky), border, "cpu").numpy()
-    tx = sc._halo(w, len(kx), border, "cpu").numpy()
+    ty = tables.halo_positions(h, len(ky), border, "cpu").numpy()
+    tx = tables.halo_positions(w, len(kx), border, "cpu").numpy()
     out = np.zeros_like(x)
     for y0 in range(0, h, th):
         for x0 in range(0, w, tw):
@@ -340,7 +340,7 @@ def test_halo_tables_resolve_each_border():
     for n in (1, 2, 5, 40):
         for k in (1, 4, 5, 13):
             for border in BorderMode:
-                got = sc._halo(n, k, border, "cpu").numpy()
+                got = tables.halo_positions(n, k, border, "cpu").numpy()
                 want = tables.resolve_index_np(np.arange(-(k // 2),
                                                          n + k - 1 - k // 2),
                                                n, border)

@@ -54,6 +54,12 @@ def _ids(cases):
             for c in cases]
 
 
+def _struct(plan):
+    """K2's FilterParams of ``plan`` as int32 words (the fields, thr and
+    the reciprocal, the taps), as a launch at thr 0 packs them."""
+    return np.frombuffer(plan.pack(0.0, False, False).raw, np.int32)
+
+
 def _u8(shape, seed):
     return np.random.default_rng(seed).integers(0, 256, shape, np.uint8)
 
@@ -188,8 +194,8 @@ def _kernel_tiles(x, sigma, rs, thr, tile, tw=None):
     tw = tile if tw is None else tw
     plan = fc._Plan(1, h, w, sigma, rs, "cpu")
     ty, tx = plan.ty.numpy(), plan.tx.numpy()
-    f = dict(zip(fc._FIELDS, plan.base))
-    taps = plan.base[len(fc._FIELDS) + 2:][:f["kb"]].astype(np.int64)
+    f = dict(zip(fc._FIELDS, _struct(plan)))
+    taps = _struct(plan)[len(fc._FIELDS) + 2:][:f["kb"]].astype(np.int64)
     hh, g = 2 + rs, 2 + rs + f["rb"]
     kb, ks = len(taps), 2 * rs + 1
     out = np.zeros_like(x)
@@ -299,11 +305,11 @@ def _kernel_stream(x, sigma, rs, thr, vec_in=True):
     planes = x.reshape(-1, *x.shape[-2:])
     b, hh, ww = planes.shape
     plan = fc._Plan(b, hh, ww, sigma, rs, "cpu")
-    f = dict(zip(fc._FIELDS, plan.base.tolist()))
+    f = dict(zip(fc._FIELDS, _struct(plan).tolist()))
     assert f["stream"] == 1 and f["int_form"] == 0
     taps0 = len(fc._FIELDS) + 2 + fc.MAX_TAPS
     kb = f["skb"]
-    staps = [int(t) for t in plan.base[taps0:taps0 + kb]]
+    staps = [int(t) for t in _struct(plan)[taps0:taps0 + kb]]
     rb = kb // 2
     a = (4 - rb % 4) % 4
     nt = (kb + 3) // 4  # __dp4a a column
@@ -502,7 +508,7 @@ def test_int_form_takes_the_tile_path(monkeypatch):
     x = _u8((45, 130), 33)
     for sigma, rs, thr in ((1.5, 3, 120.0), (2.0, 2, 128.0), (0.5, 0, 60.0)):
         plan = fc._Plan(1, 45, 130, sigma, rs, "cpu")
-        f = dict(zip(fc._FIELDS, plan.base.tolist()))
+        f = dict(zip(fc._FIELDS, _struct(plan).tolist()))
         assert plan.stream is None and (f["stream"], f["int_form"]) == (0, 1)
         assert fc._stream_plan(fc._taps(sigma), rs, 45, 130, 1, 132) is None
         want = fc.fused_blur_sharpen_morph_reference(torch.from_numpy(x),
@@ -549,7 +555,7 @@ def test_stream_plan_covers_every_row_and_column(b, h, w, monkeypatch):
         kint = fc._taps(float(sigma))
         for rs in range(4):
             plan = fc._Plan(b, h, w, float(sigma), rs, "cpu")
-            f = dict(zip(fc._FIELDS, plan.base.tolist()))
+            f = dict(zip(fc._FIELDS, _struct(plan).tolist()))
             st = plan.stream
             assert f["stream"] == 1 and st is not None
             assert f["skb"] == st.kb == (7 if len(kint) <= 7 else 13)
@@ -558,7 +564,7 @@ def test_stream_plan_covers_every_row_and_column(b, h, w, monkeypatch):
             assert (f["strips"] - 1) * f["sw"] < w <= f["strips"] * f["sw"]
             assert (f["segs"] - 1) * f["seg"] < h <= f["segs"] * f["seg"]
             at = len(fc._FIELDS) + 2 + fc.MAX_TAPS
-            staps = plan.base[at:at + fc._STAPS]
+            staps = _struct(plan)[at:at + fc._STAPS]
             pad = (st.kb - len(kint)) // 2
             assert np.array_equal(staps[pad:pad + len(kint)], kint)
             assert not staps[:pad].any() and not staps[pad + len(kint):].any()
@@ -581,7 +587,7 @@ def test_stream_plan_sends_wide_filters_to_the_tile_path():
     assert heavy.sum() == 258
     assert fc._stream_plan(heavy, 2, 1024, 1024, 16, 132) is None
     plan = fc._Plan(16, 1024, 1024, 3.5, 3, "cpu")
-    f = dict(zip(fc._FIELDS, plan.base.tolist()))
+    f = dict(zip(fc._FIELDS, _struct(plan).tolist()))
     assert plan.stream is None and f["stream"] == 0
     assert (f["th"], f["tw"]) == (plan.tile.th, plan.tile.tw)
 
@@ -603,7 +609,7 @@ def test_stream_plan_leaves_warm_up_heavy_segments_to_the_tiles():
             assert plan(sigma, rs, 16) is not None
             assert plan(sigma, rs, 3, 1, 65) is None
     p = fc._Plan(1, 1024, 1024, 1.5, 3, "cpu")
-    f = dict(zip(fc._FIELDS, p.base.tolist()))
+    f = dict(zip(fc._FIELDS, _struct(p).tolist()))
     assert p.stream is None and f["stream"] == 0
     assert (f["th"], f["tw"]) == (p.tile.th, p.tile.tw)
 
@@ -725,7 +731,7 @@ def test_interior_tiles_read_contiguous_rows(hw):
     n_in = 0
     for sigma, rs in ((2.0, 2), (1.0, 1), (3.5, 3)):
         plan = fc._Plan(1, h, w, sigma, rs, "cpu")
-        f = dict(zip(fc._FIELDS, plan.base))
+        f = dict(zip(fc._FIELDS, _struct(plan)))
         g = 2 + rs + f["rb"]
         ty, tx = plan.ty.numpy(), plan.tx.numpy()
         for y0 in range(0, h, f["th"]):

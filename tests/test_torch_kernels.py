@@ -1,9 +1,13 @@
 """The CUDA kernels against their plain PyTorch versions on the card. A
 CUDA kernel has no CPU mode, so every test here needs a device and skips
-without one. On a GPU machine (no jax needed):
+without one, but the pins of what each wrapper hands its kernel
+(``test_wrapper_params_and_plans_are_pinned``), which run on the host. On
+a GPU machine (no jax needed):
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -11,6 +15,7 @@ import torch
 
 from zignal_tpu_torch import BorderMode, Gray, ImageBatch, pipeline
 from zignal_tpu_torch.color import convert_chain
+from zignal_tpu_torch.ops import _build
 from zignal_tpu_torch.ops import binary as eb
 from zignal_tpu_torch.ops import color_chain as cc
 from zignal_tpu_torch.ops import enhancement as en
@@ -131,7 +136,7 @@ def test_kernel_at_tile_edges_equals_plain(cuda, channels, sigma):
 @pytest.mark.parametrize("tile", fp.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
 def test_kernel_every_tile_equals_plain(cuda, tile, monkeypatch):
     monkeypatch.setattr(fp, "TILES", (tile,))
-    monkeypatch.setattr(fp, "_TABLES", {})
+    monkeypatch.setattr(_build, "PLANS", {})
     for shape, oh, ow, sigma in (((3, 200, 300, 3), 100, 150, 2.0),
                                  ((2, 130, 70, 1), 65, 35, 1.0),
                                  ((1, 90, 250, 4), 180, 125, 3.5),
@@ -272,7 +277,7 @@ def test_filter_kernel_at_tile_edges_equals_plain(cuda, batch, hw, sigma):
                          ids=lambda t: f"bw{1 << t[0]}-th{t[1]}")
 def test_filter_kernel_every_tile_equals_plain(cuda, tile, monkeypatch):
     monkeypatch.setattr(fc, "TILES", (tile,))
-    monkeypatch.setattr(fc, "_TABLES", {})
+    monkeypatch.setattr(_build, "PLANS", {})
     monkeypatch.setattr(fc, "_stream_plan", lambda *a: None)  # the tiles
     for shape, sigma, radius, thr in (((3, 200, 300), 2.0, 2, 128.0),
                                       ((2, 130, 70), 1.0, 1, -1.0),
@@ -294,7 +299,7 @@ def test_filter_kernel_unaligned_plane_equals_plain(cuda):
 def test_filter_kernel_int_form_equals_plain(cuda, monkeypatch):
     from zignal_tpu_torch.ops import integral
 
-    monkeypatch.setattr(fc, "_TABLES", {})
+    monkeypatch.setattr(_build, "PLANS", {})
     monkeypatch.setattr(fc, "_stream_plan", lambda *a: None)  # the tiles
     monkeypatch.setattr(fc, "sums_fit_f32", lambda *a: False)
     monkeypatch.setattr(integral, "sums_fit_f32", lambda *a: False)
@@ -321,7 +326,7 @@ def test_streamed_kernel_at_strip_and_segment_edges_equals_plain(
     """Every segment length streams here, those whose warm-up sends the
     plan to the tile kernel too."""
     monkeypatch.setattr(fc, "MAX_WARMUP", float("inf"))
-    monkeypatch.setattr(fc, "_TABLES", {})
+    monkeypatch.setattr(_build, "PLANS", {})
     x = _u8((batch, *hw), 24, cuda)
     for radius, thr in ((0, 128.0), (1, 127.5), (2, 128.0), (3, 90.0)):
         streamed = fc.STREAMED
@@ -361,7 +366,7 @@ def test_int_form_takes_the_tile_kernel(cuda, monkeypatch):
     streamed kernel's strip and segment edges too."""
     from zignal_tpu_torch.ops import integral
 
-    monkeypatch.setattr(fc, "_TABLES", {})
+    monkeypatch.setattr(_build, "PLANS", {})
     monkeypatch.setattr(fc, "sums_fit_f32", lambda *a: False)
     monkeypatch.setattr(integral, "sums_fit_f32", lambda *a: False)
     for shape in ((16, 21, 241), (1, 75, 1024), (16, 9, 120)):
@@ -394,6 +399,93 @@ def test_streamed_counts_the_main_path_launch(cuda):
         x[:2], 0.0, 2, 128.0))
 
 
+# What each wrapper hands its kernel, pinned on the host: the chosen plan,
+# and a digest of the packed parameter structs of a launch's variants and
+# of the plan's device tables. The benchmark cells' shapes (K1 B=16 of
+# 1024^2 -> 512^2, K2 at B=16 and B=1, K3's rgb -> lab values chain) and
+# tile edges: C=5, an unstaged 40:1 downscale, r 3 with 13 taps at B=1, a
+# 5-tap signed kernel, a filter too long for a conv tile.
+PINS = [
+    ("K1", (16, 1024, 1024, 3, 512, 512, 2.0, True), (64, 32, True),
+     "67a33dea286fc0f2"),
+    ("K1", (1, 1024, 1024, 3, 512, 512, 2.0, True), (32, 15, True),
+     "dd9023b2ca3429e1"),
+    ("K1", (2, 57, 33, 5, 20, 40, 1.5, False), (8, 8, False),
+     "811e466d04fb6f39"),
+    ("K1", (1, 1600, 2000, 3, 40, 50, 2.0, True), (8, 8, False),
+     "c34a89f38070769d"),
+    ("K1", (2, 1, 64, 3, 3, 32, 0.0, False), (8, 8, False),
+     "66aa66b9bf928eae"),
+    ("K2", (16, 1024, 1024, 2.0, 2, 128.0), (64, 56, (13, 74, 14)),
+     "3ed7e830a8269153"),
+    ("K2", (1, 1024, 1024, 2.0, 2, 128.0), (64, 24, (13, 9, 114)),
+     "32adf02b1ee157df"),
+    ("K2", (1, 1024, 1024, 1.5, 3, 120.0), (64, 24, None),
+     "009f780c4ee1a4fa"),
+    ("K2", (1, 63, 129, 3.5, 3, 90.0), (16, 8, None), "aefb1e6ebaedd71b"),
+    ("K2", (16, 21, 241, 0.5, 0, 60.0), (16, 8, (7, 9, 3)),
+     "6c5fa86f03e5eda6"),
+    ("K3", ("rgb", "lab"), (0, 3), "6195522c6c01adc1"),
+    ("K3", ("rgb", "lab", "rgb", "oklch", "rgb", "xyb", "rgb"),
+     (0, 3, 7, 4, 10, 8, 5, 9, 1), "cdb7cb5da80012e7"),
+    ("K3", (), (), "fffc490857cf66e7"),   # K3p's
+    ("K4", (2, 40, 56, 3, SIGNED, "ZERO"), (4, 8), "f87b3d1f8a9eeadc"),
+    ("K4", (1, 33, 65, 4, SIGNED, "MIRROR"), (4, 8), "eda4de6f04f9ad34"),
+    ("K4", (16, 70, 150, 1, SIGNED, "WRAP"), (32, 8), "85efe2e675c67156"),
+    ("K4", (1, 64, 64, 3, 30.0, "REPLICATE"), ("band", 69632),
+     "cd64f938a267ab0a"),
+    ("K4", (16, 1024, 1024, 3, 2.0, "MIRROR"), (64, 32), "bd7926ac4345c55f"),
+]
+
+
+def _digest(*parts) -> str:
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(part if isinstance(part, bytes) else part.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _pinned(kernel, case):
+    """(the chosen plan, the digest) of ``case`` as the wrapper plans it
+    on the host (132 SMs, an H100 SXM's)."""
+    if kernel == "K1":
+        p = fp._Plan(*case, "cpu")
+        return (p.tile.tw, p.tile.th, p.tile.staged), _digest(
+            p.pack(False).raw, p.pack(True).raw, p.ty, p.tx, p.sy, p.sx)
+    if kernel == "K2":
+        *shape, thr = case
+        p = fc._Plan(*shape, "cpu")
+        st = p.stream
+        return (1 << p.tile.lg_bw, p.tile.th,
+                None if st is None else (st.kb, st.seg, st.segs)), _digest(
+            *(p.pack(thr, vi, vo).raw for vi, vo in
+              ((False, False), (True, True), (True, False))),
+            p.ty, p.tx, p.sty, p.stx)
+    if kernel == "K3":
+        codes = cc.compile_chain(case) if case else ()
+        return codes, _digest(cc.chain_params(codes).raw)
+    b, h, w, c, k, border = case
+    border = BorderMode[border]
+    kint = tables._kernel_to_int(tables.gaussian_kernel(k)
+                                 if isinstance(k, float) else k)
+    p = sc._conv_plan(kint, kint, border, b, h, w, c, "cpu")
+    if p is None:
+        from zignal_tpu_torch.ops.convolution import _band
+
+        p = sc._BandPlan(_band(w, kint, border), _band(h, kint, border), b,
+                         h, w, c, "cpu")
+        return ("band", p.smem), _digest(p.pack().raw, p.ysrc, p.yidx, p.yw,
+                                         p.xsrc, p.xidx, p.xw)
+    return (p.tile.tw, p.tile.th), _digest(p.pack(False).raw,
+                                           p.pack(True).raw, p.ty, p.tx)
+
+
+@pytest.mark.parametrize("kernel,case,plan,digest", PINS,
+                         ids=[f"{k}-{i}" for i, (k, *_) in enumerate(PINS)])
+def test_wrapper_params_and_plans_are_pinned(kernel, case, plan, digest):
+    assert _pinned(kernel, case) == (plan, digest)
+
+
 @pytest.mark.parametrize("shape,kernel,border", CONV_CASES)
 def test_separable_kernel_equals_plain(cuda, shape, kernel, border):
     x = _u8(shape, 7, cuda)
@@ -423,7 +515,7 @@ def test_separable_kernel_at_tile_edges_equals_plain(cuda, channels, border,
 @pytest.mark.parametrize("tile", sc.CONV_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
 def test_separable_kernel_every_tile_equals_plain(cuda, tile, monkeypatch):
     monkeypatch.setattr(sc, "CONV_TILES", (tile,))
-    monkeypatch.setattr(sc, "_TABLES", {})
+    monkeypatch.setattr(_build, "PLANS", {})
     k2 = tables.gaussian_kernel(2.0)
     for shape, kx, ky, border in (
             ((16, 70, 150, 3), k2, k2, BorderMode.MIRROR),
@@ -760,9 +852,10 @@ def test_gamma_table_on_the_card_matches_the_cpu(cuda):
     """K1's and K3's input gamma, computed on the card, against the same
     table computed on the CPU (which tests/test_torch_color.py holds to
     JAX): within 1e-5 max-abs (UNIT there)."""
-    table = cc.gamma_table(cuda)
+    table = tables.gamma_table(cuda)
     assert table.dtype == torch.float32 and table.shape == (256,)
-    assert float((table.cpu() - cc.gamma_table("cpu")).abs().max()) <= 1e-5
+    want = tables.gamma_table("cpu")
+    assert float((table.cpu() - want).abs().max()) <= 1e-5
 
 
 def test_color_chain_kernel_rejects_non_contiguous(cuda):

@@ -21,6 +21,7 @@ from zignal_tpu.pipeline import resize_blur_oklab as jax_rbo
 import zignal_tpu_torch as zp
 from zignal_tpu_torch import pipeline
 from zignal_tpu_torch.color import convert_array
+from zignal_tpu_torch.ops import _build
 from zignal_tpu_torch.ops import fused_pipeline as fp
 from zignal_tpu_torch.ops import tables
 from zignal_tpu_torch.ops.convolution import convolve_separable, \
@@ -288,7 +289,7 @@ def test_tile_plan_takes_a_smaller_tile_below_four_blocks_an_sm():
     big, _, _ = fp.tile_plan(16, 512, 512, r, 3, True, ty, tx, 132)
     one, _, _ = fp.tile_plan(1, 512, 512, r, 3, True, ty, tx, 132)
     assert (big.tw, big.th) == fp.TILES[0] and big.staged
-    assert one.blocks >= fp.MIN_BLOCKS_PER_SM * 132 and one.staged
+    assert one.blocks >= _build.MIN_BLOCKS_PER_SM * 132 and one.staged
     assert one.tw * one.th < big.tw * big.th
 
 

@@ -240,7 +240,7 @@ def test_chain_kernel_tables_follow_the_wrapper():
     scalars, src = _cu_enum("Scalar")
     assert tuple(scalars) == cc.SCALARS
     assert f"constexpr int kMaxSteps = {cc.MAX_STEPS};" in src
-    raw = cc.params_bytes(cc.compile_chain(("rgb", "lab", "rgb")))
+    raw = cc.chain_params(cc.compile_chain(("rgb", "lab", "rgb"))).raw
     assert len(raw) == 4 * (1 + cc.MAX_STEPS + 9 * len(cc.MATRICES)
                             + len(cc.SCALARS))
     ints = np.frombuffer(raw[:4 * (1 + cc.MAX_STEPS)], np.int32)

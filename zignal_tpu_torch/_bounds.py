@@ -63,7 +63,7 @@ def k3_bound(x):
     from .color._array import convert_array
     from .color._scalar import D65_X, D65_Y, D65_Z, LAB_EPSILON, \
         SRGB_LINEAR_THRESHOLD
-    from .ops.color_chain import gamma_table
+    from .ops.tables import gamma_table
 
     px = x.numel() // 3
     xyz = convert_array(x.to(torch.float32) / 255.0, "rgb", "xyz")

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
 import struct
 
 import numpy as np
@@ -371,8 +370,6 @@ def _encode_scan_full_native(arr, gray, sh, sv, ql, qc, dc_codes, ac_codes):
     native library is unavailable (the numpy path below is the
     fallback — a different but equally conformant float encoder, so
     streams are validated by decoded-image closeness, not bytes)."""
-    if os.environ.get("ZT_JPEG_NATIVE_ENCODE") == "0":
-        return None
     lib = get_lib()
     if lib is None:
         return None

@@ -1,5 +1,5 @@
-"""Build the package's CUDA kernels with nvcc at first use and load them
-with ctypes.
+"""Build the package's CUDA kernels with nvcc at first use, load them with
+ctypes, and launch them: the protocol every kernel wrapper follows.
 
 The sources under ``csrc/`` are compiled for ``sm_90a`` into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
@@ -7,6 +7,13 @@ seconds): one nvcc per source, all started together, then one link. The
 library goes to ``zignal_tpu_torch/_build/<hash>/``, keyed by a hash of the
 sources and flags, so an edited source builds anew. Nothing here runs at
 import: ``load()`` is called by the first launch.
+
+A wrapper checks its input, then plans, allocates, packs its parameter
+struct and launches. What it plans is built once a key and kept
+(``cached``); a tile is the first of the wrapper's candidates that fits
+and fills the card (``choose_tile``); a plan packs its struct
+(``Plan.buffer``: ``pack``, checked by ``check_layout`` against the
+library's own size); ``launch`` calls the kernel on the current stream.
 """
 
 from __future__ import annotations
@@ -16,16 +23,16 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from torch.autograd import profiler as _autograd_profiler
+import numpy as np
 
-from ..profiling import RECORDER
+from ..profiling import RECORDER, span_start
 
-__all__ = ["load", "launch", "sm_count", "TILES", "SMEM_LIMIT",
-           "COUNT_LOCK"]
+__all__ = ["load", "launch", "sm_count", "cached", "pack", "check_layout",
+           "Plan", "choose_tile", "a16", "TILES", "SMEM_LIMIT",
+           "MIN_BLOCKS_PER_SM", "ROWS", "COUNT_LOCK"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / name for name in (
@@ -40,6 +47,9 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 TILES = (32, 16, 8)     # output tile sides of K4's band kernel
 SMEM_LIMIT = 232448     # bytes of shared memory a block may use on sm_90
+# a grid of fewer blocks than this many an SM takes the next tile
+MIN_BLOCKS_PER_SM = 4
+ROWS = 8  # rows a thread of a tile kernel's height pass computes
 
 _LIB = None
 # held around every wrapper's ``LAUNCHES += n``: threads launch at once
@@ -139,6 +149,100 @@ def load():
     return _LIB
 
 
+def a16(n: int) -> int:
+    """``n`` rounded up to a multiple of 16 (bytes)."""
+    return (n + 15) & ~15
+
+
+# what the wrappers planned: key -> plan (a tile, tables, a packed struct)
+PLANS: dict = {}
+
+
+def cached(*key, span=None, build=None):
+    """The plan ``key`` names, built on its first call and kept:
+    ``key[0](*key[1:])``, or ``build()`` where the key names by a digest
+    or a tag what the build takes. During a profiler session a build is
+    the recorder's span ``span`` when one is given."""
+    plan = PLANS.get(key)
+    if plan is None:
+        t0 = span_start() if span else 0
+        plan = PLANS[key] = build() if build else key[0](*key[1:])
+        if t0:
+            RECORDER.add(span, t0)
+    return plan
+
+
+def pack(fields, values, tail=()):
+    """A parameter struct as a host buffer the launch copies by value:
+    the int32 ``values`` of ``fields`` in order, then the arrays of
+    ``tail`` (int32 or f32)."""
+    raw = np.array([values[f] for f in fields], np.int32).tobytes()
+    raw += b"".join(np.ascontiguousarray(t).tobytes() for t in tail)
+    return ctypes.create_string_buffer(raw, len(raw))
+
+
+def check_layout(name: str, buf):
+    """``buf``, once the library's ``name()`` (the size of the struct it
+    packs) has been found equal to its length."""
+    if getattr(load(), name)() != len(buf.raw):
+        raise RuntimeError(f"the kernel's parameter layout ({name}) differs "
+                           "from the wrapper's")
+    return buf
+
+
+class Plan:
+    """A kernel's plan for one shape: the int32 ``fields`` of its
+    parameter struct, named in the order of ``FIELDS``, and the arrays of
+    ``tail`` after them; ``LAYOUT`` names the library's size of the
+    struct. ``buffer(*variant)`` is the struct of one launch, packed and
+    checked at its first use; a plan keeps 64 variants (a sweep over
+    thresholds starts them anew)."""
+
+    __slots__ = ("fields", "tail", "params")
+    FIELDS: tuple = ()
+    LAYOUT = ""
+
+    def __init__(self, fields: dict, tail: tuple):
+        self.fields, self.tail, self.params = fields, tail, {}
+
+    def pack(self, vec_in):
+        """The struct of a launch whose input rows are (or not) read in
+        16-byte vectors."""
+        return pack(self.FIELDS, dict(self.fields, vec_in=int(vec_in)),
+                    self.tail)
+
+    def buffer(self, *variant):
+        buf = self.params.get(variant)
+        if buf is None:
+            if len(self.params) >= 64:
+                self.params.clear()
+            buf = self.params[variant] = check_layout(self.LAYOUT,
+                                                      self.pack(*variant))
+        return buf
+
+
+def choose_tile(tiles, make, b: int, h: int, w: int, sms: int, need: str):
+    """The tile of ``b`` outputs of ``h x w`` on a card of ``sms`` SMs:
+    of the plans ``make(tile)`` of ``tiles``, in order of preference (None
+    where a tile does not fit), the first that fits a block's shared
+    memory and gives the grid at least ``MIN_BLOCKS_PER_SM`` blocks an SM,
+    else the fitting one with the most blocks. Raises where none fits,
+    with ``need`` (what needs the memory) in the message."""
+    best = None
+    for tile in tiles:
+        plan = make(tile)
+        if plan is None or plan.smem > SMEM_LIMIT:
+            continue
+        plan.blocks = b * -(-h // plan.th) * -(-w // plan.tw)
+        if plan.blocks >= MIN_BLOCKS_PER_SM * sms:
+            return plan
+        if best is None or plan.blocks > best.blocks:
+            best = plan
+    if best is None:
+        raise ValueError(f"{need} more shared memory than a block has")
+    return best
+
+
 def sm_count(device) -> int:
     """SMs of the card that holds ``device``; 132, an H100 SXM's, for a
     CPU device, where the tile plans are only inspected."""
@@ -158,8 +262,7 @@ def launch(name: str, device, *args) -> None:
     the recorder's span ``launch``, a switch included."""
     import torch
 
-    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
-        else 0
+    t0 = span_start()
     lib = _LIB or load()
     index = device.index
     current = torch.cuda.current_device()

@@ -14,8 +14,8 @@ within 0.14/255 of the input bytes), so a u8 comparison alone would pass a
 kernel that copied its input: ``quantize=False`` returns the f32 values
 before the quantization, and the tests and ``chip_smoke.py`` hold those
 to the plain version too. The kernel reads the chain's first step, the
-input gamma, from a table the wrapper computes with the plain version's
-own ops (``gamma_table``), and takes its cube roots with the card's
+input gamma, from a table computed with the plain version's own ops
+(``tables.gamma_table``), and takes its cube roots with the card's
 ``cbrtf`` where the plain version takes ``sign(x) * |x|^(1/3)``: its f32
 values are within 1e-4 of the plain version's (``CHAIN_UNIT`` in the
 tests), its u8 outputs equal.
@@ -34,23 +34,20 @@ first K3 launch on a device runs it once and raises on a mismatch.
 
 from __future__ import annotations
 
-import ctypes
-import time
-
 import numpy as np
 import torch
-from torch.autograd import profiler as _autograd_profiler
 
 from ..color import _array as A
 from ..color._chain import _CYL_OF, _LINEAR_SPACES, convert_chain
 from ..color._path import conversion_path
-from ..profiling import RECORDER
-from ._build import COUNT_LOCK, launch, load
+from ..profiling import RECORDER, span_start
+from ._build import COUNT_LOCK, cached, check_layout, launch, pack
+from .tables import gamma_table
 
 __all__ = ["chain_supported", "values_chain_supported", "compile_chain",
            "fused_color_chain_u8", "fused_color_chain_u8_reference",
-           "gamma_table", "transcendentals_probe",
-           "transcendentals_probe_reference", "PROBE_TOL"]
+           "transcendentals_probe", "transcendentals_probe_reference",
+           "PROBE_TOL"]
 
 # kernel launches since import, read as color_chain.LAUNCHES and
 # color_chain.PROBE_LAUNCHES: a run shows with them that the main path
@@ -153,19 +150,16 @@ def _check_chain(spaces, quantize: bool) -> None:
                      + (" quantized" if values else ""))
 
 
-_COMPILED: dict = {}
-
-
 def compile_chain(spaces) -> tuple:
     """The kernel's step codes for a supported chain or values chain: the
     state machine of ``convert_chain`` walked on the host. An rgb state is
     either gamma (the input) or linear (after a hop back from a linear
     space); a cylindrical space holds its cartesian shadow. Cached per
     chain."""
-    spaces = tuple(spaces)
-    codes = _COMPILED.get(spaces)
-    if codes is not None:
-        return codes
+    return cached(_compile, tuple(spaces))
+
+
+def _compile(spaces) -> tuple:
     _check_chain(spaces, quantize=False)
     steps = []
     space, linear = "rgb", False
@@ -194,8 +188,7 @@ def compile_chain(spaces) -> tuple:
     if len(steps) > MAX_STEPS:
         raise ValueError(f"the chain needs {len(steps)} steps; one kernel "
                          f"launch runs at most {MAX_STEPS}")
-    codes = _COMPILED[spaces] = tuple(_CODE[s] for s in steps)
-    return codes
+    return tuple(_CODE[s] for s in steps)
 
 
 def _scalar(name: str) -> np.float32:
@@ -219,29 +212,19 @@ def constants() -> np.ndarray:
                                            np.float32)])
 
 
-_PARAMS: dict = {}
+def chain_params(codes):
+    """The kernel's `struct ChainParams` in a host buffer the launch
+    copies by value: the step count, the codes padded to MAX_STEPS, then
+    the constants (all 4-byte fields, no padding)."""
+    steps = np.zeros(MAX_STEPS, np.int32)
+    steps[:len(codes)] = codes
+    return pack(("n",), {"n": len(codes)}, (steps, constants()))
 
 
-def params_bytes(codes) -> bytes:
-    """The kernel's `struct ChainParams`: the step count, the codes padded
-    to MAX_STEPS, then the constants (all 4-byte fields, no padding)."""
-    ints = np.zeros(1 + MAX_STEPS, np.int32)
-    ints[0] = len(codes)
-    ints[1:1 + len(codes)] = codes
-    return ints.tobytes() + constants().tobytes()
-
-
-def _params(codes) -> ctypes.Array:
-    """``params_bytes`` in a host buffer that the launch copies by value;
-    cached per chain."""
-    buf = _PARAMS.get(codes)
-    if buf is None:
-        raw = params_bytes(codes)
-        if load().zt_color_chain_params_bytes() != len(raw):
-            raise RuntimeError("the kernel's ChainParams layout differs "
-                               "from the wrapper's")
-        buf = _PARAMS[codes] = ctypes.create_string_buffer(raw, len(raw))
-    return buf
+def _params(codes):
+    """``chain_params``, checked against the library's layout; the
+    wrapper keeps one a chain (``_build.cached``)."""
+    return check_layout("zt_color_chain_params_bytes", chain_params(codes))
 
 
 def _check(batch):
@@ -268,31 +251,10 @@ def fused_color_chain_u8_reference(batch, spaces, quantize: bool = True):
     return _quantize(f) if quantize else f
 
 
-_GAMMA: dict = {}
-
-
-def gamma_table(device):
-    """The 256 f32 values of a chain's first step, the input gamma, on the
-    bytes 0..255: the plain version's own expression
-    (``gamma_to_linear(x.to(int32).to(float32) / 255.0)``) computed once a
-    device with PyTorch's ops there, so the kernel's table lookup equals
-    the plain version's first step bit for bit."""
-    table = _GAMMA.get(device)
-    if table is None:
-        x = torch.arange(256, dtype=torch.int32, device=device)
-        table = _GAMMA[device] = A.gamma_to_linear(
-            x.to(torch.float32) / 255.0).contiguous()
-    return table
-
-
-_PROBED: set = set()
-
-
-def _probe_once(device) -> None:
-    """K3p once per device before K3's first launch there: the probe on an
-    (8, 128) tile of [0, 2] against its plain version on the card."""
-    if device in _PROBED:
-        return
+def _probe(device) -> bool:
+    """K3p on an (8, 128) tile of [0, 2] against its plain version on the
+    card; K3 runs it once a device (``_build.cached``) before its first
+    launch there."""
     x = torch.linspace(0.0, 2.0, 8 * 128, device=device).reshape(8, 128)
     err = probe_error(transcendentals_probe(x),
                       transcendentals_probe_reference(x))
@@ -300,7 +262,7 @@ def _probe_once(device) -> None:
         raise RuntimeError(f"the colour-chain kernel's transcendentals "
                            f"disagree with PyTorch's on {device}: max "
                            f"relative error {err} > {PROBE_TOL}")
-    _PROBED.add(device)
+    return True
 
 
 def fused_color_chain_u8(batch, spaces, quantize: bool = True):
@@ -312,8 +274,7 @@ def fused_color_chain_u8(batch, spaces, quantize: bool = True):
     ``K3.plan`` (K3p's one launch inside it on a device's first call),
     ``K3.alloc`` and ``K3.params``, one after the other."""
     global LAUNCHES, VALUES
-    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
-        else 0
+    t0 = span_start()
     _check(batch)
     spaces = tuple(spaces)
     if batch.device.type == "cpu":
@@ -323,19 +284,16 @@ def fused_color_chain_u8(batch, spaces, quantize: bool = True):
     if not batch.is_contiguous():
         raise ValueError("the kernel needs a contiguous batch")
     _check_chain(spaces, quantize)
-    if t0:
-        t0 = RECORDER.add("K3.check", t0)
+    t0 = t0 and RECORDER.add("K3.check", t0)
     codes = compile_chain(spaces)
-    _probe_once(batch.device)
-    if t0:
-        t0 = RECORDER.add("K3.plan", t0)
+    cached(_probe, batch.device)
+    t0 = t0 and RECORDER.add("K3.plan", t0)
     out = torch.empty(batch.shape, device=batch.device,
                       dtype=torch.uint8 if quantize else torch.float32)
-    if t0:
-        t0 = RECORDER.add("K3.alloc", t0)
-    params = _params(codes)
+    t0 = t0 and RECORDER.add("K3.alloc", t0)
+    params = cached(_params, codes)
     n = batch.numel() // 3
-    lut = gamma_table(batch.device).data_ptr() \
+    lut = cached(gamma_table, batch.device).data_ptr() \
         if codes and codes[0] == _CODE["GAMMA_TO_LINEAR"] else None
     vec = batch.data_ptr() % 4 == 0 and out.data_ptr() % 16 == 0
     if t0:
@@ -376,7 +334,7 @@ def transcendentals_probe(x):
         raise ValueError("the kernel needs a contiguous tensor")
     out = torch.empty_like(x)
     launch("zt_transcendentals_probe", x.device, x.data_ptr(),
-           out.data_ptr(), _params(()), x.numel())
+           out.data_ptr(), cached(_params, ()), x.numel())
     with COUNT_LOCK:
         PROBE_LAUNCHES += 1
     return out

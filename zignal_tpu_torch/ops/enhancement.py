@@ -20,13 +20,10 @@ During a profiler session ``equalize`` is the recorder's span
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
-from torch.autograd import profiler as _autograd_profiler
 
-from ..profiling import RECORDER
+from ..profiling import RECORDER, span_start
 from ._build import COUNT_LOCK, launch
 from .binary import histogram256_batch, histogram256_batch_reference, \
     histogram256_multi, lut_apply_u8_per_channel, \
@@ -174,8 +171,7 @@ def equalize_from_hists(arr, hists, total: int, skip_alpha: bool = True):
 def equalize(arr, skip_alpha: bool = True):
     """Per-channel histogram equalization through an integer CDF LUT
     (enhancement.zig:84-150). ``arr``: u8 [H, W, C] or [B, H, W, C]."""
-    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
-        else 0
+    t0 = span_start()
     hists = _hists(arr)
     if t0:
         t1 = RECORDER.add("equalize.hist", t0)

@@ -18,21 +18,18 @@ and its segments are more than their warm-up rows, else the tile kernel
 
 from __future__ import annotations
 
-import ctypes
-import time
-
 import numpy as np
 import torch
-from torch.autograd import profiler as _autograd_profiler
 
 from ..enums import BorderMode
-from ..profiling import RECORDER
-from ._build import COUNT_LOCK, SMEM_LIMIT, launch, load, sm_count
+from ..profiling import RECORDER, span_start
+from ._build import COUNT_LOCK, ROWS, Plan, a16, cached, choose_tile, \
+    launch, pack, sm_count
 from .binary import dilate, erode, threshold_apply
 from .convolution import gaussian_blur_reference
 from .integral import sharpen, sums_fit_f32
 from .tables import _kernel_to_int, blur_radius, gaussian_kernel, \
-    resolve_index_np
+    halo_positions
 
 __all__ = ["fused_blur_sharpen_morph", "fused_blur_sharpen_morph_reference"]
 
@@ -41,19 +38,13 @@ __all__ = ["fused_blur_sharpen_morph", "fused_blur_sharpen_morph_reference"]
 LAUNCHES = 0
 STREAMED = 0
 
-# per-shape plans: (B, H, W, sigma, sharpen_radius, device) -> _Plan
-_TABLES: dict = {}
-
-# the kernel's tap table and the vertical passes' rows a thread
-MAX_TAPS = 512
-ROWS = 8
-# (log2 of the row pitch BW, output tile rows) in order of preference: the
-# tile is BW - 2 (rs + 2) columns wide, rounded down to a multiple of 4.
-# The kernel is compiled for pitch 64 as a constant too.
+MAX_TAPS = 512  # the kernel's tap table
+# (log2 of the row pitch BW, output tile rows) in order of preference
+# (_build.choose_tile): the tile is BW - 2 (rs + 2) columns wide, rounded
+# down to a multiple of 4. The kernel is compiled for pitch 64 as a
+# constant too.
 TILES = ((6, 56), (6, 24), (7, 24), (7, 56), (5, 24), (6, 8), (7, 8),
          (5, 8), (4, 8), (8, 56), (8, 24), (8, 8))
-# a grid of fewer blocks than this many per SM takes the next tile
-MIN_BLOCKS_PER_SM = 4
 # The streamed kernel: a warp computes STRIP blurred columns of a column
 # strip, 4 a lane, down a segment of rows. It is compiled for the tap
 # counts STREAM_TAPS (a shorter blur is padded with zero taps to the next)
@@ -85,10 +76,6 @@ _FIELDS = ("B", "H", "W", "rb", "rs", "kb", "th", "tw", "tiles_x",
 _STAPS = 16  # the kernel's kStreamTaps
 
 
-def _a16(n: int) -> int:
-    return (n + 15) & ~15
-
-
 class TilePlan:
     """A tile of ``th`` x ``tw`` outputs with intermediate rows of pitch
     ``2**lg_bw`` and the byte offsets of fused_blur_sharpen_morph.cu's
@@ -106,11 +93,11 @@ class TilePlan:
         self.lg_bw, self.th = lg_bw, th
         self.tw = (bw - 2 * h) & ~3
         ih = th + 2 * g
-        self.iws = _a16(self.tw + 2 * g) + 16
-        self.off_a = _a16(ih * self.iws + 16)
+        self.iws = a16(self.tw + 2 * g) + 16
+        self.off_a = a16(ih * self.iws + 16)
         self.off_bl = self.off_a + 4 * (ih + ROWS) * bw
-        self.off_m0 = _a16(self.off_bl + (th + 2 * h) * bw + 16)
-        self.off_m1 = _a16(self.off_m0 + (th + 4) * bw + 16)
+        self.off_m0 = a16(self.off_bl + (th + 2 * h) * bw + 16)
+        self.off_m1 = a16(self.off_m0 + (th + 4) * bw + 16)
         self.smem = self.off_m1 + (th + 4) * bw + 16
         self.blocks = 0
 
@@ -118,24 +105,14 @@ class TilePlan:
 def _tile_plan(rb: int, rs: int, h: int, w: int, b: int,
                sms: int) -> TilePlan:
     """The tile of ``B = b`` planes of ``h x w`` for blur radius ``rb``
-    and sharpen radius ``rs`` on a card of ``sms`` SMs: the first of
-    ``TILES`` that fits a block's shared memory and gives the grid at least
-    ``MIN_BLOCKS_PER_SM`` blocks an SM, else the fitting one with the most
-    blocks."""
-    best = None
-    for lg_bw, th in TILES:
-        plan = TilePlan(lg_bw, th, rb, rs)
-        if plan.tw < 4 or plan.smem > SMEM_LIMIT:
-            continue
-        plan.blocks = b * -(-h // plan.th) * -(-w // plan.tw)
-        if plan.blocks >= MIN_BLOCKS_PER_SM * sms:
-            return plan
-        if best is None or plan.blocks > best.blocks:
-            best = plan
-    if best is None:
-        raise ValueError(f"blur radius {rb} with sharpen radius {rs} needs "
-                         "more shared memory than a block has")
-    return best
+    and sharpen radius ``rs`` on a card of ``sms`` SMs:
+    ``_build.choose_tile`` over ``TILES``, of at least 4 columns."""
+    def make(tile):
+        plan = TilePlan(*tile, rb, rs)
+        return plan if plan.tw >= 4 else None
+
+    return choose_tile(TILES, make, b, h, w, sms,
+                       f"blur radius {rb} with sharpen radius {rs} needs")
 
 
 class StreamPlan:
@@ -182,26 +159,25 @@ def _taps(sigma: float) -> np.ndarray:
     return _kernel_to_int(gaussian_kernel(sigma))
 
 
-class _Plan:
+class _Plan(Plan):
     """Both kernels' plans for one shape: ``stream`` (None where the
     streamed kernel does not take the filter) is launched when there is
     one, with its halo tables ``sty``/``stx``; ``tile``, ``ty``/``tx``
-    otherwise."""
+    otherwise. ``buffer(thr, vec_in, vec_out)`` is a launch's
+    FilterParams."""
 
-    __slots__ = ("tile", "ty", "tx", "stream", "sty", "stx", "base",
-                 "inv_full", "params")
+    __slots__ = ("tile", "ty", "tx", "stream", "sty", "stx", "inv_full")
+    FIELDS, LAYOUT = _FIELDS, "zt_filter_params_bytes"
 
     def __init__(self, b, h, w, sigma, rs, device):
         kint = _taps(sigma)
         rb = len(kint) // 2
         if len(kint) > MAX_TAPS:
             raise ValueError(f"sigma {sigma} needs more than {MAX_TAPS} taps")
-        g = 2 + rs + rb
         sms = sm_count(device)
 
-        def halo(n, g=g):  # MIRROR-resolved input positions of [-g, n + g)
-            pos = resolve_index_np(np.arange(-g, n + g), n, BorderMode.MIRROR)
-            return torch.from_numpy(pos.astype(np.int32)).to(device)
+        def halo(n, g=2 + rs + rb):  # MIRROR positions of [-g, n + g)
+            return halo_positions(n, 2 * g + 1, BorderMode.MIRROR, device)
 
         t = self.tile = _tile_plan(rb, rs, h, w, b, sms)
         self.ty, self.tx = halo(h), halo(w)
@@ -218,54 +194,25 @@ class _Plan:
                       off_m0=t.off_m0, off_m1=t.off_m1, smem=t.smem,
                       stream=int(st is not None), skb=0, h4=0, sw=0,
                       strips=0, seg=0, segs=0)
-        taps = len(_FIELDS) + 2
-        base = np.zeros(taps + MAX_TAPS + _STAPS, np.int32)
-        base[taps:taps + len(kint)] = kint
+        # the blur's taps, then the streamed kernel's, centred among zeros
+        taps = np.zeros(MAX_TAPS + _STAPS, np.int32)
+        taps[:len(kint)] = kint
         if st is not None:
             fields.update(skb=st.kb, h4=st.h4, sw=st.sw, strips=st.strips,
                           seg=st.seg, segs=st.segs)
-            at = taps + MAX_TAPS + (st.kb - len(kint)) // 2
-            base[at:at + len(kint)] = kint
-        base[:len(_FIELDS)] = [fields[f] for f in _FIELDS]
-        self.base = base
+            at = MAX_TAPS + (st.kb - len(kint)) // 2
+            taps[at:at + len(kint)] = kint
         # the sharpen's reciprocal of a full window, correctly rounded as
         # __frcp_rn rounds it
-        self.inv_full = (np.float32(1) / np.float32((2 * rs + 1) ** 2)) \
-            .view(np.int32)
-        self.params = {}  # (thr, vec_in, vec_out) -> host buffer
+        self.inv_full = np.float32(1) / np.float32((2 * rs + 1) ** 2)
+        super().__init__(fields, (taps,))
 
-
-def _plan(b, h, w, sigma, rs, device) -> _Plan:
-    key = (b, h, w, sigma, rs, device)
-    plan = _TABLES.get(key)
-    if plan is None:
-        t0 = time.perf_counter_ns() \
-            if _autograd_profiler._is_profiler_enabled else 0
-        plan = _TABLES[key] = _Plan(b, h, w, sigma, rs, device)
-        if t0:
-            RECORDER.add("K2.plan_build", t0)
-    return plan
-
-
-def _params(plan: _Plan, thr: float, vec_in: bool, vec_out: bool):
-    """The kernel's FilterParams for one launch, as a host buffer the
-    launch copies by value; cached on the plan."""
-    key = (thr, vec_in, vec_out)
-    buf = plan.params.get(key)
-    if buf is None:
-        if len(plan.params) >= 64:  # a sweep over thresholds
-            plan.params.clear()
-        raw = plan.base.copy()
-        raw[_FIELDS.index("vec_in")] = vec_in
-        raw[_FIELDS.index("vec_out")] = vec_out
-        raw[len(_FIELDS)] = np.float32(thr).view(np.int32)
-        raw[len(_FIELDS) + 1] = plan.inv_full
-        if load().zt_filter_params_bytes() != raw.nbytes:
-            raise RuntimeError("the kernel's FilterParams layout differs "
-                               "from the wrapper's")
-        buf = plan.params[key] = ctypes.create_string_buffer(raw.tobytes(),
-                                                             raw.nbytes)
-    return buf
+    def pack(self, thr, vec_in, vec_out):
+        """A launch's FilterParams: the fields, thr and the reciprocal as
+        f32, then the taps."""
+        return pack(_FIELDS, dict(self.fields, vec_in=int(vec_in),
+                                  vec_out=int(vec_out)),
+                    (np.float32([thr, self.inv_full]), *self.tail))
 
 
 def _check(x, sigma: float, rs: int):
@@ -303,8 +250,7 @@ def fused_blur_sharpen_morph(x, sigma: float = 2.0, sharpen_radius: int = 2,
     adds the recorder's spans ``K2.check``, ``K2.plan``, ``K2.alloc`` and
     ``K2.params``, one after the other."""
     global LAUNCHES, STREAMED
-    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
-        else 0
+    t0 = span_start()
     sigma, rs, thr = float(sigma), int(sharpen_radius), float(thr)
     _check(x, sigma, rs)
     if x.device.type == "cpu":
@@ -316,21 +262,16 @@ def fused_blur_sharpen_morph(x, sigma: float = 2.0, sharpen_radius: int = 2,
     h, w = x.shape[-2:]
     planes = x.view(-1, h, w)
     b = planes.shape[0]
-    if t0:
-        t0 = RECORDER.add("K2.check", t0)
-    plan = _plan(b, h, w, sigma, rs, x.device)
+    t0 = t0 and RECORDER.add("K2.check", t0)
+    plan = cached(_Plan, b, h, w, sigma, rs, x.device, span="K2.plan_build")
     stream = plan.stream
-    if stream is None and \
-            b * -(-h // plan.tile.th) * -(-w // plan.tile.tw) >= 2 ** 31:
+    if stream is None and plan.tile.blocks >= 2 ** 31:
         raise ValueError("batch or plane too large for one launch grid")
-    if t0:
-        t0 = RECORDER.add("K2.plan", t0)
+    t0 = t0 and RECORDER.add("K2.plan", t0)
     out = torch.empty_like(planes)
-    if t0:
-        t0 = RECORDER.add("K2.alloc", t0)
-    params = _params(plan, thr,
-                     w % 16 == 0 and planes.data_ptr() % 16 == 0,
-                     w % 4 == 0 and out.data_ptr() % 4 == 0)
+    t0 = t0 and RECORDER.add("K2.alloc", t0)
+    params = plan.buffer(thr, w % 16 == 0 and planes.data_ptr() % 16 == 0,
+                         w % 4 == 0 and out.data_ptr() % 4 == 0)
     if t0:
         RECORDER.add("K2.params", t0)
     ty, tx = (plan.ty, plan.tx) if stream is None else (plan.sty, plan.stx)

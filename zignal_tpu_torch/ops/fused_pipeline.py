@@ -14,21 +14,17 @@ each tile stages, the shared-memory layout, all cached per shape.
 
 from __future__ import annotations
 
-import ctypes
-import time
-
 import numpy as np
 import torch
-from torch.autograd import profiler as _autograd_profiler
 
 from ..color._array import _OKLMS2LAB, _RGB2OKLMS, convert_array
-from ..profiling import RECORDER
-from ._build import COUNT_LOCK, SMEM_LIMIT, launch, load, sm_count
-from .color_chain import gamma_table
+from ..profiling import RECORDER, span_start
+from ._build import COUNT_LOCK, ROWS, SMEM_LIMIT, Plan, a16, cached, \
+    choose_tile, launch, sm_count
 from .convolution import gaussian_blur_reference
 from .interpolation import _resize_bilinear_u8
-from .tables import _kernel_to_int, blur_radius, gaussian_kernel, \
-    halo_axis_table
+from .tables import _kernel_to_int, blur_radius, gamma_table, \
+    gaussian_kernel, halo_axis_table
 
 __all__ = ["fused_resize_blur_oklab", "fused_resize_blur_oklab_reference",
            "tile_plan", "axis_spans"]
@@ -38,18 +34,12 @@ __all__ = ["fused_resize_blur_oklab", "fused_resize_blur_oklab_reference",
 # channels launches launches_for(C) times)
 LAUNCHES = 0
 
-# per-shape plans: (B, H, W, C, OH, OW, sigma, oklab, device) -> _Plan
-_TABLES: dict = {}
-
-# (tile columns, tile rows) in order of preference; a grid of fewer than
-# MIN_BLOCKS_PER_SM blocks an SM takes the next.
+# (tile columns, tile rows) in order of preference (_build.choose_tile)
 TILES = ((64, 32), (32, 32), (48, 32), (32, 64), (64, 24), (32, 15),
          (16, 16), (16, 8), (8, 8))
 # the plain resize (no blur, no Oklab) uses no shared memory: its tile only
 # sets a block's work, and 32 x 32 measured faster than 64 x 32
 PLAIN_TILES = ((32, 32), (32, 15), (16, 16), (16, 8), (8, 8))
-MIN_BLOCKS_PER_SM = 4
-ROWS = 8          # rows a thread of the height pass computes
 MAX_TAPS = 512    # the kernel's tap table
 GROUP = 4         # channels a launch computes when C is not 1, 3 or 4
 _FIELDS = ("B", "H", "W", "C", "cs", "c0", "OH", "OW", "r", "k", "tw", "th",
@@ -62,10 +52,6 @@ def launches_for(c: int) -> int:
     """Launches of one call on ``c`` channels: 1 for C in {1, 3, 4}, else
     one a group of at most ``GROUP`` channels."""
     return 1 if c in (1, 3, 4) else -(-c // GROUP)
-
-
-def _a16(n: int) -> int:
-    return (n + 15) & ~15
 
 
 def _lg(n: int) -> int:
@@ -98,10 +84,11 @@ class TilePlan:
     source span of ``ny`` rows of ``nx`` pixels; then the width pass's f32
     rows, with the gamma table after them) and region Y (the resized rows,
     a plane of ``nr`` rows a channel; then the u8 tile the Oklab epilogue
-    reads). The plain resize (no blur, no Oklab) uses none of it."""
+    reads). The plain resize (no blur, no Oklab) uses none of it. ``sy``
+    and ``sx`` are the spans of ``axis_spans`` its tiles read."""
 
     __slots__ = ("tw", "th", "staged", "nr", "nc", "rp", "up", "mp", "sp",
-                 "off_x", "off_y", "off_lut", "smem", "blocks")
+                 "off_x", "off_y", "off_lut", "smem", "blocks", "sy", "sx")
 
     def __init__(self, tw, th, r, c, cs, oklab, ny=0, nx=0):
         self.tw, self.th, self.staged = tw, th, ny > 0
@@ -111,56 +98,53 @@ class TilePlan:
         # words and the word past them (the kernel's nres)
         self.nc = 4 * -(-tw // 4) + 4 * -(-k // 4) + 4
         self.rp = self.nc  # a multiple of 4: the planes are read in words
-        self.up = _a16(tw * c)
+        self.up = a16(tw * c)
         self.mp = 4 * -(-tw // 4) * c
-        self.sp = _a16(nx * cs + 16) if self.staged else 0
-        self.off_lut = _a16((self.nr + ROWS) * self.mp * 4) if r else 0
+        self.sp = a16(nx * cs + 16) if self.staged else 0
+        self.off_lut = a16((self.nr + ROWS) * self.mp * 4) if r else 0
         x = max(ny * self.sp, self.off_lut + (1024 if oklab else 0))
         self.off_x = 16 * (self.nr + self.nc)
-        self.off_y = self.off_x + _a16(x)
+        self.off_y = self.off_x + a16(x)
         y = max(c * self.nr * self.rp if r else 0, th * self.up if oklab else 0)
-        self.smem = self.off_y + _a16(y) if r or oklab else 0
+        self.smem = self.off_y + a16(y) if r or oklab else 0
         self.blocks = 0
 
 
 def tile_plan(b, oh, ow, r, c, oklab, ty, tx, sms):
     """The tile of ``b`` outputs of ``oh x ow x c`` (blur radius ``r``,
     halo tables ``ty``, ``tx``) on a card of ``sms`` SMs, with the spans it
-    stages: the first of ``TILES`` that fits a block's shared memory and
-    gives at least ``MIN_BLOCKS_PER_SM`` blocks an SM, else the fitting one
-    with the most blocks. A tile stages its source span where that fits;
-    a channel group (c not in 1, 3, 4) and a span too large gather from
-    global memory, and so does a plan without blur (latency-bound: the
-    gather measured faster, PERF.md). Returns (plan, (first, count) rows,
-    same for columns)."""
+    stages: ``_build.choose_tile`` over ``TILES``. A tile stages its
+    source span where that fits; a channel group (c not in 1, 3, 4) and a
+    span too large gather from global memory, and so does a plan without
+    blur (latency-bound: the gather measured faster, PERF.md). Returns
+    (plan, (first, count) rows, same for columns)."""
     group = c not in (1, 3, 4)
     cg = min(c, GROUP) if group else c
-    best = None
-    for tw, th in PLAIN_TILES if r == 0 and not oklab else TILES:
-        tiles_x, tiles_y = -(-ow // tw), -(-oh // th)
-        sy, sx = axis_spans(ty, th, tiles_y, r), axis_spans(tx, tw, tiles_x, r)
+
+    def make(tile):
+        tw, th = tile
+        sy = axis_spans(ty, th, -(-oh // th), r)
+        sx = axis_spans(tx, tw, -(-ow // tw), r)
         plan = None
         if not group and r:
             plan = TilePlan(tw, th, r, cg, c, oklab, int(sy[1].max()),
                             int(sx[1].max()))
         if plan is None or plan.smem > SMEM_LIMIT:
             plan = TilePlan(tw, th, r, cg, c, oklab)
-        if plan.smem > SMEM_LIMIT:
-            continue
-        plan.blocks = b * tiles_x * tiles_y
-        if plan.blocks >= MIN_BLOCKS_PER_SM * sms:
-            return plan, sy, sx
-        if best is None or plan.blocks > best[0].blocks:
-            best = plan, sy, sx
-    if best is None:
-        raise ValueError(f"blur radius {r} needs more shared memory than a "
-                         "block has")
-    return best
+        plan.sy, plan.sx = sy, sx
+        return plan
+
+    plan = choose_tile(PLAIN_TILES if r == 0 and not oklab else TILES, make,
+                       b, oh, ow, sms, f"blur radius {r} needs")
+    return plan, plan.sy, plan.sx
 
 
-class _Plan:
-    __slots__ = ("r", "tile", "ty", "tx", "sy", "sx", "fields", "tail",
-                 "params")
+class _Plan(Plan):
+    """The kernel's plan for one shape: the tile, its device tables and
+    its K1Params (``buffer(vec_in)``)."""
+
+    __slots__ = ("r", "tile", "ty", "tx", "sy", "sx")
+    FIELDS, LAYOUT = _FIELDS, "zt_resize_params_bytes"
 
     def __init__(self, b, h, w, c, oh, ow, sigma, oklab, device):
         r = blur_radius(sigma)
@@ -177,7 +161,7 @@ class _Plan:
         self.ty, self.tx = (torch.from_numpy(a).to(device) for a in (ty, tx))
         self.sy, self.sx = (torch.from_numpy(np.ascontiguousarray(
             np.stack(s)).astype(np.int32)).to(device) for s in (sy, sx))
-        self.fields = dict(
+        fields = dict(
             B=b, H=h, W=w, C=c, cs=c, c0=0, OH=oh, OW=ow, r=r, k=len(kint),
             tw=t.tw, th=t.th, tiles_x=-(-ow // t.tw), tiles_y=-(-oh // t.th),
             nr=t.nr, lg_gr=_lg(t.nc // 4), lg_pr=_lg(t.nc),
@@ -191,34 +175,7 @@ class _Plan:
         # the taps as bytes, 4 a word (little-endian), for dp4a
         taps4 = np.clip(taps, 0, 255).astype(np.uint8).view(np.uint32)
         mix = np.asarray([_RGB2OKLMS, _OKLMS2LAB], np.float32).ravel()
-        self.tail = (taps, taps4, mix)
-        self.params = {}  # vec_in -> host buffer
-
-    def buffer(self, vec_in: bool):
-        """The kernel's K1Params for one launch, cached."""
-        buf = self.params.get(vec_in)
-        if buf is None:
-            raw = np.array([dict(self.fields, vec_in=int(vec_in))[f]
-                            for f in _FIELDS], np.int32).tobytes()
-            raw += b"".join(t.tobytes() for t in self.tail)
-            if load().zt_resize_params_bytes() != len(raw):
-                raise RuntimeError("the kernel's K1Params layout differs "
-                                   "from the wrapper's")
-            buf = self.params[vec_in] = ctypes.create_string_buffer(raw,
-                                                                    len(raw))
-        return buf
-
-
-def _plan(b, h, w, c, oh, ow, sigma, oklab, device) -> _Plan:
-    key = (b, h, w, c, oh, ow, sigma, oklab, device)
-    plan = _TABLES.get(key)
-    if plan is None:
-        t0 = time.perf_counter_ns() \
-            if _autograd_profiler._is_profiler_enabled else 0
-        plan = _TABLES[key] = _Plan(b, h, w, c, oh, ow, sigma, oklab, device)
-        if t0:
-            RECORDER.add("K1.plan_build", t0)
-    return plan
+        super().__init__(fields, (taps, taps4, mix))
 
 
 def _check(batch, out_rows, out_cols, sigma, oklab):
@@ -259,8 +216,7 @@ def fused_resize_blur_oklab(batch, out_rows: int, out_cols: int,
     session the kernel's route adds the recorder's spans ``K1.check``,
     ``K1.plan``, ``K1.alloc`` and ``K1.params``, one after the other."""
     global LAUNCHES
-    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
-        else 0
+    t0 = span_start()
     sigma = float(sigma)
     _check(batch, out_rows, out_cols, sigma, oklab)
     if batch.device.type == "cpu":
@@ -271,19 +227,17 @@ def fused_resize_blur_oklab(batch, out_rows: int, out_cols: int,
     if not batch.is_contiguous():
         raise ValueError("the kernel needs a contiguous batch")
     b, h, w, c = batch.shape
-    if t0:
-        t0 = RECORDER.add("K1.check", t0)
-    plan = _plan(b, h, w, c, out_rows, out_cols, sigma, oklab, batch.device)
-    if t0:
-        t0 = RECORDER.add("K1.plan", t0)
+    t0 = t0 and RECORDER.add("K1.check", t0)
+    plan = cached(_Plan, b, h, w, c, out_rows, out_cols, sigma, oklab,
+                  batch.device, span="K1.plan_build")
+    t0 = t0 and RECORDER.add("K1.plan", t0)
     out = torch.empty(
         (b, out_rows, out_cols, 3 if oklab else c),
         dtype=torch.float32 if oklab else torch.uint8, device=batch.device)
-    if t0:
-        t0 = RECORDER.add("K1.alloc", t0)
+    t0 = t0 and RECORDER.add("K1.alloc", t0)
     params = plan.buffer(
         plan.tile.staged and (w * c) % 16 == 0 and batch.data_ptr() % 16 == 0)
-    lut = gamma_table(batch.device).data_ptr() if oklab else None
+    lut = cached(gamma_table, batch.device).data_ptr() if oklab else None
     if t0:
         RECORDER.add("K1.params", t0)
     launch("zt_fused_resize_blur_oklab", batch.device, batch.data_ptr(),

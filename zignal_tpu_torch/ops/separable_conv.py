@@ -18,16 +18,16 @@ reads per-output tap lists. Both count in ``LAUNCHES``.
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 
 import numpy as np
 import torch
 
 from ..enums import BorderMode
-from ._build import COUNT_LOCK, SMEM_LIMIT, TILES, launch, load, sm_count
+from ._build import COUNT_LOCK, ROWS, SMEM_LIMIT, TILES, Plan, a16, \
+    cached, choose_tile, launch, pack, sm_count
 from .convolution import _div_clamp_u8
-from .tables import SCALE, band_to_taps, resolve_index_np, tile_sources
+from .tables import SCALE, band_to_taps, halo_positions, tile_sources
 
 __all__ = ["separable_u8", "separable_u8_reference", "run_cached",
            "run_conv", "f32_exact", "conv_tile_plan"]
@@ -36,20 +36,15 @@ __all__ = ["separable_u8", "separable_u8_reference", "run_cached",
 # C channels launches launches_for(C) times)
 LAUNCHES = 0
 
-# device tables and parameters: key -> _BandPlan or _ConvPlan
-_TABLES: dict = {}
-
 # conv_kernel's tap tables hold this many taps an axis; longer kernels go
 # through band_kernel
 MAX_TAPS = 256
-ROWS = 8  # rows a thread of the height pass computes
-# (tile columns, tile rows) of conv_kernel in order of preference, powers
-# of two; a grid of fewer than MIN_BLOCKS_PER_SM blocks an SM takes the next.
-# The width pass's rows have the pitch of the widest, TILE_W pixels.
+# (tile columns, tile rows) of conv_kernel in order of preference
+# (_build.choose_tile), powers of two. The width pass's rows have the pitch
+# of the widest, TILE_W pixels.
 CONV_TILES = ((64, 32), (64, 16), (32, 16), (32, 8), (16, 8), (8, 8),
               (4, 8))
 TILE_W = 64
-MIN_BLOCKS_PER_SM = 4
 F32_EXACT = 1 << 24
 _CONV_FIELDS = ("B", "H", "W", "C", "kx", "ky", "ax", "ay", "th", "tw",
                 "tiles_x", "tiles_y", "lg_g", "lg_nch", "sp", "vec_in", "f32",
@@ -65,10 +60,6 @@ def launches_for(c: int) -> int:
     """Launches of one call on ``c`` channels: one a group of at most
     ``GROUP`` channels."""
     return -(-c // GROUP)
-
-
-def _a16(n: int) -> int:
-    return (n + 15) & ~15
 
 
 def _row_sum(M) -> int:
@@ -129,23 +120,13 @@ def separable_u8_reference(x, Mx, My):
     return _div_clamp_u8(_band_pass(t, My, 1), SCALE * SCALE)
 
 
-def _buffer(fields, values, tail=()):
-    """A parameter struct as a host buffer the launch copies by value:
-    the int fields in order, then the arrays of ``tail`` (int32 or f32)."""
-    raw = np.array([values[f] for f in fields], np.int32).tobytes()
-    raw += b"".join(np.ascontiguousarray(t).tobytes() for t in tail)
-    return ctypes.create_string_buffer(raw, len(raw))
+class _BandPlan(Plan):
+    """band_kernel's plan for a pair of bands: the tile, the tap tables
+    and its BandParams (``buffer()``)."""
 
-
-def _check_layout(name: str, buf) -> None:
-    if getattr(load(), name)() != len(buf.raw):
-        raise RuntimeError(f"the kernel's parameter layout ({name}) differs "
-                           "from the wrapper's")
-
-
-class _BandPlan:
-    __slots__ = ("oh", "ow", "grid_y", "smem", "params", "ysrc", "yidx",
-                 "yw", "xsrc", "xidx", "xw")
+    __slots__ = ("oh", "ow", "grid_y", "smem", "ysrc", "yidx", "yw", "xsrc",
+                 "xidx", "xw")
+    FIELDS, LAYOUT = _BAND_FIELDS, "zt_band_params_bytes"
 
     def __init__(self, Mx, My, b, h, w, c, device):
         yi, yw = band_to_taps(My)
@@ -156,7 +137,7 @@ class _BandPlan:
             ysrc, ylocal = tile_sources(yi, yw, tile)
             xsrc, xlocal = tile_sources(xi, xw, tile)
             sy, sx = ysrc.shape[1], xsrc.shape[1]
-            off_tmp = _a16(sy * sx * c)
+            off_tmp = a16(sy * sx * c)
             off_xt = off_tmp + 4 * sy * tile * c
             off_yt = off_xt + 8 * tile * kx
             smem = off_yt + 8 * tile * ky
@@ -167,14 +148,17 @@ class _BandPlan:
                              "per tile than a block's shared memory holds")
         self.oh, self.ow = My.shape[0], Mx.shape[0]
         self.grid_y, self.smem = -(-self.oh // tile), smem
-        self.params = _buffer(_BAND_FIELDS, dict(
-            B=b, H=h, W=w, C=cs, OH=self.oh, OW=self.ow, sy=sy, ky=ky, sx=sx,
-            kx=kx, tile=tile, off_tmp=off_tmp, off_xt=off_xt, off_yt=off_yt,
-            smem=smem, cs=cs, c0=0))
         self.ysrc, self.yidx, self.yw = (torch.from_numpy(t).to(device)
                                          for t in (ysrc, ylocal, yw))
         self.xsrc, self.xidx, self.xw = (torch.from_numpy(t).to(device)
                                          for t in (xsrc, xlocal, xw))
+        super().__init__(dict(
+            B=b, H=h, W=w, C=cs, OH=self.oh, OW=self.ow, sy=sy, ky=ky, sx=sx,
+            kx=kx, tile=tile, off_tmp=off_tmp, off_xt=off_xt, off_yt=off_yt,
+            smem=smem, cs=cs, c0=0), ())
+
+    def pack(self):
+        return pack(self.FIELDS, self.fields)
 
 
 def _check_cuda(x):
@@ -195,11 +179,8 @@ def run_cached(x, key, bands):
     global LAUNCHES
     _check_cuda(x)
     b, h, w, c = x.shape
-    full = ("band", key, b, c, x.device)
-    plan = _TABLES.get(full)
-    if plan is None:
-        plan = _TABLES[full] = _BandPlan(*bands(), b, h, w, c, x.device)
-        _check_layout("zt_band_params_bytes", plan.params)
+    plan = cached("band", key, b, c, x.device,
+                  build=lambda: _BandPlan(*bands(), b, h, w, c, x.device))
     if plan.grid_y > 65535:
         raise ValueError("output too large for one launch grid")
     out = torch.empty((b, plan.oh, plan.ow, c), dtype=torch.uint8,
@@ -208,7 +189,7 @@ def run_cached(x, key, bands):
     launch("zt_separable_u8", x.device, x.data_ptr(), out.data_ptr(),
            plan.ysrc.data_ptr(), plan.yidx.data_ptr(), plan.yw.data_ptr(),
            plan.xsrc.data_ptr(), plan.xidx.data_ptr(), plan.xw.data_ptr(),
-           plan.params)
+           plan.buffer())
     with COUNT_LOCK:
         LAUNCHES += launches_for(c)
     return out
@@ -225,8 +206,8 @@ class ConvTilePlan:
 
     def __init__(self, tw: int, th: int, kx: int, ky: int, c: int):
         self.tw, self.th = tw, th
-        self.sp = _a16((tw + kx - 1) * c) + 16
-        self.off_t = _a16((th + ky - 1) * self.sp + 64)
+        self.sp = a16((tw + kx - 1) * c) + 16
+        self.off_t = a16((th + ky - 1) * self.sp + 64)
         self.smem = self.off_t + 4 * (th + ky - 1 + ROWS) * TILE_W * c
         self.blocks = 0
 
@@ -234,41 +215,24 @@ class ConvTilePlan:
 def conv_tile_plan(kx: int, ky: int, c: int, h: int, w: int, b: int,
                    sms: int) -> ConvTilePlan:
     """The tile of ``B = b`` images of ``h x w x c`` on a card of ``sms``
-    SMs: the first of ``CONV_TILES`` that fits a block's shared memory and
-    gives the grid at least ``MIN_BLOCKS_PER_SM`` blocks an SM, else the
-    fitting one with the most blocks."""
-    best = None
-    for tw, th in CONV_TILES:
-        plan = ConvTilePlan(tw, th, kx, ky, c)
-        if plan.smem > SMEM_LIMIT:
-            continue
-        plan.blocks = b * -(-h // th) * -(-w // tw)
-        if plan.blocks >= MIN_BLOCKS_PER_SM * sms:
-            return plan
-        if best is None or plan.blocks > best.blocks:
-            best = plan
-    if best is None:
-        raise ValueError(f"{kx} x {ky} taps need more shared memory than a "
-                         "block has")
-    return best
+    SMs: ``_build.choose_tile`` over ``CONV_TILES``."""
+    return choose_tile(CONV_TILES, lambda t: ConvTilePlan(*t, kx, ky, c), b,
+                       h, w, sms, f"{kx} x {ky} taps need")
 
 
-def _halo(n: int, k: int, border: BorderMode, device):
-    """Source positions of ``[-k // 2, n + k - 1 - k // 2)`` under the
-    border, int32 (-1 where a ZERO border reads 0)."""
-    pos = resolve_index_np(np.arange(n + k - 1) - k // 2, n, border)
-    return torch.from_numpy(pos.astype(np.int32)).to(device)
+class _ConvPlan(Plan):
+    """conv_kernel's plan for one shape and filter: the tile, the halo
+    tables and its ConvParams (``buffer(vec_in)``)."""
 
-
-class _ConvPlan:
-    __slots__ = ("tile", "ty", "tx", "fields", "tail", "params")
+    __slots__ = ("tile", "ty", "tx")
+    FIELDS, LAYOUT = _CONV_FIELDS, "zt_conv_params_bytes"
 
     def __init__(self, kx, ky, border, b, h, w, c, device):
         t = self.tile = conv_tile_plan(len(kx), len(ky), min(c, GROUP), h,
                                        w, b, sm_count(device))
-        self.ty = _halo(h, len(ky), border, device)
-        self.tx = _halo(w, len(kx), border, device)
-        self.fields = dict(
+        self.ty = halo_positions(h, len(ky), border, device)
+        self.tx = halo_positions(w, len(kx), border, device)
+        fields = dict(
             B=b, H=h, W=w, C=c, kx=len(kx), ky=len(ky), ax=len(kx) // 2,
             ay=len(ky) // 2, th=t.th, tw=t.tw, tiles_x=-(-w // t.tw),
             tiles_y=-(-h // t.th),
@@ -280,18 +244,7 @@ class _ConvPlan:
         taps[0, :len(kx)] = kx
         taps[1, :len(ky)] = ky
         taps[2] = taps[1].astype(np.float32).view(np.int32)
-        self.tail = (taps,)
-        self.params = {}  # vec_in -> host buffer
-
-    def buffer(self, vec_in: bool):
-        """The kernel's ConvParams for one launch."""
-        buf = self.params.get(vec_in)
-        if buf is None:
-            buf = _buffer(_CONV_FIELDS, dict(self.fields, vec_in=int(vec_in)),
-                          self.tail)
-            _check_layout("zt_conv_params_bytes", buf)
-            self.params[vec_in] = buf
-        return buf
+        super().__init__(fields, (taps,))
 
 
 def run_conv(x, kx, ky, border: BorderMode):
@@ -307,19 +260,16 @@ def run_conv(x, kx, ky, border: BorderMode):
     kx = np.ascontiguousarray(kx, np.int32)
     ky = np.ascontiguousarray(ky, np.int32)
     border = BorderMode(border)
-    full = ("conv", b, h, w, c, kx.tobytes(), ky.tobytes(), border, x.device)
-    plan = _TABLES.get(full)
-    if plan is None:
-        plan = None if max(len(kx), len(ky)) > MAX_TAPS else \
-            _conv_plan(kx, ky, border, b, h, w, c, x.device)
-        _TABLES[full] = plan or "bands"
+    plan = cached("conv", b, h, w, c, kx.tobytes(), ky.tobytes(), border,
+                  x.device, build=lambda: _conv_plan(
+                      kx, ky, border, b, h, w, c, x.device) or "bands")
     if not isinstance(plan, _ConvPlan):
         from .convolution import _band
 
         return run_cached(x, ("conv", h, w, kx.tobytes(), ky.tobytes(),
                               border),
                           lambda: (_band(w, kx, border), _band(h, ky, border)))
-    if b * -(-h // plan.tile.th) * -(-w // plan.tile.tw) >= 2 ** 31:
+    if plan.tile.blocks >= 2 ** 31:
         raise ValueError("image too large for one launch grid")
     out = torch.empty_like(x)
     params = plan.buffer((w * c) % 16 == 0 and x.data_ptr() % 16 == 0)
@@ -331,8 +281,10 @@ def run_conv(x, kx, ky, border: BorderMode):
 
 
 def _conv_plan(kx, ky, border, b, h, w, c, device):
-    """The conv kernel's plan, or None where no tile of its fits a
-    block's shared memory."""
+    """The conv kernel's plan, or None where a kernel has more than
+    ``MAX_TAPS`` taps or no tile of its fits a block's shared memory."""
+    if max(len(kx), len(ky)) > MAX_TAPS:
+        return None
     try:
         return _ConvPlan(kx, ky, border, b, h, w, c, device)
     except ValueError:

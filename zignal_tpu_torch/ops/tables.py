@@ -18,13 +18,17 @@ packages derive every integer tap from the same float32 arithmetic:
 - ``extents``: ``_extents`` of zignal_tpu/ops/pallas_filter.py
 
 Coordinates stay numpy float32 on the host: recomputing them on a device
-can flip ``floor()`` at a few pixels.
+can flip ``floor()`` at a few pixels. Two tables go to the device for the
+kernels: ``halo_positions`` (a window's MIRROR, REPLICATE, WRAP or ZERO
+halo) and ``gamma_table`` (the sRGB input gamma on the 256 bytes).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..color._array import gamma_to_linear
 from ..enums import BorderMode, Interpolation
 
 __all__ = [
@@ -32,7 +36,7 @@ __all__ = [
     "blur_radius", "bilinear_axis_table", "halo_axis_table",
     "border_tap_table", "window_bounds", "extents", "clamped_band",
     "band_to_taps", "tile_sources", "nearest_indices", "cubic_axis_table",
-    "lanczos_axis_table", "CUBIC_KERNELS",
+    "lanczos_axis_table", "CUBIC_KERNELS", "halo_positions", "gamma_table",
 ]
 
 SCALE = 256  # 8.8 fixed point, for both the resize and the blur taps
@@ -228,6 +232,24 @@ def halo_axis_table(src_n: int, dst_n: int, radius: int) -> np.ndarray:
     logic of its own, even on an axis shorter than the radius."""
     pos = resolve_index_np(np.arange(-radius, dst_n + radius), dst_n)
     return np.ascontiguousarray(bilinear_axis_table(src_n, dst_n)[:, pos])
+
+
+def halo_positions(n: int, k: int, border: BorderMode, device):
+    """Source positions of ``[-k // 2, n + k - 1 - k // 2)`` on an axis of
+    ``n`` under the border, the halo of a ``k``-tap window: an int32
+    tensor on ``device`` (-1 where a ZERO border reads 0)."""
+    pos = resolve_index_np(np.arange(n + k - 1) - k // 2, n, border)
+    return torch.from_numpy(pos.astype(np.int32)).to(device)
+
+
+def gamma_table(device):
+    """The 256 f32 values of the input gamma on the bytes 0..255: the
+    plain version's own expression (``gamma_to_linear(x.to(int32)
+    .to(float32) / 255.0)``) computed with PyTorch's ops on ``device``, so
+    a kernel's table lookup equals the plain version's first step bit for
+    bit. The kernels' wrappers keep one a device (``_build.cached``)."""
+    x = torch.arange(256, dtype=torch.int32, device=device)
+    return gamma_to_linear(x.to(torch.float32) / 255.0).contiguous()
 
 
 def window_bounds(n: int, radius: int):

@@ -4,10 +4,7 @@ zignal_tpu/pipeline.py. Each function runs on its input tensor's device.
 
 from __future__ import annotations
 
-import time
-
 import torch
-from torch.autograd import profiler as _autograd_profiler
 
 from .color import convert_array, convert_chain
 from .enums import Interpolation
@@ -17,7 +14,7 @@ from .ops.convolution import gaussian_blur
 from .ops.filter_chain import fused_blur_sharpen_morph
 from .ops.fused_pipeline import fused_resize_blur_oklab
 from .ops.interpolation import resize as resize_op
-from .profiling import RECORDER
+from .profiling import RECORDER, span_start
 
 __all__ = ["resize_blur_oklab", "batched_resize", "batched_gaussian_blur",
            "filter_chain", "color_chain_u8", "color_chain_values"]
@@ -53,8 +50,7 @@ def color_chain_values(batch, spaces):
     input runs the plain ``convert_chain`` on the batch's device. During
     a profiler session the call is the recorder's span
     ``color_chain_values``."""
-    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
-        else 0
+    t0 = span_start()
     spaces = tuple(spaces)
     if (batch.dtype == torch.uint8 and batch.ndim == 4
             and batch.shape[-1] == 3 and values_chain_supported(spaces)):
@@ -91,8 +87,7 @@ def resize_blur_oklab(batch, out_rows: int, out_cols: int, sigma: float = 2.0,
     separable kernel blurs on the card). During a profiler session the
     call is the recorder's span ``resize_blur_oklab``.
     """
-    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
-        else 0
+    t0 = span_start()
     if Interpolation(method) == Interpolation.BILINEAR:
         out = fused_resize_blur_oklab(batch.contiguous(), out_rows, out_cols,
                                       float(sigma))
@@ -113,8 +108,7 @@ def filter_chain(plane, sigma: float = 2.0, sharpen_radius: int = 2,
     fused kernel on the card at any shape. Returns a u8 0/255 mask of the
     same shape, bit-exact with the JAX package's chain. During a profiler
     session the call is the recorder's span ``filter_chain``."""
-    t0 = time.perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
-        else 0
+    t0 = span_start()
     out = fused_blur_sharpen_morph(plane.contiguous(), float(sigma),
                                    int(sharpen_radius), float(thr))
     if t0:

@@ -16,9 +16,10 @@
   K1 and K2 wrappers' stages (``K1.check``, ``K1.plan``, ``K1.plan_build``
   on a plan cache miss, ``K1.alloc``, ``K1.params``; the same for ``K2``)
   and every kernel ``launch`` add theirs, but only while a torch.profiler
-  session runs: each first tests torch's own flag for one, and with it
-  off runs no further code of the recorder. Each session starts a fresh
-  log.
+  session runs: each starts its clock with ``span_start()``, which tests
+  torch's own flag for one and gives 0 without, and stamps a stage with
+  ``t0 = t0 and RECORDER.add(name, t0)``, which then runs no further code
+  of the recorder. Each session starts a fresh log.
 """
 
 from __future__ import annotations
@@ -165,6 +166,15 @@ def measure(fn, *args, pixels: int | None = None, n_small: int = 2,
 
 RECORDER = Profile()
 RECORDER.log_spans()
+
+
+def span_start() -> int:
+    """Where the recorder's next span starts: now on
+    ``time.perf_counter_ns`` while a torch.profiler session runs, else 0.
+    ``t0 = t0 and RECORDER.add(name, t0)`` then stamps the stage ``name``
+    and starts the next one, or does nothing on 0."""
+    return _perf_counter_ns() if _autograd_profiler._is_profiler_enabled \
+        else 0
 
 
 def _on_profiler_start(start=_autograd_profiler._run_on_profiler_start):
