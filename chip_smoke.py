@@ -8,10 +8,12 @@
 
 ``--times`` runs on the package found first on TREE (a checkout of another
 commit, e.g. the parent's ``git archive``) or on this one: K1 at B 16, 4
-and 1 and its plain resize, K3 at B 4 and 16, K2 (sigma 2 r 2, sigma 1 r 1
-and sigma 1.5 r 3, at B 16 and 1) and K4 (with K4's library call), K3's
-chains of 1, 5 and 9 hops with what a cube root costs inside the kernel
-(a diagnostic), and each tile of K1, K2 and K4 alone at B=16.
+and 1 (and, where the tree has both, its tile and its streamed kernel at
+each shape of K1_PAIRS) and its plain resize, K3 at B 4 and 16, K2
+(sigma 2 r 2, sigma 1 r 1 and sigma 1.5 r 3, at B 16 and 1) and K4
+(with K4's library call), K3's chains of 1, 5 and 9 hops with what a
+cube root costs inside the kernel (a diagnostic), and each tile of K1, K2
+and K4 alone at B=16.
 ``--ops`` builds csrc/measure/transcendental_rate.cu and prints what a
 cbrtf and a powf cost with every SM busy, the basis of CBRTF_OPS and
 POWF_OPS in the bounds.
@@ -33,8 +35,11 @@ Phases (any failure raises and exits non-zero):
    tile side, B 1 and 16, sigma 0-3.5, C 1-5);
 3. K1's main path: ImageBatch(..., device="cuda").resize_blur_oklab and
    ImageBatch.resize on B in {16, 4, 1} of 1024^2 RGB -> 512^2, sigma 2,
-   with the kernel's launch count read around each call and the output
-   checked against the plain version; then the repaired faults, each
+   with the kernel's launch count and fused_pipeline.STREAMED read around
+   each call (resize_blur_oklab streams at each B, the plain resize takes
+   the tile kernel) and the output checked against the plain
+   version; at B=16 the streamed kernel against the tile kernel (bitwise,
+   u8 and Oklab) and the plain version; then the repaired faults, each
    with its kernel's launch count read around it: F1, filter_chain and
    resize_blur_oklab on strided views (K2, K1), F2, u8 bilinear resize of
    2, 5 and 8 channels (K1 in channel groups), F3, gaussian_blur of 5 and 8
@@ -774,12 +779,14 @@ def _color_phases(card, rng):
     x16 = batches[16]
     torch.cuda.synchronize()
     fp.LAUNCHES = sc.LAUNCHES = 0
+    since = _streamed()
     ib = ImageBatch(x16, device="cuda")
     out = (ib.resize((512, 512)).gaussian_blur(1.5).autocontrast(0.01)
            .convert(Gray).equalize())
     binary, thresholds = ib.convert(Gray).threshold_otsu()
     torch.cuda.synchronize()
     k1_ex, k4_ex = fp.LAUNCHES, sc.LAUNCHES
+    _keep_streamed("example chain", since)
     print(f"ImageBatch example chain: K1 {k1_ex} launches, K4 {k4_ex}")
     if k1_ex != 1 or k4_ex != 1:
         raise AssertionError("the ImageBatch example chain did not launch "
@@ -1061,6 +1068,7 @@ def _slice4_phases(card, rng):
     # 13. every path once, launch counts zeroed just before
     torch.cuda.synchronize()
     fp.LAUNCHES = sc.LAUNCHES = fc.LAUNCHES = cc.LAUNCHES = 0
+    since = _streamed()
     outs = {}
     for name, fn, want in calls:
         k1, k4 = fp.LAUNCHES, sc.LAUNCHES
@@ -1073,6 +1081,7 @@ def _slice4_phases(card, rng):
         if got != want:
             raise AssertionError(f"{name} launched K1, K4 {got}, not {want}")
     k1_launches, k4_launches = fp.LAUNCHES, sc.LAUNCHES
+    _keep_streamed("13", since)
     if fc.LAUNCHES or cc.LAUNCHES:
         raise AssertionError("phase 13 launched K2 or K3")
     print(f"phase 13: K1 {k1_launches} launches, K4 {k4_launches}")
@@ -1181,12 +1190,14 @@ def _config1(card):
 
     torch.cuda.synchronize()
     fp.LAUNCHES = sc.LAUNCHES = 0
+    since = _streamed()
     outs = [_launched(lambda j=jpg: once(j, "cuda"), fp,
                       f"config 1 image {k}") for k, jpg in enumerate(corpus)]
     img = Image.load_from_bytes(corpus[0], device="cuda")
     blurred = _launched(lambda: img.gaussian_blur(2.0), sc,
                         "Image.gaussian_blur")
     k1, k4 = fp.LAUNCHES, sc.LAUNCHES
+    _keep_streamed("16", since)
     for k, (jpg, out) in enumerate(zip(corpus, outs)):
         if out != once(jpg, "cpu"):
             raise AssertionError(f"config 1 image {k}: PNG bytes differ "
@@ -1274,12 +1285,14 @@ def _files(card, tmp):
     # 17. the north star from files
     torch.cuda.synchronize()
     fp.LAUNCHES = 0
+    since = _streamed()
     ib = _launched(lambda: ImageBatch.from_paths(ns_paths, device="cuda"),
                    fp, "from_paths of 1024^2 files", 0)
     lab = _launched(lambda: ib.resize_blur_oklab((512, 512), sigma=2.0), fp,
                     "resize_blur_oklab")
     small = _launched(lambda: ib.resize((512, 512)), fp, "resize")
     k1 = fp.LAUNCHES
+    _keep_streamed("17", since)
     out_gpu = [f"{tmp}/gpu{i:02d}.png" for i in range(n)]
     small.save(out_gpu)
     m = 4  # the same call on the CPU, on the first 4 files
@@ -1337,7 +1350,7 @@ def _files(card, tmp):
     lettered = sum(1 for i in range(len(paths))
                    if i >= n and LOADER_SIZES[i % 4] != shape)
     torch.cuda.synchronize()
-    before = fp.LAUNCHES
+    before, since = fp.LAUNCHES, _streamed()
     got = []
     for batch in BatchLoader(paths, batch_size=bs, shape=shape,
                              device="cuda"):
@@ -1345,6 +1358,7 @@ def _files(card, tmp):
         ImageBatch(batch, device="cuda").resize_blur_oklab((512, 512), 2.0)
     torch.cuda.synchronize()
     loader_k1 = fp.LAUNCHES - before
+    _keep_streamed("18", since)
     if loader_k1 != lettered + len(chunks):
         raise AssertionError(f"the loader launched K1 {loader_k1} times, "
                              f"not {lettered} letterboxes + {len(chunks)}")
@@ -1515,6 +1529,23 @@ def _counted_modules():
 
 def _counts():
     return tuple(m.LAUNCHES for m in _counted_modules())
+
+
+# K1's streamed launches (fused_pipeline.STREAMED) of each phase after 3,
+# read over the same calls as the K1 launches the phase returns: the
+# kernels line's "streamed" counts the runs its "launches" counts
+K1_STREAMED = {}
+
+
+def _streamed() -> int:
+    from zignal_tpu_torch.ops import fused_pipeline as fp
+
+    return fp.STREAMED
+
+
+def _keep_streamed(phase: str, since: int) -> None:
+    """Adds K1's streamed launches since ``since`` to ``phase``'s."""
+    K1_STREAMED[phase] = K1_STREAMED.get(phase, 0) + _streamed() - since
 
 
 def _geometry_phases(card, rng) -> int:
@@ -1732,9 +1763,11 @@ def _config5(card):
     torch.cuda.synchronize()
     for m in _counted_modules():
         m.LAUNCHES = 0
+    since = _streamed()
     results = orb.detect_and_compute_batch(corpus)
     torch.cuda.synchronize()
     k1, _, _, k4 = _counts()
+    _keep_streamed("24", since)
     want = (orb.n_levels - 1, 1)
     print(f"phase 24 Orb().detect_and_compute_batch of {b} {n}^2 images: "
           f"K1 {k1} launches, K4 {k4} (want {want[0]}, {want[1]}); "
@@ -2052,9 +2085,11 @@ def _slice10_device(card):
     torch.cuda.synchronize()
     for m in _counted_modules():
         m.LAUNCHES = 0
+    since = _streamed()
     k = kitty_from_image(big, width=n // 2)
     torch.cuda.synchronize()
     counts = _counts()
+    _keep_streamed("26", since)
     print(f"phase 26 kitty of a {n}^2 CUDA Image scaled to {n // 2}: "
           f"launches K1-K4 {counts}")
     if counts != (1, 0, 0, 0):
@@ -2327,12 +2362,13 @@ def _cli_device(card, corpus, tmp):
             os.makedirs(d)
         args = {d: [a.replace("{out}", outs[d]) for a in argv]
                 for d in outs}
-        counts = _counts()
+        counts, since = _counts(), _streamed()
         t0 = time.perf_counter()
         text = _cli(args["cuda"], "cuda")
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         got = tuple(a - b for a, b in zip(_counts(), counts))
+        _keep_streamed("29", since)
         if got != (want[0], 0, 0, want[1]):
             raise AssertionError(f"phase 29 {name}: launches (K1, K2, K3, "
                                  f"K4) {got}, not {want}")
@@ -2691,6 +2727,7 @@ def _mesh_phases(card):
     torch.cuda.synchronize()
     for m in mods:
         m.LAUNCHES = 0
+    since = _streamed()
     _comm.reset_counts()
     for name, fn, _, _ in calls:
         before = _counts()
@@ -2700,6 +2737,7 @@ def _mesh_phases(card):
         print(f"phase 31 {name}: K1 {k1}, K4 {k4} launches")
     torch.cuda.synchronize()
     launches, collectives = _counts(), dict(_comm.COLLECTIVES)
+    _keep_streamed("31", since)
     print(f"phase 31: K1 {launches[0]}, K2 {launches[1]}, K3 "
           f"{launches[2]}, K4 {launches[3]} launches; collectives "
           f"{collectives}")
@@ -2810,6 +2848,7 @@ def _profiling_phases(card, corpus):
     x = ib.device_array()
     torch.cuda.synchronize()
     fp.LAUNCHES = fc.LAUNCHES = 0
+    since = _streamed()
 
     # (a) measure beside _time_ms; the outputs against the plain versions
     for name, mod, call, label in calls:
@@ -2886,6 +2925,7 @@ def _profiling_phases(card, corpus):
               f"PNG, 4 passes:\n{prof.report()}")
     torch.cuda.synchronize()
     launches = fp.LAUNCHES, fc.LAUNCHES
+    _keep_streamed("34", since)
     print(f"phase 34: K1 {launches[0]}, K2 {launches[1]} launches; "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
@@ -2911,7 +2951,9 @@ def _bench_phases(card) -> dict:
 
     t0 = time.perf_counter()
     fn, args = entry()
+    since = _streamed()
     lab = _launched(lambda: fn(*args), fp, "phase 35 entry()")
+    _keep_streamed("35", since)
     err = float((lab - fp.fused_resize_blur_oklab_reference(
         args[0], 128, 128, 1.5)).abs().max())
     if args[0].device.type != "cuda" or tuple(lab.shape) != \
@@ -2951,6 +2993,7 @@ def _bench_phases(card) -> dict:
         raise AssertionError(f"phase 35: bad summary {out[-1]}")
     launches = {k: sum(x["launches"][k] for x in configs)
                 for k in ("K1", "K2", "K3", "K3p", "K4")}
+    K1_STREAMED["35"] += sum(x["k1_streamed"] for x in configs)
     if min(launches.values()) < 1 or launches["K3p"] != 1:
         raise AssertionError(f"phase 35: the bench launched {launches}")
     print(f"phase 35: the bench ran bench.py's six configs in "
@@ -3045,6 +3088,45 @@ def _k1_edges(rng):
           f"{'ok' if lab_err <= OKLAB_TOL else 'FAIL'}")
     if lab_err > OKLAB_TOL:
         raise AssertionError("K1 Oklab != plain at the tile-plan edges")
+
+
+def _k1_streamed_vs_tile(x) -> None:
+    """Phase 3c: at the north star's shape (B=16 of 1024^2 -> 512^2, sigma
+    2) the streamed kernel, the tile kernel (its plan refused) and the
+    plain version: u8 and Oklab f32 bitwise the tile kernel's, u8 equal to
+    the plain version's, Oklab within OKLAB_TOL of it."""
+    from zignal_tpu_torch.ops import _build
+    from zignal_tpu_torch.ops import fused_pipeline as fp
+
+    n, o, sigma = MAIN["size"], MAIN["out"], MAIN["sigma"]
+    outs = {}
+    for label in ("streamed", "tile"):
+        saved = fp._stream_plan
+        if label == "tile":
+            fp._stream_plan = lambda *a: None
+        _build.PLANS.clear()
+        streamed = fp.STREAMED
+        outs[label] = [fp.fused_resize_blur_oklab(x, o, o, sigma, oklab)
+                       for oklab in (False, True)]
+        fp._stream_plan = saved
+        _build.PLANS.clear()
+        if fp.STREAMED - streamed != (2 if label == "streamed" else 0):
+            raise AssertionError(f"K1 {label}: {fp.STREAMED - streamed} of 2 "
+                                 "launches streamed")
+    torch.cuda.synchronize()
+    (u8, lab), (u8_tile, lab_tile) = outs["streamed"], outs["tile"]
+    same = torch.equal(u8, u8_tile) and torch.equal(lab, lab_tile)
+    plain = fp.fused_resize_blur_oklab_reference(x, o, o, sigma, oklab=False)
+    err = float((lab - fp.fused_resize_blur_oklab_reference(
+        x, o, o, sigma)).abs().max())
+    ok = same and torch.equal(u8, plain) and err <= OKLAB_TOL
+    print(f"K1 streamed vs tile at B={x.shape[0]} {n}^2->{o}^2 sigma={sigma}: "
+          f"u8 and Oklab bitwise equal {same}, u8 equal to plain "
+          f"{torch.equal(u8, plain)}, Oklab max_abs_err={err} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the streamed K1 differs from the tile kernel "
+                             "or the plain version")
 
 
 def _fault_cases(rng) -> float:
@@ -3147,6 +3229,45 @@ def _host_us(fn, reps: int = 200) -> float:
     return 1e6 * (t1 - t0) / reps
 
 
+# K1's two kernels timed apart (--times): (B, side, sigma) of side^2 RGB
+# -> (side / 2)^2, Oklab. The north star's shape at B 16, 4 and 1 (8-row
+# segments for 12 warm-up rows), 16 of 256^2 (the same), and the streamed
+# grids around the plan's MIN_GRID: 64, 72, 96 and 112 blocks (B=2 and 3
+# of 256^2, B=1 of 384^2 and 448^2; 88 is the rule's on 132 SMs)
+K1_PAIRS = ((16, 1024, 2.0), (4, 1024, 2.0), (1, 1024, 2.0), (16, 256, 2.0),
+            (2, 256, 2.0), (1, 384, 2.0), (3, 256, 2.0), (1, 448, 2.0))
+
+
+def k1_kernel_pairs(fp, card, label, clear_plans, pairs=K1_PAIRS) -> None:
+    """Each shape of ``pairs`` (B, side, sigma) through the tile kernel (the
+    streamed plan refused) and the streamed one (its grid rule lifted):
+    CUDA events and the profiler's device time, with the streamed plan's
+    blocks and segment rows and the kernel the rule picks."""
+    rng = np.random.default_rng(1)
+    for b, n, sigma in pairs:
+        o, x = n // 2, _u8(rng, (b, n, n, 3))
+        rule = fp._Plan(b, n, n, 3, o, o, sigma, True, "cuda").stream
+        for kind, attr, value in (("tile", "_stream_plan", lambda *a: None),
+                                  ("streamed", "MIN_GRID", 0)):
+            saved = getattr(fp, attr)
+            setattr(fp, attr, value)
+            clear_plans()
+            st = fp._Plan(b, n, n, 3, o, o, sigma, True, "cuda").stream
+            grid = "" if st is None else \
+                f" ({st.blocks} blocks, segments of {st.seg} rows)"
+            fn = lambda x=x, o=o, sigma=sigma: \
+                fp.fused_resize_blur_oklab(x, o, o, sigma)  # noqa: E731
+            print(f"[{card}] {label} K1 {kind} B={b} {n}^2->{o}^2 "
+                  f"sigma={sigma:g} Oklab{grid}, the rule's "
+                  f"{'tile' if rule is None else 'streamed'}: "
+                  f"{_time_ms(fn, 50):.4f} ms (events), "
+                  f"{_device_ms(fn, K1_NAMES):.4f} ms (profiler, device)",
+                  flush=True)
+            setattr(fp, attr, saved)
+            clear_plans()
+        del x
+
+
 def kernel_times(tree) -> int:
     """``--times [TREE]``: every kernel alone, on the package found first
     on ``TREE`` (another checkout, e.g. a ``git archive`` of the parent
@@ -3220,6 +3341,8 @@ def kernel_times(tree) -> int:
         print(f"[{card}] {label} {name}: {_time_ms(fn, 50):.4f} ms (events),"
               f" {_device_ms(fn, kernels):.4f} ms (profiler, device), "
               f"{_host_us(fn):.1f} us host a call", flush=True)
+    if hasattr(fp, "_stream_plan"):
+        k1_kernel_pairs(fp, card, label, lambda: clear_plans(fp))
     for sigma in (2.0, 1.0):
         k = gaussian_kernel(sigma)
         lib, lib_out = _library_conv(x, k)
@@ -3365,22 +3488,29 @@ def main() -> int:
     n, o, sigma = MAIN["size"], MAIN["out"], MAIN["sigma"]
     batches = {b: rng.integers(0, 256, (b, n, n, 3), np.uint8)
                for b in BATCHES}
-    fp.LAUNCHES = 0
+    fp.LAUNCHES = fp.STREAMED = 0
     outs = {}
     for b in BATCHES:
+        # the streamed kernel takes each resize_blur_oklab (its plan takes
+        # every B of the shape), never the plain resize (sigma 0)
         for _ in range(3):
-            before = fp.LAUNCHES
+            before, streamed = fp.LAUNCHES, fp.STREAMED
             ib = ImageBatch(batches[b], device="cuda")
             lab = ib.resize_blur_oklab((o, o), sigma=sigma)
+            if (fp.LAUNCHES - before, fp.STREAMED - streamed) != (1, 1):
+                raise AssertionError(f"resize_blur_oklab B={b} launched K1 "
+                                     f"{fp.LAUNCHES - before}, streamed "
+                                     f"{fp.STREAMED - streamed}")
             small = ib.resize((o, o))
-            if fp.LAUNCHES != before + 2:
-                raise AssertionError("the main path did not launch the "
-                                     "kernel once per call")
+            if (fp.LAUNCHES - before, fp.STREAMED - streamed) != (2, 1):
+                raise AssertionError("the plain resize did not launch the "
+                                     "tile kernel once")
         outs[b] = (ib, lab, small)
     torch.cuda.synchronize()
-    launches = fp.LAUNCHES
+    launches, streamed = fp.LAUNCHES, fp.STREAMED
     print(f"main path: {launches} kernel launches over "
-          f"{3 * len(BATCHES)} resize_blur_oklab + resize calls")
+          f"{3 * len(BATCHES)} resize_blur_oklab + resize calls, "
+          f"{streamed} streamed")
     main_err = 0.0
     for b, (ib, lab, small) in outs.items():
         x = ib.device_array()
@@ -3400,6 +3530,7 @@ def main() -> int:
               "resize equal")
     worst = max(worst, main_err)
     worst = max(worst, _fault_cases(rng))
+    _k1_streamed_vs_tile(outs[16][0].device_array())
 
     # 4. times at B=16: plain, kernel, kernel, plain in one process
     x = outs[16][0].device_array()
@@ -3420,6 +3551,7 @@ def main() -> int:
         "source": "zignal_tpu_torch/csrc/fused_resize_blur_oklab.cu",
         "replaces": "zignal_tpu/ops/pallas_pipeline.py:322",
         "launches": launches,
+        "streamed": streamed,
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -3443,6 +3575,9 @@ def main() -> int:
     s14 = _bench_phases(card)
     k1["launches"] += k1_ex + k1_s4 + k1_s7 + k1_s9 + k1_s10 + k1_s11 + \
         k1_s12 + k1_s13 + s14["K1"]
+    k1["streamed"] += sum(K1_STREAMED.values())
+    print(f"K1 streamed launches by phase: phase 3 {streamed}, "
+          f"{K1_STREAMED}")
     k2["launches"] += k2_s13 + s14["K2"]
     k3["launches"] += s14["K3"]
     k3p["launches"] += s14["K3p"]

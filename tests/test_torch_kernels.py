@@ -211,6 +211,100 @@ def test_kernel_rejects_non_contiguous(cuda):
         fp.fused_resize_blur_oklab(x, 16, 16, 1.0)
 
 
+def _k1_both(x, oh, ow, sigma, oklab, monkeypatch):
+    """K1's output on ``x`` from the streamed kernel (the plan's, which
+    must stream) and from the tile kernel (the streamed plan refused),
+    each one launch."""
+    monkeypatch.setattr(_build, "PLANS", {})
+    launches, streamed = fp.LAUNCHES, fp.STREAMED
+    got = fp.fused_resize_blur_oklab(x, oh, ow, sigma, oklab)
+    assert (fp.LAUNCHES, fp.STREAMED) == (launches + 1, streamed + 1)
+    with monkeypatch.context() as m:
+        m.setattr(_build, "PLANS", {})
+        m.setattr(fp, "_stream_plan", lambda *a: None)  # the tiles
+        tile = fp.fused_resize_blur_oklab(x, oh, ow, sigma, oklab)
+    assert (fp.LAUNCHES, fp.STREAMED) == (launches + 2, streamed + 1)
+    return got, tile
+
+
+# the streamed kernel at the north star's shape and around it: sigma 1 and
+# 1.5, output widths that are not a multiple of the 64-column strip (500,
+# 513) with a ragged last segment, B=3, rows that are not 16-byte aligned
+STREAM_K1_CASES = [  # (shape, out_rows, out_cols, sigma)
+    ((16, 1024, 1024, 3), 512, 512, 2.0),
+    ((16, 1024, 1024, 3), 512, 512, 1.0),
+    ((16, 1024, 1024, 3), 512, 512, 1.5),
+    ((8, 1000, 1000, 3), 500, 500, 2.0),
+    ((8, 1026, 1026, 3), 513, 513, 2.0),
+    ((3, 600, 800, 3), 300, 400, 1.5),
+    ((16, 400, 402, 3), 200, 201, 2.0),
+]
+
+
+@pytest.mark.parametrize("shape,oh,ow,sigma", STREAM_K1_CASES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_streamed_k1_equals_the_tile_kernel(cuda, shape, oh, ow, sigma,
+                                            monkeypatch):
+    """Bitwise the tile kernel's output, u8 and Oklab f32, and the plain
+    version's u8."""
+    x = _u8(shape, 33, cuda)
+    got, tile = _k1_both(x, oh, ow, sigma, False, monkeypatch)
+    assert torch.equal(got, tile)
+    assert torch.equal(got, fp.fused_resize_blur_oklab_reference(
+        x, oh, ow, sigma, oklab=False))
+    lab, lab_tile = _k1_both(x, oh, ow, sigma, True, monkeypatch)
+    assert torch.equal(lab, lab_tile)
+    ref = fp.fused_resize_blur_oklab_reference(x, oh, ow, sigma)
+    assert float((lab - ref).abs().max()) <= OKLAB_TOL
+
+
+def test_streamed_k1_takes_strided_input_b1_and_a_small_grid(cuda,
+                                                            monkeypatch):
+    """pipeline.resize_blur_oklab on x[:, ::2] (its contiguous copy's rows
+    are not 16-byte aligned: the stages gather), B=1 of 1024^2 (8-row
+    segments) and B=2 of 256^2 streamed with the grid rule lifted: equal
+    to the tile kernel."""
+    x = _u8((16, 800, 408, 3), 34, cuda)
+    monkeypatch.setattr(_build, "PLANS", {})
+    streamed = fp.STREAMED
+    lab = pipeline.resize_blur_oklab(x[:, ::2], 200, 204, 2.0)
+    assert fp.STREAMED == streamed + 1
+    monkeypatch.setattr(_build, "PLANS", {})
+    monkeypatch.setattr(fp, "_stream_plan", lambda *a: None)
+    assert torch.equal(lab, pipeline.resize_blur_oklab(x[:, ::2], 200, 204,
+                                                       2.0))
+    monkeypatch.undo()
+    y = _u8((1, 1024, 1024, 3), 35, cuda)
+    for oklab in (False, True):
+        got, tile = _k1_both(y, 512, 512, 2.0, oklab, monkeypatch)
+        assert torch.equal(got, tile)
+    monkeypatch.setattr(fp, "MIN_GRID", 0)
+    z = _u8((2, 256, 256, 3), 37, cuda)
+    for oklab in (False, True):
+        got, tile = _k1_both(z, 128, 128, 2.0, oklab, monkeypatch)
+        assert torch.equal(got, tile)
+
+
+def test_small_grids_and_sigma0_keep_the_tile_kernel(cuda, monkeypatch):
+    """B=2 of 256^2 -> 128^2 (a streamed grid of 64 blocks) and the plain
+    resize take the tile kernel; B=1 and B=16 of 1024^2 -> 512^2 stream,
+    once a call."""
+    monkeypatch.setattr(_build, "PLANS", {})
+    x = _u8((16, 1024, 1024, 3), 36, cuda)
+    launches, streamed = fp.LAUNCHES, fp.STREAMED
+    fp.fused_resize_blur_oklab(x[:2, ::4, ::4].contiguous(), 128, 128, 2.0)
+    small = ImageBatch(x, device=cuda).resize((512, 512))
+    assert (fp.LAUNCHES, fp.STREAMED) == (launches + 2, streamed)
+    one = fp.fused_resize_blur_oklab(x[:1], 512, 512, 2.0)
+    lab = ImageBatch(x, device=cuda).resize_blur_oklab((512, 512), 2.0)
+    assert (fp.LAUNCHES, fp.STREAMED) == (launches + 4, streamed + 2)
+    assert torch.equal(lab[:1], one)
+    assert torch.equal(small.device_array(),
+                       fp.fused_resize_blur_oklab_reference(
+                           x, 512, 512, 0.0, oklab=False))
+
+
 FILTER_CASES = [  # (shape, sigma, sharpen_radius, thr): test_pallas_filter's
     ((256, 256), 2.0, 2, 128.0),
     ((128, 384), 1.0, 1, 90.0),
@@ -406,10 +500,10 @@ def test_streamed_counts_the_main_path_launch(cuda):
 # tile edges: C=5, an unstaged 40:1 downscale, r 3 with 13 taps at B=1, a
 # 5-tap signed kernel, a filter too long for a conv tile.
 PINS = [
-    ("K1", (16, 1024, 1024, 3, 512, 512, 2.0, True), (64, 32, True),
-     "67a33dea286fc0f2"),
-    ("K1", (1, 1024, 1024, 3, 512, 512, 2.0, True), (32, 15, True),
-     "dd9023b2ca3429e1"),
+    ("K1", (16, 1024, 1024, 3, 512, 512, 2.0, True),
+     ("streamed", 8, 128, 4), "353305b6da88de95"),
+    ("K1", (1, 1024, 1024, 3, 512, 512, 2.0, True), ("streamed", 8, 8, 64),
+     "2d6a981ba6027d59"),
     ("K1", (2, 57, 33, 5, 20, 40, 1.5, False), (8, 8, False),
      "811e466d04fb6f39"),
     ("K1", (1, 1600, 2000, 3, 40, 50, 2.0, True), (8, 8, False),
@@ -450,6 +544,11 @@ def _pinned(kernel, case):
     on the host (132 SMs, an H100 SXM's)."""
     if kernel == "K1":
         p = fp._Plan(*case, "cpu")
+        st = p.stream
+        if st is not None:
+            return ("streamed", st.strips, st.seg, st.segs), _digest(
+                st.pack(False).raw, st.pack(True).raw, p.ty, p.tx, st.by,
+                st.bx)
         return (p.tile.tw, p.tile.th, p.tile.staged), _digest(
             p.pack(False).raw, p.pack(True).raw, p.ty, p.tx, p.sy, p.sx)
     if kernel == "K2":

@@ -283,6 +283,207 @@ def test_staged_tile_plan_reproduces_plain(shape, oh, ow, sigma, tile):
     assert np.array_equal(got, want.numpy())
 
 
+def _emulate_stream(x, oh, ow, sigma, vec_in):
+    """A numpy transcription of streamed_resize_blur_kernel over the host's
+    plan, block by block and iteration by iteration: band t's source rows
+    staged from the span tables (every row and column a resize reads must
+    lie in them), resized into plane set t & 1 through the column table,
+    band t - 1 width-passed into the ring of 32 rows, and the outputs of
+    band t - 2 height-passed from it by each thread's pixel and row pair,
+    the ring rows it reads disjoint from those the width pass writes in
+    the same iteration. Returns the u8 output and the plan."""
+    b, h, w, c = x.shape
+    plan = fp._Plan(b, h, w, c, oh, ow, sigma, False, "cpu")
+    st = plan.stream
+    f = st.fields
+    r, k, sp, strips = f["r"], f["k"], f["sp"], f["strips"]
+    kint = tables._kernel_to_int(tables.gaussian_kernel(sigma)) \
+        .astype(np.int64)
+    assert len(kint) == k and f["smem"] <= fp.STREAM_SMEM
+    ty, tx = plan.ty.numpy().astype(np.int64), plan.tx.numpy().astype(np.int64)
+    by, bx = st.by.numpy(), st.bx.numpy()
+    vec = vec_in and (w * c) % 16 == 0
+    nty, band, ring_n = oh + 2 * r, fp.BAND, 32
+    out = np.full((b, oh, ow, 3), 7, np.uint8)
+    written = np.zeros((b, oh, ow), np.int64)
+    for blk in range(st.blocks):
+        z, rem = divmod(blk, strips * f["segs"])
+        sg, s = divmod(rem, strips)
+        x0 = s * fp.STRIP
+        tw = min(fp.STRIP, ow - x0)
+        hw = tw + 2 * r
+        npairs = (hw + 1) >> 1
+        mul = (65536 + npairs - 1) // npairs
+        items = np.arange(band * npairs)
+        assert np.array_equal((items * mul) >> 16, items // npairs)
+        y0 = sg * f["seg"]
+        y1 = min(y0 + f["seg"], oh)
+        nbs = -(-(y1 - y0 + 2 * r) // band)
+        g0 = y0 // band
+        xlo, nx = bx[:, s]
+        soff = (xlo * 3) & 15 if vec else 0
+        assert soff + 3 * nx <= sp
+        e = x0 + np.minimum(np.arange(2 * npairs), hw - 1)
+        ca, cb = (tx[0, e] - xlo) * 3 + soff, (tx[1, e] - xlo) * 3 + soff
+        assert ca.min() >= soff and max(ca.max(), cb.max()) + 3 <= \
+            soff + 3 * nx
+        fx = tx[2, e]
+        word = ca | cb << 12 | fx << 24  # the kernel's packed column table
+        assert np.array_equal(word & 0xFFF, ca) and \
+            np.array_equal((word >> 12) & 0xFFF, cb) and \
+            np.array_equal(word >> 24, fx)
+        planes = np.zeros((2, 3, band, 84), np.int64)
+        ring = np.zeros((ring_n, 3, fp.STRIP), np.int64)
+        for t in range(nbs + 2):
+            if t >= 2:  # height pass of band t - 2, read before the writes
+                rows = []
+                for rp in range(4):
+                    o0 = y0 + band * (t - 2) - 2 * r + 2 * rp
+                    if not (o0 >= y0 and o0 < y1):
+                        continue
+                    for j in range(2):
+                        o = o0 + j
+                        slots = (o - y0 + np.arange(k)) % ring_n
+                        rows += list(slots)
+                        acc = np.tensordot(kint, ring[slots], 1)  # [3, 64]
+                        if o < y1:
+                            v = np.minimum((acc + 32768) >> 16, 255)
+                            out[z, o, x0:x0 + tw] = v[:, :tw].T
+                            written[z, o, x0:x0 + tw] += 1
+                if 1 <= t <= nbs:
+                    wrote = (band * (t - 1) + np.arange(band)) % ring_n
+                    assert not set(rows) & set(wrote.tolist()), (blk, t)
+            if 1 <= t <= nbs:  # width pass of band t - 1
+                pl = planes[(t - 1) & 1]
+                wp = sum(kint[q] * pl[:, :, q:q + fp.STRIP] for q in range(k))
+                slots = (band * (t - 1) + np.arange(band)) % ring_n
+                ring[slots] = wp.transpose(1, 0, 2)
+            if t < nbs:  # resize band t from its stage
+                ylo, ny = by[:, g0 + t]
+                assert ny <= st.ns
+                stage = np.zeros((ny, sp), np.int64)
+                stage[:, soff:soff + 3 * nx] = \
+                    x[z, ylo:ylo + ny, xlo:xlo + nx].reshape(ny, -1)
+                hs = np.minimum(y0 + band * t + np.arange(band), nty - 1)
+                ra, rb, fy = ty[0, hs] - ylo, ty[1, hs] - ylo, ty[2, hs]
+                assert min(ra.min(), rb.min()) >= 0
+                assert max(ra.max(), rb.max()) < ny
+                pl = planes[t & 1]
+                pl[:] = 0  # bytes past 4 ngr meet zero taps only
+                for ch in range(3):
+                    top = stage[ra[:, None], ca + ch] * (256 - fx) + \
+                        stage[ra[:, None], cb + ch] * fx
+                    bot = stage[rb[:, None], ca + ch] * (256 - fx) + \
+                        stage[rb[:, None], cb + ch] * fx
+                    v = (top * (256 - fy[:, None]) + bot * fy[:, None]) >> 16
+                    assert v.max() <= 255  # the kernel leaves out the clamp
+                    pl[ch, :, :2 * npairs] = v
+    assert (written == 1).all()  # every output once
+    return out, plan
+
+
+# the streamed kernel's plans at their edges: output widths past one strip
+# and not a multiple of it, a ragged last segment, B=3, 7, 11 and 13 taps,
+# a MIRROR top and bottom, rows that are not 16-byte aligned (the gather)
+STREAM_CASES = [  # (shape, out_rows, out_cols, sigma)
+    ((2, 100, 140, 3), 50, 70, 2.0),
+    ((1, 90, 260, 3), 45, 129, 1.5),
+    ((3, 60, 80, 3), 30, 40, 1.0),
+    ((1, 41, 257, 3), 21, 128, 2.0),
+    ((1, 48, 40, 3), 80, 65, 1.5),
+]
+
+
+@pytest.mark.parametrize("vec_in", [True, False], ids=["cp_async", "gather"])
+@pytest.mark.parametrize("shape,oh,ow,sigma", STREAM_CASES,
+                         ids=_ids(STREAM_CASES))
+def test_streamed_schedule_reproduces_plain(shape, oh, ow, sigma, vec_in,
+                                            monkeypatch):
+    """The streamed kernel's strips, segments, bands, stages, planes and
+    ring, transcribed, give the plain version's u8 at every grid (the
+    plan's grid rule lifted)."""
+    monkeypatch.setattr(fp, "MIN_GRID", 0)
+    x = _u8(shape, 41)
+    got, plan = _emulate_stream(x, oh, ow, sigma, vec_in)
+    want = fp.fused_resize_blur_oklab_reference(torch.from_numpy(x), oh, ow,
+                                                sigma, oklab=False)
+    assert np.array_equal(got, want.numpy())
+
+
+def test_streamed_schedule_at_the_north_star_geometry(monkeypatch):
+    """The cell's geometry, 1024^2 -> 512^2 at sigma 2, scaled to B=1 on a
+    card of 4 SMs: 8 strips of 64 columns, 2 segments of 256 rows."""
+    monkeypatch.setattr(fp, "sm_count", lambda device: 4)
+    x = _u8((1, 1024, 1024, 3), 42)
+    got, plan = _emulate_stream(x, 512, 512, 2.0, True)
+    st = plan.stream
+    assert (st.strips, st.seg, st.segs, st.ns) == (8, 256, 2, 16)
+    want = fp.fused_resize_blur_oklab_reference(torch.from_numpy(x), 512, 512,
+                                                2.0, oklab=False)
+    assert np.array_equal(got, want.numpy())
+
+
+def test_stream_plan_takes_the_north_star_cell():
+    """B=16 of 1024^2 -> 512^2 at sigma 2: 8 strips x 4 segments of 128 rows
+    a image, 512 blocks in one wave of 4 an SM, 16 source rows a stage of
+    480 bytes each, 45,328 bytes of shared memory; no tile plan."""
+    p = fp._Plan(16, 1024, 1024, 3, 512, 512, 2.0, True, "cpu")
+    st = p.stream
+    assert (st.strips, st.seg, st.segs, st.ns, st.blocks) == \
+        (8, 128, 4, 16, 512)
+    assert st.blocks <= fp.STREAM_BLOCKS * 132
+    assert (st.fields["sp"], st.fields["smem"]) == (480, 45328)
+    assert st.fields["smem"] <= fp.STREAM_SMEM
+    assert p.tile is None and p.sy is None  # the tile plan is not built
+
+
+@pytest.mark.parametrize("case", [
+    (2, 256, 256, 3, 128, 128, 2.0, True),      # a grid of 64 blocks
+    (1, 384, 384, 3, 192, 192, 2.0, True),      # 72 blocks
+    (2, 57, 33, 4, 20, 40, 1.5, False),         # C != 3
+    (2, 57, 33, 5, 20, 40, 1.5, False),         # a channel group
+    (16, 1024, 1024, 3, 512, 512, 0.0, False),  # sigma 0, the plain resize
+    (16, 1024, 1024, 3, 512, 512, 0.5, True),   # 5 taps
+    (16, 1024, 1024, 3, 512, 512, 3.5, True),   # 23 taps
+    (1, 1600, 2000, 3, 40, 50, 2.0, True),      # 40:1: the span is unstaged
+    (16, 1080, 1080, 3, 360, 360, 2.0, True),   # 3:1: two stages too large
+], ids=["64-blocks", "72-blocks", "c4", "c5", "sigma0", "5-taps", "23-taps",
+        "40-to-1", "3-to-1"])
+def test_stream_plan_leaves_the_shape_to_the_tile_kernel(case):
+    p = fp._Plan(*case, "cpu")
+    assert p.stream is None
+    b, h, w, c, oh, ow, sigma, oklab = case
+    r = tables.blur_radius(sigma)
+    t, _, _ = fp.tile_plan(b, oh, ow, r, c, oklab,
+                           tables.halo_axis_table(h, oh, r),
+                           tables.halo_axis_table(w, ow, r), 132)
+    assert (p.tile.tw, p.tile.th, p.tile.staged) == (t.tw, t.th, t.staged)
+
+
+@pytest.mark.parametrize("case,grid", [
+    ((4, 1024, 1024, 3, 512, 512, 2.0, True), (32, 16, 512)),
+    ((2, 1024, 1024, 3, 512, 512, 2.0, True), (16, 32, 512)),
+    ((1, 1024, 1024, 3, 512, 512, 2.0, True), (8, 64, 512)),
+    ((3, 256, 256, 3, 128, 128, 2.0, True), (8, 16, 96)),
+    ((1, 448, 448, 3, 224, 224, 2.0, True), (8, 28, 112)),
+], ids=["b4", "b2", "b1", "96-blocks", "112-blocks"])
+def test_stream_plan_streams_grids_from_min_grid(case, grid):
+    """Every B of 1024^2 -> 512^2 (segments of 32, 16 and 8 rows for 12
+    warm-up rows) and the small outputs whose grids reach MIN_GRID blocks
+    an SM (88 on 132) stream."""
+    st = fp._Plan(*case, "cpu").stream
+    assert (st.seg, st.segs, st.blocks) == grid
+    assert st.blocks >= fp.MIN_GRID * 132
+
+
+def test_streamed_counter_stays_still_on_the_cpu():
+    assert isinstance(fp.STREAMED, int) and isinstance(fp.LAUNCHES, int)
+    x = torch.from_numpy(_u8((16, 64, 64, 3), 43))
+    before = (fp.LAUNCHES, fp.STREAMED)
+    pipeline.resize_blur_oklab(x, 32, 32, 2.0)
+    assert (fp.LAUNCHES, fp.STREAMED) == before  # the CPU runs no kernel
+
+
 def test_tile_plan_takes_a_smaller_tile_below_four_blocks_an_sm():
     r = tables.blur_radius(2.0)
     ty = tx = tables.halo_axis_table(1024, 512, r)

@@ -9,8 +9,9 @@ and repetitions are bench.py's (bench.py:685-699): ``north_star``,
 ``fdm``. All run in this process, in that order. Each prints one JSON
 line in bench.py's shape (``metric``, ``value``, ``unit``,
 ``vs_baseline``; the value unrounded) plus ``device`` (nvidia-smi's card
-name and power limit, or ``cpu``) and ``launches`` (K1, K2, K3, K3p and
-K4 read around the config). The last line is a compact summary: the
+name and power limit, or ``cpu``), ``launches`` (K1, K2, K3, K3p and
+K4 read around the config) and ``k1_streamed`` (those of K1's that took
+its streamed kernel). The last line is a compact summary: the
 headline's fields and ``values``, each config's value.
 
 Timing. Device configs go through ``profiling.measure`` (CUDA events on
@@ -196,6 +197,13 @@ def launch_counts() -> dict:
 
     return {"K1": fp.LAUNCHES, "K2": fc.LAUNCHES, "K3": cc.LAUNCHES,
             "K3p": cc.PROBE_LAUNCHES, "K4": sc.LAUNCHES}
+
+
+def k1_streamed() -> int:
+    """K1's launches since import that took its streamed kernel."""
+    from .ops import fused_pipeline as fp
+
+    return fp.STREAMED
 
 
 def _timer(run: Run) -> str:
@@ -651,7 +659,7 @@ def run_config(run: Run, name: str) -> bool:
     """One config: its line, an error line if anything failed; True when
     it passed."""
     run.sync()
-    before = launch_counts()
+    before, streamed = launch_counts(), k1_streamed()
     try:
         value, unit, vs_baseline, extra = _BENCHES[name](run)
         extra["l2_flushed"] = False
@@ -666,7 +674,8 @@ def run_config(run: Run, name: str) -> bool:
     after = launch_counts()
     emit(run.lines, _METRIC_NAMES[name], value, unit, vs_baseline,
          device=run.label,
-         launches={k: after[k] - before[k] for k in after}, **extra)
+         launches={k: after[k] - before[k] for k in after},
+         k1_streamed=k1_streamed() - streamed, **extra)
     return ok
 
 

@@ -10,11 +10,17 @@
 // What bounds it on this card: the HBM floor is 3 B a source pixel read and
 // 12 B an Oklab pixel written (100.7 MB and 0.030 ms at B=16 of 1024^2 ->
 // 512^2 at 3.35 TB/s); the work an output value is 4 resize and 2 * 13 blur
-// multiply-adds plus the Oklab epilogue, on a tile that recomputes its blur
-// halo. The first version (one value a thread, runtime divisions and taps
-// from global memory in every stage, source bytes gathered from global)
-// ran at 16.5 % of that floor. This design applies the methods of the K2
-// and K4 redesigns:
+// multiply-adds plus the Oklab epilogue. Two kernels compute it, and the
+// wrapper's plan picks one: the streamed kernel (further down: blocks walk
+// down column strips, so a segment resizes and width-passes each row once,
+// and a band of rows waits at one barrier) for RGB with 7, 11 or 13 taps
+// where its source rows stage and its grid is not too small for the floor
+// of its blocks' band chain, else this tile kernel, which recomputes each
+// tile's halo. The
+// first version (one value a thread, runtime divisions and taps from global
+// memory in every stage, source bytes gathered from global) ran at 16.5 %
+// of that floor. The tile kernel applies the methods of the K2 and K4
+// redesigns:
 // - one block owns a tw x th output tile of one image, found in the 1-D grid
 //   with two divisions once; every stage walks its work in power-of-two
 //   groups, so a thread's (row, column) is a shift and a mask;
@@ -481,6 +487,407 @@ int by_staging(const Args& a, const K1Params& p, cudaStream_t s) {
   return by_taps<C, OKLAB, false>(a, p, s);
 }
 
+// ---------------------------------------------------------------------------
+// The streamed path: no tiles. The tile kernel above resizes and
+// width-passes its 2r halo rows and columns for every 64 x 32 tile (1.63x
+// the resize and 1.375x the width pass at the north star's 2:1 and sigma
+// 2), stages its whole source span before it starts, and waits at four
+// barriers a tile; nothing in a block overlaps the next tile's loads with
+// this tile's work. Here a block owns a strip of kStrip output columns of
+// one RGB image and walks down a segment of seg output rows (the wrapper
+// sizes the grid to one resident wave), kBand halo rows a band:
+// - a band's source rows (the host's span table gives their first row and
+//   count, a column span a strip) are copied into one of two stages during
+//   the band before: a bulk copy (TMA) a row, issued by one thread and
+//   counted by the stage's mbarrier, or plain loads where the rows are not
+//   16-byte aligned;
+// - the band is resized into a plane a channel, the band before is
+//   width-passed on dp4a into a ring of the last kRing f32 rows, and the
+//   band before that is height-passed from the ring: a segment resizes and
+//   width-passes each of its rows once, and only its 2r warm-up rows and
+//   the strip's 2r halo columns twice (1.30x the resize and 1.09x the width
+//   pass at the north star's shape);
+// - the three stages of consecutive bands touch disjoint buffers (the
+//   source stages, two plane sets, a ring of 2r + 2 kBand rows or more), so
+//   a band waits at one block barrier;
+// - the resize makes 2 pixels x C a thread, so at 2:1 the lanes of a warp
+//   read source bytes 3 words apart, in 32 distinct banks, and a column's
+//   table entry is one word (its two byte offsets and its weight), even
+//   and odd columns apart, read in one wavefront a warp;
+// - the width pass takes its taps pre-shifted by 0-3 bytes (four sets in
+//   the constant bank), so each output's dp4a reads the row's words as
+//   they are, with no funnel shift;
+// - a thread of the height pass owns all three channels of two rows of one
+//   pixel: divClampU8, the gamma table, the mixes and the cube roots run
+//   from its registers, and it stores the 12 bytes of an Oklab pixel (3 of
+//   a u8 one) straight to the image; the u8 tile and its barrier are gone.
+// Measured on the H100 at B=16 of 1024^2 -> 512^2, sigma 2, Oklab, stages
+// compiled out one at a time (PERF.md): the first version of this kernel
+// took 88 us (the tile kernel 94), and most of what it saved went back to
+// shared-memory bank conflicts in the resize (its table's int4 entries,
+// 64 bytes apart a lane, 16 wavefronts a read; source bytes 6 words apart
+// a lane, 2) and to staging by 16-byte cp.async from every thread (11 us,
+// as much from L2 as from HBM; the bulk copies cost 5 less; a third stage
+// measured slower). This version takes 71 us; compiling out the resize
+// saves 15 of them, the height pass 14, the width pass 8, the Oklab
+// mixes and cube roots 8, the stores 2, and they overlap.
+// The arithmetic is the tile kernel's, value for value: the same integer
+// resize (its clamp to 255 left out: with weights (256 - f, f) on both
+// axes a value is at most 255 * 2^16 >> 16), the same integer width sums,
+// the f32 height pass in the same tap order (each output's terms still
+// arrive t = 0 .. K - 1), divClampU8, the same table, mix3 and cbrtf; the
+// output is bitwise the tile kernel's.
+
+// The bulk copies (TMA) of the streamed kernel's stages, each completing on
+// an mbarrier in shared memory that counts the bytes it expects.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// bytes (a multiple of 16) from src to dst, both 16-byte aligned
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok;
+}
+
+constexpr int kStrip = 64;        // output columns of a strip
+constexpr int kBand = 8;          // halo rows a band
+constexpr int kRing = 32;         // width-pass rows kept: >= 2 r + 2 kBand
+constexpr int kPlanePitch = 84;   // a resized row of one channel: 64 + 16 + 4
+constexpr int kStages = 2;        // source stages: the next band in flight
+constexpr int kPairs = kStrip / 2 + 8;  // column pairs of a resized row
+constexpr int kStreamBlocks = 4;  // resident blocks an SM (launch bounds)
+// shared memory: the ring, two plane sets, the column table (a word a
+// column: even columns, then odd), the gamma table, the stages' two
+// mbarriers, then the source stages (their size is the plan's)
+constexpr int kOffPlanes = kRing * 3 * kStrip * 4;
+constexpr int kPlaneSet = 3 * kBand * kPlanePitch;
+constexpr int kOffCols = kOffPlanes + ((2 * kPlaneSet + 15) & ~15);
+constexpr int kOffLut = kOffCols + 2 * 4 * kPairs;
+constexpr int kOffBars = kOffLut + 4 * kThreads;
+constexpr int kOffStages = kOffBars + 16;
+constexpr int kMaxStagePitch = 4096;  // column offsets fit 12 bits
+
+// The wrapper's ops/fused_pipeline.py:StreamPlan writes this layout.
+struct K1StreamParams {
+  int B, H, W, OH, OW;
+  int r, k;              // blur radius and taps (7, 11 or 13)
+  int strips, seg, segs;  // strips of an image; output rows of a segment
+                          // (a multiple of kBand), segments of a strip
+  int nbt;               // bands of the row span table
+  int ns;                // source rows a stage holds
+  int sp;                // pitch of a stage's rows, bytes
+  int oklab;             // 1: Oklab f32 out, else u8
+  int vec_in;            // rows of src are 16-byte aligned
+  int smem;              // bytes of shared memory
+  uint32_t taps4[4][4];  // [q]: the taps as bytes shifted q bytes later,
+                         // 4 a word, 0-padded
+  float ftaps[16];       // the taps as f32, for the height pass
+  float mix[18];         // _RGB2OKLMS then _OKLMS2LAB, (in, out), row-major
+};
+
+// One block: strip blockIdx.x % strips of segment (blockIdx.x / strips) %
+// segs of image blockIdx.x / (strips segs). ty, tx: the tile kernel's halo
+// tables; by: int32 [2, nbt] (first source row, count) of halo rows
+// [kBand g, kBand g + kBand); bx: int32 [2, strips] the same for the
+// columns a strip reads.
+template <int K, bool OKLAB>
+__global__ void __launch_bounds__(kThreads, kStreamBlocks)
+streamed_resize_blur_kernel(const uint8_t* __restrict__ src,
+                            void* __restrict__ dst,
+                            const int* __restrict__ ty,
+                            const int* __restrict__ tx,
+                            const int* __restrict__ by,
+                            const int* __restrict__ bx,
+                            const float* __restrict__ lut_g,
+                            const __grid_constant__ K1StreamParams p) {
+  constexpr int C = 3, R = K / 2;
+  constexpr int kTapWords = (K + 6) / 4;  // words of a window shifted 0-3
+  static_assert(2 * R + 2 * kBand <= kRing, "the ring holds 2r + 2 bands");
+  static_assert(kThreads == 4 * kStrip, "a thread a pixel and row pair");
+  static_assert(8 * kStages <= kOffStages - kOffBars, "an mbarrier a stage");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [kRing][C][kStrip]
+  uint8_t* planes = smem + kOffPlanes;           // [2][C][kBand][pitch]
+  uint32_t* ct = reinterpret_cast<uint32_t*>(smem + kOffCols);
+  float* lut = reinterpret_cast<float*>(smem + kOffLut);
+  uint8_t* stages = smem + kOffStages;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // the block's strip and segment: two divisions, once
+  const int per = p.strips * p.segs;
+  const int z = blockIdx.x / per, rem = blockIdx.x - z * per;
+  const int sg = rem / p.strips, st = rem - sg * p.strips;
+  const int x0 = st * kStrip, tw = min(kStrip, p.OW - x0);
+  const int hw = tw + 2 * R, np = (hw + 1) >> 1;  // column pairs resized
+  // segment rows [y0, y1) read halo rows y0 .. y1 + 2r - 1 (halo row h is
+  // resized row h - r); row y0 + i of them is ring row i & (kRing - 1)
+  const int y0 = sg * p.seg, y1 = min(y0 + p.seg, p.OH);
+  const int nbs = (y1 - y0 + 2 * R + kBand - 1) / kBand;
+  const int g0 = y0 / kBand;  // the segment's first band in by
+  const int nty = p.OH + 2 * R, ntx = p.OW + 2 * R;
+  const size_t ipitch = (size_t)p.W * C;
+  const uint8_t* img = src + (size_t)z * p.H * ipitch;
+  const int xlo = bx[st], nx = bx[p.strips + st];
+  const bool vec = p.vec_in;
+  const int soff = vec ? (xlo * C) & 15 : 0;
+  const int stage_bytes = p.ns * p.sp;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kOffBars);
+
+  // the source rows of band u into stage u % kStages: bulk copies of whole
+  // 16-byte chunks (the row pitch is a multiple of 16, so the last chunk
+  // ends inside the row), completing on the stage's mbarrier
+  auto stage = [&](int u) {
+    const int ylo = by[g0 + u], ny = by[p.nbt + g0 + u];
+    uint8_t* d = stages + (u % kStages) * stage_bytes;
+    if (vec) {
+      if (tid == 0) {
+        const int bytes = (soff + nx * C + 15) & ~15;
+        uint64_t* bar = bars + u % kStages;
+        const uint8_t* s = img + ylo * ipitch + ((xlo * C) & ~15);
+        // the threads' reads of the stage (band u - kStages) come before
+        // the copy's writes
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect_tx(bar, ny * bytes);
+        for (int i = 0; i < ny; ++i)
+          bulk_copy(d + i * p.sp, s + i * ipitch, bytes, bar);
+      }
+    } else {
+      const int nb = nx * C;
+      for (int i = warp; i < ny; i += kWarps) {
+        const uint8_t* s = img + (ylo + i) * ipitch + xlo * C;
+        for (int j = lane; j < nb; j += 32) d[i * p.sp + j] = s[j];
+      }
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  stage(0);
+  // the strip's resize columns as byte offsets into a stage row and the
+  // weight, a | b << 12 | f << 24, column 2 j + q at ct[q kPairs + j]; a
+  // column past hw repeats the last (the width pass meets it with zero
+  // taps only)
+  for (int i = tid; i < 2 * np; i += kThreads) {
+    const int e = x0 + min(i, hw - 1);
+    ct[(i & 1) * kPairs + (i >> 1)] =
+        (uint32_t)((tx[e] - xlo) * C + soff) |
+        (uint32_t)((tx[ntx + e] - xlo) * C + soff) << 12 |
+        (uint32_t)tx[2 * ntx + e] << 24;
+  }
+  if constexpr (OKLAB) lut[tid] = lut_g[tid];
+
+  // resize items (a row, 2 pixels) and width items (a row, 4 outputs) of a
+  // band; u / np as a multiply and a shift (exact for u < 2^16 / np)
+  const int nri = kBand * np, mul = (65536 + np - 1) / np;
+  constexpr int kWidthItems = kBand * kStrip / 4;
+  // the height pass: pixel px of the strip, rows 2 rp and 2 rp + 1 of a band
+  const int px = tid & (kStrip - 1), rp = tid >> 6;
+  const size_t opitch = (size_t)p.OW * C;
+
+  for (int t = 0; t < nbs + 2; ++t) {
+    // band t landed: its stage's mbarrier completes phase t / kStages (a
+    // copy that never lands traps rather than hangs)
+    if (vec && t < nbs) {
+      for (int n = 0; !mbar_try_wait(bars + t % kStages, (t / kStages) & 1);
+           ++n)
+        if (n > (1 << 22)) __trap();
+    }
+    __syncthreads();  // band t staged; band t - 1's and t - 2's buffers free
+    if (t + 1 < nbs) stage(t + 1);  // in flight during this band
+
+    // 1. resize band t (halo rows y0 + kBand t + i) into plane set t & 1,
+    //    2 pixels x C a thread
+    if (t < nbs) {
+      const uint8_t* xs = stages + (t % kStages) * stage_bytes;
+      uint8_t* pl = planes + (t & 1) * kPlaneSet;
+      const int ylo = by[g0 + t];
+      for (int u = tid; u < nri; u += kThreads) {
+        const int i = (u * mul) >> 16, j = u - i * np;
+        const int h = min(y0 + kBand * t + i, nty - 1);
+        const uint8_t* A = xs + (ty[h] - ylo) * p.sp;
+        const uint8_t* Bq = xs + (ty[nty + h] - ylo) * p.sp;
+        const int wy1 = ty[2 * nty + h], wy0 = 256 - wy1;
+        uint32_t o[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) o[c] = 0;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const uint32_t e = ct[q * kPairs + j];
+          const int a = e & 0xFFF, b = (e >> 12) & 0xFFF;
+          const int wx1 = e >> 24, wx0 = 256 - wx1;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int top = A[a + c] * wx0 + A[b + c] * wx1;
+            const int bot = Bq[a + c] * wx0 + Bq[b + c] * wx1;
+            o[c] |= (uint32_t)((top * wy0 + bot * wy1) >> 16) << (8 * q);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          *reinterpret_cast<uint16_t*>(pl + (c * kBand + i) * kPlanePitch +
+                                       2 * j) = (uint16_t)o[c];
+      }
+    }
+
+    // 2. width pass of band t - 1 into the ring, 4 outputs x C a thread;
+    //    the threads start after the resize's items, so the two stages
+    //    spread over the block
+    if (t >= 1 && t <= nbs) {
+      const int b = t - 1;
+      const uint8_t* pl = planes + (b & 1) * kPlaneSet;
+      for (int u = (tid - nri) & (kThreads - 1); u < kWidthItems;
+           u += kThreads) {
+        const int i = u >> 4, g = u & 15;
+        if (4 * g >= tw) continue;
+        float* d =
+            ring + ((kBand * b + i) & (kRing - 1)) * (C * kStrip) + 4 * g;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          // output q: the row's words against the taps shifted q bytes, so
+          // no window is funnel-shifted (the tile kernel's row_pass)
+          const uint32_t* s = reinterpret_cast<const uint32_t*>(
+              pl + (c * kBand + i) * kPlanePitch + 4 * g);
+          uint32_t w[kTapWords];
+#pragma unroll
+          for (int m = 0; m < kTapWords; ++m) w[m] = s[m];
+          float v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            unsigned a = 0;
+#pragma unroll
+            for (int m = 0; m < kTapWords; ++m)
+              a = __dp4a(w[m], p.taps4[q][m], a);
+            v[q] = exact_float((int)a);
+          }
+          *reinterpret_cast<float4*>(d + c * kStrip) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+
+    // 3. height pass of the outputs whose last tap is in band t - 2, then
+    //    divClampU8 and (OKLAB) the epilogue, stored straight to the image.
+    //    Outputs o0, o0 + 1 read ring rows o0 - y0 .. o0 - y0 + 2r + 1; the
+    //    2r warm-up rows (o0 < y0, both or neither: o0 - y0 is even) store
+    //    nothing.
+    if (t >= 2) {
+      const int o0 = y0 + kBand * (t - 2) - 2 * R + 2 * rp;
+      if (px < tw && o0 >= y0 && o0 < y1) {
+        float acc[2][C];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[j][c] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < K + 1; ++i) {
+          const float* q =
+              ring + ((o0 - y0 + i) & (kRing - 1)) * (C * kStrip) + px;
+          const float v[C] = {q[0], q[kStrip], q[2 * kStrip]};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (i - j < 0 || i - j >= K) continue;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              acc[j][c] = __fmaf_rn(p.ftaps[i - j], v[c], acc[j][c]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int o = o0 + j;
+          if (o >= y1) break;
+          const size_t at = ((size_t)z * p.OH + o) * opitch + (x0 + px) * C;
+          uint8_t u8[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) u8[c] = div_clamp_u8(acc[j][c]);
+          if constexpr (OKLAB) {
+            const float lin[3] = {lut[u8[0]], lut[u8[1]], lut[u8[2]]};
+            float lms[3], lab[3];
+            mix3(p.mix, lin, lms);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) lms[c] = cbrtf(lms[c]);
+            mix3(p.mix + 9, lms, lab);
+            float* d = static_cast<float*>(dst) + at;
+            d[0] = lab[0];
+            d[1] = lab[1];
+            d[2] = lab[2];
+          } else {
+            uint8_t* d = static_cast<uint8_t*>(dst) + at;
+#pragma unroll
+            for (int c = 0; c < C; ++c) d[c] = u8[c];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int K, bool OKLAB>
+int launch_streamed(const Args& a, const K1StreamParams& p,
+                    cudaStream_t stream) {
+  auto kernel = streamed_resize_blur_kernel<K, OKLAB>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && p.smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
+  if (e != cudaSuccess) return e;
+  const long long grid = (long long)p.B * p.strips * p.segs;
+  if (grid < 1 || grid > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)grid, kThreads, p.smem, stream>>>(
+      static_cast<const uint8_t*>(a.src), a.dst,
+      static_cast<const int*>(a.ty), static_cast<const int*>(a.tx),
+      static_cast<const int*>(a.sy), static_cast<const int*>(a.sx),
+      static_cast<const float*>(a.lut), p);
+  return cudaGetLastError();
+}
+
+template <bool OKLAB>
+int streamed_by_taps(const Args& a, const K1StreamParams& p,
+                     cudaStream_t s) {
+  switch (p.k) {
+    case 7:
+      return launch_streamed<7, OKLAB>(a, p, s);
+    case 11:
+      return launch_streamed<11, OKLAB>(a, p, s);
+    case 13:
+      return launch_streamed<13, OKLAB>(a, p, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -534,6 +941,29 @@ int zt_fused_resize_blur_oklab(const void* src, void* dst, const void* ty,
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
+}
+
+int zt_resize_stream_params_bytes() { return (int)sizeof(K1StreamParams); }
+
+// The streamed kernel on a uint8 [B, H, W, 3] batch; the arguments are the
+// tile entry's, with by and bx (the span tables of bands and strips) in
+// place of sy and sx. The caller plans it (ops/fused_pipeline.py:
+// _stream_plan) and fills params; this checks what its layout relies on.
+int zt_streamed_resize_blur_oklab(const void* src, void* dst, const void* ty,
+                                  const void* tx, const void* by,
+                                  const void* bx, const void* lut,
+                                  const void* params, void* stream) {
+  K1StreamParams p;
+  memcpy(&p, params, sizeof(p));
+  if (p.r != p.k / 2 || p.seg < kBand || p.seg % kBand || p.ns < 1 ||
+      p.sp % 16 || p.sp > kMaxStagePitch ||
+      p.smem < kOffStages + kStages * p.ns * p.sp || p.OW < 1 ||
+      p.strips != (p.OW + kStrip - 1) / kStrip || (p.oklab && !lut))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{src, ty, tx, by, bx, lut, dst};
+  if (p.oklab) return streamed_by_taps<true>(a, p, s);
+  return streamed_by_taps<false>(a, p, s);
 }
 
 const char* zt_error_string(int err) {

@@ -116,6 +116,10 @@ def load():
                  [_P, _P, _P, _P, _P, _P, _P,      # src dst ty tx sy sx lut
                   _P, _P])                         # params stream
         _declare(lib, "zt_resize_params_bytes", [])
+        _declare(lib, "zt_streamed_resize_blur_oklab",
+                 [_P, _P, _P, _P, _P, _P, _P,      # src dst ty tx by bx lut
+                  _P, _P])                         # params stream
+        _declare(lib, "zt_resize_stream_params_bytes", [])
         _declare(lib, "zt_fused_blur_sharpen_morph",
                  [_P, _P, _P, _P, _P, _P])         # src dst ty tx params
                                                    # stream

@@ -8,8 +8,12 @@ to ``fused_resize_blur_oklab_reference``, the plain PyTorch composition of
 the three stages. The kernel takes any H, W, OH, OW >= 1 and any C >= 1
 (C other than 1, 3 and 4 in groups of at most 4 channels; the Oklab
 epilogue needs C = 3), so, unlike the TPU kernel, it needs no shape gate.
-The host plans each launch (``tile_plan``): the tile, the source span
-each tile stages, the shared-memory layout, all cached per shape.
+The host plans each launch, cached per shape. The plan picks one of the
+file's two kernels from the shape, the channels and the taps: the streamed
+kernel (blocks walking down column strips, its plan ``_stream_plan``) for
+RGB with 7, 11 or 13 taps where a band's source rows stage and its grid
+is not too small for its blocks' floor, else the tile kernel (``tile_plan``:
+the tile, the source span each tile stages, the shared-memory layout).
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ __all__ = ["fused_resize_blur_oklab", "fused_resize_blur_oklab_reference",
 
 # kernel launches since import, read as fused_pipeline.LAUNCHES: a run
 # shows with it that the main path went through the kernel (a call of C
-# channels launches launches_for(C) times)
+# channels launches launches_for(C) times); STREAMED counts those that took
+# the streamed kernel
 LAUNCHES = 0
+STREAMED = 0
 
 # (tile columns, tile rows) in order of preference (_build.choose_tile)
 TILES = ((64, 32), (32, 32), (48, 32), (32, 64), (64, 24), (32, 15),
@@ -46,6 +52,42 @@ _FIELDS = ("B", "H", "W", "C", "cs", "c0", "OH", "OW", "r", "k", "tw", "th",
            "tiles_x", "tiles_y", "nr", "lg_gr", "lg_pr", "lg_gw",
            "lg_nch", "lg_px", "rp", "up", "mp", "sp", "oklab", "staged",
            "vec_in", "dp4a", "off_x", "off_y", "off_lut", "smem")
+# The streamed kernel: a block computes STRIP output columns of one RGB
+# image down a segment of its rows, BAND halo rows a band, for the tap
+# counts STREAM_TAPS, each tap a byte (<= 255) for dp4a. STREAM_BLOCKS
+# blocks fit an SM (its launch bounds), so a block may use STREAM_SMEM bytes
+# of shared memory: STREAM_FIXED of rings, planes and tables, then
+# STREAM_STAGES stages of a band's source rows (of at most MAX_STAGE_PITCH
+# bytes), which a downscale past ~2.5:1 outgrows. The grid is one wave of
+# resident blocks, cut into segments of a multiple of BAND rows. STRIP,
+# BAND, STREAM_FIXED and MAX_STAGE_PITCH copy the kernel's kStrip, kBand,
+# kOffStages and kMaxStagePitch: its launch refuses a struct whose strips,
+# segment rows or stage pitch disagree with them, or whose shared memory
+# falls short of its layout.
+STRIP = 64
+BAND = 8
+STREAM_TAPS = (7, 11, 13)
+STREAM_BLOCKS = 4
+STREAM_STAGES = 2
+STREAM_FIXED = 29968
+STREAM_SMEM = 233472 // STREAM_BLOCKS - 1024
+MAX_STAGE_PITCH = 4096
+# A block walks one segment of at least BAND rows and its 2r warm-up rows
+# band after band, so the streamed kernel's time has a floor: on the H100
+# (sigma 2, Oklab, device time) 6.7-6.8 us at every grid under a wave,
+# where the tile kernel spreads a small output over more, smaller blocks.
+# The tile kernel won at a streamed grid of 32 blocks (B=1 of 256^2 ->
+# 128^2: 4.5 us), 64 (B=2 of it: 5.7) and 72 (B=1 of 384^2 -> 192^2:
+# 6.3); the streamed kernel from 96 (B=3 of 256^2: 6.8 against 7.3; B=1
+# of 448^2 -> 224^2: 6.8 against 7.2) at every larger grid, 8-row
+# segments for 12 warm-up rows included (B=1 of 1024^2 -> 512^2: 11.2
+# against 11.8, B=16 of 256^2: 11.1 against 12.0), and at the north
+# star's B=16 of 1024^2 70.4-70.5 against 93.8. So the plan leaves a grid
+# of fewer than MIN_GRID blocks an SM (88 on 132) to the tile kernel.
+MIN_GRID = 2 / 3
+# the fields of the kernel's K1StreamParams ahead of the taps and mixes
+_SFIELDS = ("B", "H", "W", "OH", "OW", "r", "k", "strips", "seg", "segs",
+            "nbt", "ns", "sp", "oklab", "vec_in", "smem")
 
 
 def launches_for(c: int) -> int:
@@ -139,11 +181,68 @@ def tile_plan(b, oh, ow, r, c, oklab, ty, tx, sms):
     return plan, plan.sy, plan.sx
 
 
-class _Plan(Plan):
-    """The kernel's plan for one shape: the tile, its device tables and
-    its K1Params (``buffer(vec_in)``)."""
+class StreamPlan(Plan):
+    """The streamed kernel's plan: ``strips`` strips of ``STRIP`` output
+    columns, ``segs`` segments of ``seg`` output rows a strip, one block a
+    segment of a strip of an image (``blocks``); its span tables ``by``
+    ((first source row, count) of each band of ``BAND`` halo rows; ``ns``
+    rows at most) and ``bx`` (the same for the columns of each strip), and
+    its K1StreamParams (``buffer(vec_in)``)."""
 
-    __slots__ = ("r", "tile", "ty", "tx", "sy", "sx")
+    __slots__ = ("strips", "seg", "segs", "ns", "blocks", "by", "bx")
+    FIELDS, LAYOUT = _SFIELDS, "zt_resize_stream_params_bytes"
+
+
+def _stream_plan(kint, b, h, w, c, oh, ow, oklab, ty, tx, sms):
+    """The streamed plan for ``b`` images of ``h x w x c`` resized to ``oh
+    x ow`` and blurred with the 8.8 taps ``kint`` (halo tables ``ty``,
+    ``tx``) on a card of ``sms`` SMs, or None where the tile kernel keeps
+    the shape: C other than 3, no blur, a tap count not in STREAM_TAPS or a
+    tap above 255, source spans too large to stage (strong downscales), or
+    a grid of fewer than MIN_GRID blocks an SM (small outputs)."""
+    k = len(kint)
+    if c != 3 or k not in STREAM_TAPS or int(np.max(kint)) > 255:
+        return None
+    r = k // 2
+    strips = -(-ow // STRIP)
+    segs = max(1, STREAM_BLOCKS * sms // (b * strips))
+    seg = BAND * -(-oh // (BAND * segs))
+    segs = -(-oh // seg)
+    if not MIN_GRID * sms <= b * strips * segs < 2 ** 31:
+        return None
+    nbt = -(-(oh + 2 * r) // BAND)
+    by = axis_spans(ty, BAND, nbt, 0)
+    bx = axis_spans(tx, STRIP, strips, r)
+    ns, sp = int(by[1].max()), a16(3 * int(bx[1].max()) + 16)
+    smem = STREAM_FIXED + STREAM_STAGES * ns * sp
+    if smem > STREAM_SMEM or sp > MAX_STAGE_PITCH:
+        return None
+    fields = dict(B=b, H=h, W=w, OH=oh, OW=ow, r=r, k=k, strips=strips,
+                  seg=seg, segs=segs, nbt=nbt, ns=ns, sp=sp,
+                  oklab=int(oklab), vec_in=0, smem=smem)
+    # the taps as bytes shifted 0-3 bytes later (dp4a of an output's words),
+    # then as f32
+    shifted = np.zeros((4, 16), np.uint8)
+    for q in range(4):
+        shifted[q, q:q + k] = kint
+    taps = np.zeros(16, np.float32)
+    taps[:k] = kint
+    mix = np.asarray([_RGB2OKLMS, _OKLMS2LAB], np.float32).ravel()
+    st = StreamPlan(fields, (shifted.view(np.uint32), taps, mix))
+    st.strips, st.seg, st.segs, st.ns = strips, seg, segs, ns
+    st.blocks = b * strips * segs
+    st.by, st.bx = (np.ascontiguousarray(np.stack(s)).astype(np.int32)
+                    for s in (by, bx))
+    return st
+
+
+class _Plan(Plan):
+    """The kernels' plans for one shape: ``stream``, the streamed kernel's,
+    where it takes the shape; else the tile's (``tile``, its span tables
+    ``sy``/``sx``, its K1Params as ``buffer(vec_in)``), which is built only
+    then. Both kernels read the halo tables ``ty``/``tx``."""
+
+    __slots__ = ("r", "tile", "ty", "tx", "sy", "sx", "stream")
     FIELDS, LAYOUT = _FIELDS, "zt_resize_params_bytes"
 
     def __init__(self, b, h, w, c, oh, ow, sigma, oklab, device):
@@ -153,12 +252,21 @@ class _Plan(Plan):
         if len(kint) > MAX_TAPS:
             raise ValueError(f"sigma {sigma} needs more than {MAX_TAPS} taps")
         ty, tx = halo_axis_table(h, oh, r), halo_axis_table(w, ow, r)
-        t, sy, sx = tile_plan(b, oh, ow, r, c, oklab, ty, tx,
-                              sm_count(device))
+        sms = sm_count(device)
+        self.r = r
+        self.ty, self.tx = (torch.from_numpy(a).to(device) for a in (ty, tx))
+        st = self.stream = _stream_plan(kint, b, h, w, c, oh, ow, oklab, ty,
+                                        tx, sms)
+        if st is not None:
+            st.by, st.bx = (torch.from_numpy(a).to(device)
+                            for a in (st.by, st.bx))
+            self.tile = self.sy = self.sx = None
+            super().__init__(None, None)  # no K1Params: st.buffer is used
+            return
+        t, sy, sx = tile_plan(b, oh, ow, r, c, oklab, ty, tx, sms)
         if not t.staged and h * w * c >= 2 ** 31:
             raise ValueError("image too large for the kernel's offsets")
-        self.r, self.tile = r, t
-        self.ty, self.tx = (torch.from_numpy(a).to(device) for a in (ty, tx))
+        self.tile = t
         self.sy, self.sx = (torch.from_numpy(np.ascontiguousarray(
             np.stack(s)).astype(np.int32)).to(device) for s in (sy, sx))
         fields = dict(
@@ -211,11 +319,12 @@ def fused_resize_blur_oklab(batch, out_rows: int, out_cols: int,
                             sigma: float, oklab: bool = True):
     """[B, H, W, C] u8 -> bilinear resize -> Gaussian blur -> u8
     ``[B, out_rows, out_cols, C]``, or f32 Oklab ``[..., 3]`` when
-    ``oklab``. ``sigma=0`` skips the blur. A CUDA tensor runs the kernel
-    (or raises); a CPU tensor runs the plain version. During a profiler
-    session the kernel's route adds the recorder's spans ``K1.check``,
-    ``K1.plan``, ``K1.alloc`` and ``K1.params``, one after the other."""
-    global LAUNCHES
+    ``oklab``. ``sigma=0`` skips the blur. A CUDA tensor runs one of the
+    kernels (or raises); a CPU tensor runs the plain version. During a
+    profiler session the kernel's route adds the recorder's spans
+    ``K1.check``, ``K1.plan``, ``K1.alloc`` and ``K1.params``, one after
+    the other."""
+    global LAUNCHES, STREAMED
     t0 = span_start()
     sigma = float(sigma)
     _check(batch, out_rows, out_cols, sigma, oklab)
@@ -235,14 +344,21 @@ def fused_resize_blur_oklab(batch, out_rows: int, out_cols: int,
         (b, out_rows, out_cols, 3 if oklab else c),
         dtype=torch.float32 if oklab else torch.uint8, device=batch.device)
     t0 = t0 and RECORDER.add("K1.alloc", t0)
-    params = plan.buffer(
-        plan.tile.staged and (w * c) % 16 == 0 and batch.data_ptr() % 16 == 0)
+    vec = (w * c) % 16 == 0 and batch.data_ptr() % 16 == 0
+    st = plan.stream
+    if st is None:
+        name, spans = "zt_fused_resize_blur_oklab", (plan.sy, plan.sx)
+        params = plan.buffer(plan.tile.staged and vec)
+    else:
+        name, spans = "zt_streamed_resize_blur_oklab", (st.by, st.bx)
+        params = st.buffer(vec)
     lut = cached(gamma_table, batch.device).data_ptr() if oklab else None
     if t0:
         RECORDER.add("K1.params", t0)
-    launch("zt_fused_resize_blur_oklab", batch.device, batch.data_ptr(),
-           out.data_ptr(), plan.ty.data_ptr(), plan.tx.data_ptr(),
-           plan.sy.data_ptr(), plan.sx.data_ptr(), lut, params)
+    launch(name, batch.device, batch.data_ptr(), out.data_ptr(),
+           plan.ty.data_ptr(), plan.tx.data_ptr(), spans[0].data_ptr(),
+           spans[1].data_ptr(), lut, params)
     with COUNT_LOCK:
         LAUNCHES += launches_for(c)
+        STREAMED += st is not None
     return out
