@@ -1,0 +1,10 @@
+"""The orb_stereo request against the card's roofline: its least time
+(``roofline_features.request_bound``) over the device time a request of
+all the kernels the traced requests launched, in percent, so that it
+reads the same work whatever kernels implement it."""
+
+
+def read(run):
+    if run.cfg["name"] != "orb_stereo" or run.trace is None:
+        return None
+    return run.trace.roofline_pct(run.adapter.bound_ms(run.cfg, run.batch))

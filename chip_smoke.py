@@ -1885,7 +1885,7 @@ def _config_times(card, c4, c5):
     # where a config-5 ORB batch goes
     planes = torch.stack([orb_mod.plane_of(im, None) for im in corpus])
     h, w = planes.shape[-2:]
-    ks, margins, _ = orb._fused_params(h, w)
+    ks, _ = orb._fused_params(h, w)
     pyr = [None]
 
     def level_stage(fn):
@@ -1907,9 +1907,8 @@ def _config_times(card, c4, c5):
         ("top-k sort", level_stage(lambda lv, lvl: torch.sort(
             orb_mod._harris_map(lvl).reshape(lvl.shape[0], -1), dim=-1,
             descending=True, stable=True))),
-        ("whole device path + D2H", lambda _: orb_mod._orb_device(
-            planes, orb.n_levels, orb.scale_factor, orb.fast_threshold, ks,
-            margins, True).cpu()),
+        ("whole device path + D2H", lambda _: [
+            t.cpu() for t in orb.detect_and_compute_tensors(planes)]),
     ])
     print(f"[{card}] phase 25 config 5 ORB split (B={len(corpus)}; the "
           f"top-k row includes its Harris map again): " + ", ".join(

@@ -17,7 +17,13 @@ Bounds:
   them); BRIEF fed JAX's angles equal; the batch equal to per-image
   calls;
 - the Hamming distance matrix and ``match`` / ``knn_match`` /
-  ``radius_match`` (with ``cross_check``): equal.
+  ``radius_match`` (with ``cross_check``): equal;
+- ``Orb.detect_and_compute_tensors``: the batch entry's keypoints and
+  descriptors, and JAX's, on a stack of 4 frames; ``match_tensors``:
+  numpy's rules of ``BruteForceMatcher.match`` (ties, cross-check,
+  ``max_distance``, rows not valid, empty sets), equal;
+- the orb_stereo request at toy size against the benchmark's frozen
+  reference, under the configuration's limits.
 """
 
 import numpy as np
@@ -41,7 +47,7 @@ from zignal_tpu_torch.features import BinaryDescriptor, BruteForceMatcher, \
 from zignal_tpu_torch.features import fast as pfast
 from zignal_tpu_torch.features import orb as porb
 from zignal_tpu_torch.features._orb_pattern import ORB_PATTERN
-from zignal_tpu_torch.features.matcher import distance_matrix
+from zignal_tpu_torch.features.matcher import distance_matrix, match_tensors
 from zignal_tpu_torch.ops.pyramid import ImagePyramid
 
 CPU = "cpu"
@@ -362,6 +368,150 @@ def test_matcher_ties_and_empty_sets():
     assert {x.train_idx for x in m.radius_match([d[0]], d, 130)[0]} == \
         {0, 2, 3}
     assert m.match([], d) == [] and m.match(d, []) == []
+
+
+def _numpy_match(d, cross_check, max_distance):
+    """``BruteForceMatcher.match``'s numpy rules on a distance matrix:
+    (query, train, distance) of each kept query."""
+    if d.size == 0:
+        return []
+    best, rev = d.argmin(axis=1), d.argmin(axis=0)
+    out = []
+    for qi, ti in enumerate(best):
+        dist = int(d[qi, ti])
+        if max_distance is not None and dist > max_distance:
+            continue
+        if cross_check and rev[ti] != qi:
+            continue
+        out.append((qi, int(ti), dist))
+    return out
+
+
+def _tied_descriptors(rng, n):
+    """u8 ``[n, 32]`` drawn from a pool of 6 rows: distances tie often."""
+    pool = rng.integers(0, 256, (6, 32), dtype=np.uint8)
+    return pool[rng.integers(0, 6, n)]
+
+
+@pytest.mark.parametrize("cross_check,max_distance", [
+    (True, None), (False, None), (True, 120), (False, 100)])
+@pytest.mark.parametrize("n,m", [(7, 9), (30, 5), (1, 40), (0, 4), (5, 0)])
+def test_match_tensors_follow_numpys_rules(n, m, cross_check, max_distance):
+    """Three pairs at once, each with rows not valid; every pair equals
+    numpy's rules on its valid rows alone, mapped back to the rows'
+    places, and the matcher's single pair goes through it."""
+    rng = np.random.default_rng(n * 100 + m)
+    q = np.stack([_tied_descriptors(rng, n) for _ in range(3)])
+    t = np.stack([_tied_descriptors(rng, m) for _ in range(3)])
+    qv = rng.random((3, n)) < 0.8
+    tv = rng.random((3, m)) < 0.7
+    qv[0], tv[0] = True, True  # one pair all valid
+    if m:
+        tv[2] = False          # one pair with no valid train row
+    idx, dist = match_tensors(torch.from_numpy(q), torch.from_numpy(qv),
+                              torch.from_numpy(t), torch.from_numpy(tv),
+                              cross_check=cross_check,
+                              max_distance=max_distance)
+    assert idx.dtype == torch.int64 and dist.dtype == torch.int32
+    assert idx.shape == dist.shape == (3, n)
+    for p in range(3):
+        qi, ti = np.nonzero(qv[p])[0], np.nonzero(tv[p])[0]
+        d = distance_matrix(q[p][qi], t[p][ti], CPU)
+        want_idx, want_dist = np.full(n, -1), np.full(n, -1)
+        for a, b, dd in _numpy_match(d, cross_check, max_distance):
+            want_idx[qi[a]], want_dist[qi[a]] = ti[b], dd
+        np.testing.assert_array_equal(idx[p].numpy(), want_idx)
+        np.testing.assert_array_equal(dist[p].numpy(), want_dist)
+    matcher = BruteForceMatcher(cross_check, max_distance, device=CPU)
+    got = matcher.match([BinaryDescriptor(r) for r in q[0]],
+                        [BinaryDescriptor(r) for r in t[0]])
+    assert _matches(got) == [
+        (a, b, float(dd)) for a, b, dd in _numpy_match(
+            distance_matrix(q[0], t[0], CPU), cross_check, max_distance)]
+
+
+def test_match_tensors_ties_go_to_the_lowest_row():
+    """Equal train rows: the first is the match; equal queries: the
+    cross-check keeps the first."""
+    a = np.zeros((3, 32), np.uint8)
+    a[2] = 255
+    q, t = torch.from_numpy(a[None]), torch.from_numpy(a[[0, 0, 2]][None])
+    ones = torch.ones((1, 3), dtype=torch.bool)
+    idx, dist = match_tensors(q, ones, t, ones)
+    assert idx.tolist() == [[0, -1, 2]] and dist.tolist() == [[0, -1, 0]]
+    idx, _ = match_tensors(q, ones, t, ones, cross_check=False)
+    assert idx.tolist() == [[0, 0, 2]]
+    with pytest.raises(ValueError, match="validity"):
+        match_tensors(q, ones[:, :2], t, ones)
+
+
+def _stack(seed, n=4, shape=(96, 160)):
+    """A stack of ``n`` textured frames."""
+    return np.stack([_wave(*shape, seed=seed + i) for i in range(n)])
+
+
+def test_detect_and_compute_tensors_equals_the_batch_and_jax():
+    """The tensors hold exactly the batch entry's keypoints (on their
+    level, with the level) and descriptors, and JAX's."""
+    frames = _stack(31)
+    orb = Orb(n_features=300, edge_threshold=31)
+    kps, desc, valid = orb.detect_and_compute_tensors(torch.from_numpy(frames))
+    ks, _ = orb._fused_params(96, 160)
+    assert kps.shape == (4, sum(ks), 5) and desc.shape == (4, sum(ks), 32)
+    assert valid.dtype == torch.bool and desc.dtype == torch.uint8
+    batch = orb.detect_and_compute_batch(list(frames), device=CPU)
+    jorb = JOrb(n_features=300, edge_threshold=31)
+    for f in range(4):
+        rows, bits = kps[f][valid[f]], desc[f][valid[f]]
+        got = ([KeyPoint(x=float(r[1]) * 1.2 ** int(r[4]),
+                         y=float(r[2]) * 1.2 ** int(r[4]),
+                         size=7.0 * 1.2 ** int(r[4]), angle=float(r[3]),
+                         response=float(r[0]), octave=int(r[4]))
+                for r in rows], [BinaryDescriptor(b) for b in bits.numpy()])
+        assert [(k.x, k.y, k.octave, k.angle, k.response) for k in got[0]] \
+            == [(k.x, k.y, k.octave, k.angle, k.response)
+                for k in batch[f][0]]
+        _assert_same_orb(got, batch[f])
+        _assert_same_orb(got, jorb.detect_and_compute(frames[f]))
+    with pytest.raises(ValueError, match="u8"):
+        orb.detect_and_compute_tensors(torch.from_numpy(frames[0]))
+    # planes under 16 px keep no level: no rows
+    kps, desc, valid = orb.detect_and_compute_tensors(
+        torch.from_numpy(frames[:, :12, :15].copy()))
+    assert (kps.shape, desc.shape, valid.shape) == ((4, 0, 5), (4, 0, 32),
+                                                    (4, 0))
+
+
+def test_orb_stereo_request_is_held_to_its_reference():
+    """The benchmark's request at its toy size on the CPU, on the
+    source's stereo frames and on noise, against the frozen reference
+    under the configuration's limits; the matches exact."""
+    import json
+    from pathlib import Path
+
+    from benchmarks.reference import orb_stereo as ref
+    from benchmarks.sources import device_stereo
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = json.loads((root / "benchmarks" / "configs" /
+                      "orb_stereo.json").read_text())
+    cfg = dict(cfg, **cfg["toy"])
+    orb = Orb(n_features=cfg["n_features"],
+              edge_threshold=cfg["edge_threshold"])
+    gen = torch.Generator().manual_seed(2 ** 40 + 3)
+    for x in (device_stereo.frames((4, cfg["rows"], cfg["cols"]), gen,
+                                   torch.device(CPU)),
+              torch.from_numpy(_u8((2, cfg["rows"], cfg["cols"]), 5))):
+        kps, desc, valid = orb.detect_and_compute_tensors(x)
+        out = (kps, desc, valid, match_tensors(desc[0::2], valid[0::2],
+                                               desc[1::2], valid[1::2]))
+        checks = ref.compare(cfg, out, ref.orb_stereo(x, cfg))
+        assert checks["matches_differing"] == 0
+        assert checks["keypoints_differing"] == 0
+        assert checks["descriptor_bits_differing"] == 0
+        assert 0 < checks["angle_max_gap_deg"] <= cfg["limits"][
+            "angle_max_gap_deg"]
+        assert int((out[3][0] >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize("case", ["line", "l_shape", "noise"])

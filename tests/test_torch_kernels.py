@@ -1257,6 +1257,43 @@ def test_orb_batch_launches_the_pyramid_kernels_once_a_call(cuda):
         assert all(np.array_equal(a.bits, b.bits) for a, b in zip(dg, dw))
 
 
+def test_orb_stereo_request_at_kitti_size_waits_for_nothing(cuda):
+    """One stereo request of 8 frames of 1241 x 376 (ORB at 2000 features,
+    then each left frame matched with its right) after a warm-up call
+    issues no host-device synchronization: it raises nothing under
+    ``set_sync_debug_mode("error")``. Its keypoints, descriptors and
+    matches equal the same request on the CPU; the counters count its
+    8 levels and 4 pairs."""
+    from zignal_tpu_torch.features import Orb, matcher, orb
+
+    gen = torch.Generator().manual_seed(86)
+    x = torch.randint(0, 256, (8, 376, 1241), generator=gen,
+                      dtype=torch.uint8)
+    x[:, 100:250, 300:900] //= 4  # a darker block: structure beside noise
+    det = Orb(n_features=2000, edge_threshold=31)
+
+    def request(planes):
+        kps, desc, valid = det.detect_and_compute_tensors(planes)
+        return kps, desc, valid, matcher.match_tensors(
+            desc[0::2], valid[0::2], desc[1::2], valid[1::2])
+
+    card = x.to(cuda)
+    request(card)
+    torch.cuda.synchronize()
+    levels, pairs = orb.LEVELS, matcher.PAIRS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = request(card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (orb.LEVELS - levels, matcher.PAIRS - pairs) == (8, 4)
+    want = request(x)
+    for a, b in zip(got[:3] + got[3], want[:3] + want[3]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert int(want[2].sum()) > 8 * 1000 and int((want[3][0] >= 0).sum()) > 0
+
+
 def test_fdm_hough_and_matcher_on_the_card_equal_the_cpu(cuda):
     """FDM's statistics and map are f32 operations rounded alone in a
     fixed order (and f64 FMAs): the card gives the CPU's bits. The Hough

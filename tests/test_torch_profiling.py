@@ -244,6 +244,40 @@ def test_colorspace_spans_only_in_a_session():
     assert color_chain.VALUES == values
 
 
+def test_orb_and_match_spans_only_in_a_session():
+    """The stereo request, ``detect_and_compute_tensors`` then
+    ``match_tensors``: outside a session it records nothing; inside one,
+    the four ORB stages one after the other inside the ``orb`` entry
+    (the CPU route has no kernel launch), then ``match``; and the
+    counters count no level and no pair on the CPU."""
+    from zignal_tpu_torch.features import Orb, matcher, orb
+
+    x = _plane((2, 40, 56))
+    o = Orb(n_features=60, n_levels=3)
+
+    def request():
+        kps, desc, valid = o.detect_and_compute_tensors(x)
+        matcher.match_tensors(desc[:1], valid[:1], desc[1:], valid[1:])
+
+    log, before = tprof.RECORDER.spans, list(tprof.RECORDER.spans)
+    levels, pairs = orb.LEVELS, matcher.PAIRS
+    request()
+    assert tprof.RECORDER.spans is log and log == before
+    with _session():
+        for _ in range(2):
+            request()
+    spans = tprof.RECORDER.spans
+    stages = ["orb.pyramid", "orb.detect", "orb.select", "orb.describe"]
+    assert [s[0] for s in spans] == (stages + ["orb", "match"]) * 2
+    for call in (spans[:6], spans[6:]):
+        by = {name: (t0, t1) for name, t0, t1, _ in call}
+        assert by["orb"][0] == by[stages[0]][0]
+        assert by["orb"][1] == by[stages[-1]][1]
+        assert all(by[a][1] == by[b][0] for a, b in zip(stages, stages[1:]))
+        assert by["orb"][1] <= by["match"][0] < by["match"][1]
+    assert (orb.LEVELS, matcher.PAIRS) == (levels, pairs)
+
+
 def test_span_log_bound_counts_what_it_drops():
     p = tprof.Profile()
     assert p.spans is None and tprof.RECORDER.limit == 1 << 16

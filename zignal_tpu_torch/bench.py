@@ -485,7 +485,6 @@ def _match_rows(matches) -> list:
 
 
 def bench_features(run: Run):
-    from .features import orb as orb_mod
     from .features.matcher import BruteForceMatcher
     from .features.orb import Orb
     from .image import Image
@@ -522,10 +521,8 @@ def bench_features(run: Run):
     # the device part of one image's ORB (pyramid, FAST, NMS, Harris,
     # top-k, angle, BRIEF), bench.py's loops of 1 and 6
     plane = run.u8(orb._plane_host_np(corpus[0])[None])
-    ks, margins, _ = orb._fused_params(dim, dim)
-    t_dev = measure(lambda p: orb_mod._orb_device(
-        p, orb.n_levels, orb.scale_factor, orb.fast_threshold, ks, margins,
-        True), plane, n_small=1, n_large=6)
+    t_dev = measure(lambda p: orb.detect_and_compute_tensors(p)[1], plane,
+                    n_small=1, n_large=6)
     edges = corpus[0].sobel()
     hough = HoughTransform(256)
     hough.compute(edges)

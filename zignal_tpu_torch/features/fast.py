@@ -7,7 +7,9 @@ on a per-pixel 16-bit mask (log-step run detection): integer torch ops
 on the plane's device, on ``[..., H, W]`` (leading dims are a batch of
 planes). The shifts wrap around, as the JAX package's ``jnp.roll``: the
 3-pixel border mask and the non-maximum suppression rely on exactly that
-wrap. Planes of 6 px or fewer have an empty interior.
+wrap. Planes of 6 px or fewer have an empty interior. The offsets and
+bit weights live on each device once (``ops/_build.cached``), so a call
+on a card after the first copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..image import plane_of
+from ..ops._build import cached
 
 __all__ = ["KeyPoint", "Fast"]
 
@@ -44,17 +47,28 @@ class KeyPoint:
         return (self.x - other.x) ** 2 + (self.y - other.y) ** 2
 
 
+def _offsets(offsets, device):
+    """``(dx, dy)`` of ``offsets`` as int64 tensors on ``device``."""
+    return tuple(torch.tensor([o[i] for o in offsets], device=device)
+                 for i in (0, 1))
+
+
 def _shifted(a, offsets):
     """``[..., K, H, W]``: plane ``k`` is ``a`` read at ``[r + dy, c + dx]``
     for the k-th ``(dx, dy)`` of ``offsets``, wrapping around (one gather
     for all K)."""
     h, w = a.shape[-2:]
     dev = a.device
-    dx = torch.tensor([o[0] for o in offsets], device=dev)
-    dy = torch.tensor([o[1] for o in offsets], device=dev)
+    dx, dy = cached(_offsets, offsets, dev)
     rows = (torch.arange(h, device=dev)[None, :, None] + dy[:, None, None]) % h
     cols = (torch.arange(w, device=dev)[None, None, :] + dx[:, None, None]) % w
     return a[..., rows, cols]
+
+
+def _bits(device):
+    """The 16 circle taps' bit weights, int32 ``[16, 1, 1]`` on ``device``."""
+    return torch.tensor(_BITS, dtype=torch.int32,
+                        device=device)[:, None, None]
 
 
 _BITS = tuple(1 << i for i in range(16))
@@ -81,16 +95,17 @@ def _has_run(mask16, min_run: int):
     return r != 0
 
 
-def fast_response_map(gray_u8, threshold: int = 20, min_contiguous: int = 9):
+def fast_response_map(gray_u8, threshold=20, min_contiguous: int = 9):
     """u8 ``[..., H, W]`` -> int32 ``[..., H, W]`` corner scores (0 = not a
-    corner), on the plane's device."""
+    corner), on the plane's device. ``threshold`` is an int, or an int32
+    ``[H, W]`` tensor of each pixel's own (ORB's levels laid in one
+    plane)."""
     a = gray_u8.to(torch.int32)
     h, w = a.shape[-2:]
     bright_thr = torch.clamp_max(a + threshold, 255)[..., None, :, :]
     dark_thr = torch.clamp_min(a - threshold, 0)[..., None, :, :]
     px = _shifted(a, CIRCLE_OFFSETS)                  # [..., 16, H, W]
-    bits = torch.tensor(_BITS, dtype=torch.int32,
-                        device=a.device)[:, None, None]
+    bits = cached(_bits, a.device)
     # distinct bits: their sum is their OR
     bright_mask = ((px > bright_thr) * bits).sum(-3, dtype=torch.int32)
     dark_mask = ((px < dark_thr) * bits).sum(-3, dtype=torch.int32)

@@ -8,9 +8,19 @@ device, batched over a ``[B, H, W]`` stack: the pyramid (one u8 Gaussian
 blur of the stack, then one bilinear resize a level: on a card the
 separable and fused resize kernels), FAST, its non-maximum suppression,
 the Harris map, the top-k, the intensity-centroid angle and the rotated
-BRIEF, with one device-to-host copy of the packed rows at the end. The
-host path (``use_device=False``, the oracle) is the JAX package's numpy
-code, copied.
+BRIEF. ``Orb.detect_and_compute_tensors`` returns its keypoints,
+descriptors and validity mask as tensors on the planes' device; the list
+entries copy them to the host once and unpack them. Its constants live on
+each device once (``ops/_build.cached``), so a request on a card after the
+first copies nothing from the host and waits for nothing. The host path
+(``use_device=False``, the oracle) is the JAX package's numpy code,
+copied.
+
+While a profiler session runs, a request records the spans ``orb`` (entry
+to return), and inside it, one after the other, ``orb.pyramid``,
+``orb.detect`` (FAST, NMS and the score map of every level),
+``orb.select`` (the top-k of every level) and ``orb.describe`` (angles,
+BRIEF and the rows); ``LEVELS`` counts the levels run on a CUDA device.
 
 Where the JAX package's compiled CPU program fixes a float, the device
 path does the same (found against it on the CPU): the Harris response is
@@ -32,8 +42,10 @@ import numpy as np
 import torch
 
 from ..image import plane_of
+from ..ops._build import COUNT_LOCK, cached
 from ..ops.fma import fma
 from ..ops.pyramid import ImagePyramid
+from ..profiling import RECORDER, span_start
 from ._orb_pattern import ORB_PATTERN
 from .descriptor import BinaryDescriptor
 from .fast import KeyPoint, _nms_device, fast_response_map
@@ -49,7 +61,11 @@ _CIRC = (_XX**2 + _YY**2 <= _HALF * _HALF).astype(np.float32)
 
 _PAT = np.asarray(ORB_PATTERN, dtype=np.float32)  # [256, 4]
 _F32 = np.float32
-_ROW = 5 + 32  # packed row: resp, x, y, valid, angle, 32 descriptor bytes
+# a keypoint row of detect_and_compute_tensors: response, x and y on its
+# level, angle in degrees, level
+KEYPOINT_FIELDS = ("response", "x", "y", "angle", "level")
+
+LEVELS = 0  # pyramid levels run on a CUDA device, under COUNT_LOCK
 
 
 @dataclasses.dataclass
@@ -120,52 +136,61 @@ class Orb:
         return kps, self._compute_host(levels, kps)
 
     def _fused_params(self, h, w):
+        """Each level's budget (0 where it is skipped) and margin."""
         shapes = self._level_shapes(h, w)
         per_level = self._features_per_level()
-        ks, margins, lv_ids = [], [], []
+        ks, margins = [], []
         for level in range(self.n_levels):
             lh, lw = shapes[level]
             skip = (level < self.first_level or per_level[level] == 0
                     or min(lh, lw) < 16)
-            k = 0 if skip else per_level[level]
+            ks.append(0 if skip else per_level[level])
             scale = self.scale_factor ** level
-            ks.append(k)
             margins.append(float(max(3.0, self.edge_threshold / scale)))
-            if k:
-                lv_ids.append(level)
-        return tuple(ks), tuple(margins), lv_ids
+        return tuple(ks), tuple(margins)
 
-    def _unpack(self, rows, ks, lv_ids, want_desc: bool):
-        """Host side: one image's packed ``[sum(k), 37]`` f32 rows ->
-        KeyPoints (+ descriptors); rows not valid (the top-k's padding,
-        the margin) are dropped."""
+    def detect_and_compute_tensors(self, planes):
+        """Detect and describe on a u8 ``[B, H, W]`` tensor, on its device:
+        ``(keypoints, descriptors, valid)``, f32 ``[B, K, 5]`` rows of
+        ``KEYPOINT_FIELDS`` (x and y on the keypoint's own level), u8
+        ``[B, K, 32]`` and bool ``[B, K]``. K is the sum of the levels'
+        budgets; each level's rows are its top-k by response, descending,
+        and a row is valid where it holds a candidate outside the level's
+        margin. Nothing is copied to the host."""
+        if not isinstance(planes, torch.Tensor) or planes.dtype != \
+                torch.uint8 or planes.ndim != 3:
+            raise ValueError("detect_and_compute_tensors needs a u8 "
+                             "[B, H, W] tensor")
+        ks, margins = self._fused_params(*planes.shape[-2:])
+        return _orb_device(planes, self.n_levels, self.scale_factor,
+                           self.fast_threshold, ks, margins,
+                           self.score_type == "harris_score")
+
+    def _unpack(self, rows, want_desc: bool):
+        """Host side: one image's ``[K, 38]`` f32 rows (the keypoint's
+        fields, valid, 32 descriptor bytes) -> KeyPoints (+ descriptors);
+        rows not valid (the top-k's padding, the margin) are dropped."""
         out_kps, out_desc = [], []
-        off = 0
-        for level in lv_ids:
-            k = ks[level]
+        for r in rows:
+            if r[5] < 0.5:
+                continue
+            level = int(r[4])
             scale = self.scale_factor ** level
-            for r in rows[off:off + k]:
-                if r[3] < 0.5:
-                    continue
-                out_kps.append(KeyPoint(
-                    x=float(r[1]) * scale, y=float(r[2]) * scale,
-                    size=7.0 * scale, angle=float(r[4]),
-                    response=float(r[0]), octave=level))
-                if want_desc:
-                    out_desc.append(BinaryDescriptor(r[5:].astype(np.uint8)))
-            off += k
+            out_kps.append(KeyPoint(
+                x=float(r[1]) * scale, y=float(r[2]) * scale,
+                size=7.0 * scale, angle=float(r[3]),
+                response=float(r[0]), octave=level))
+            if want_desc:
+                out_desc.append(BinaryDescriptor(r[6:].astype(np.uint8)))
         return out_kps, (out_desc if want_desc else None)
 
     def _device_detect_compute(self, planes, want_desc: bool):
         """The whole ORB pipeline on a u8 ``[B, H, W]`` stack on its
         device, one copy to the host -> B (keypoints, descriptors)."""
-        h, w = planes.shape[-2:]
-        ks, margins, lv_ids = self._fused_params(h, w)
-        packed = _orb_device(planes, self.n_levels, self.scale_factor,
-                             self.fast_threshold, ks, margins,
-                             self.score_type == "harris_score")
-        rows = packed.to("cpu").numpy()
-        return [self._unpack(r, ks, lv_ids, want_desc) for r in rows]
+        kps, desc, valid = self.detect_and_compute_tensors(planes)
+        rows = torch.cat([kps, valid[..., None].to(torch.float32),
+                          desc.to(torch.float32)], -1).to("cpu").numpy()
+        return [self._unpack(r, want_desc) for r in rows]
 
     def detect_and_compute_batch(self, images, *, device=None):
         """Batched detect+compute over same-shape images: one pyramid for
@@ -331,24 +356,45 @@ def _harris_map(lvl, k: float = 0.04):
     return torch.where(inner, resp, 0.0)
 
 
-def _gather(plane, pad: int, ys, xs):
-    """``plane`` ``[B, h, w]`` zero-padded by ``pad`` and read at integer
-    ``ys``, ``xs`` ``[B, ...]`` (relative to the unpadded plane)."""
-    b, h, w = plane.shape
-    p = torch.nn.functional.pad(plane, (pad, pad, pad, pad))
-    flat = ((ys + pad) * (w + 2 * pad) + xs + pad).reshape(b, -1)
-    return torch.gather(p.reshape(b, -1), 1, flat).reshape(ys.shape)
+def _patch_grids(device):
+    """The orientation patch's pixels in the circle, ``(yy, xx)``, their
+    int64 ``[709]`` offsets on ``device``."""
+    inside = _CIRC.ravel() > 0
+    return tuple(torch.from_numpy(np.ascontiguousarray(g.ravel()[inside],
+                                                       np.int64)).to(device)
+                 for g in (_YY, _XX))
 
 
-def _angles(lvl, ysel, xsel):
+def _read(plane, geom, ys, xs):
+    """``plane`` ``[B, H, W]`` read at ``ys``, ``xs`` ``[B, K, S]`` on the
+    keypoints' levels, each clamped to its level: ``geom`` = (row, col, h,
+    w), int64 ``[K, 1]``, places keypoint k's level in the plane."""
+    row, col, h, w = geom
+    b, _, width = plane.shape
+    y = torch.minimum(ys.clamp_min(0), h - 1) + row
+    x = torch.minimum(xs.clamp_min(0), w - 1) + col
+    return torch.gather(plane.reshape(b, -1), 1,
+                        (y * width + x).reshape(b, -1)).reshape(ys.shape)
+
+
+def _whole(plane):
+    """The geometry of a plane that is one level."""
+    h, w = plane.shape[-2:]
+    return tuple(torch.full((1, 1), v, dtype=torch.int64, device=plane.device)
+                 for v in (0, 0, h, w))
+
+
+def _angles(plane, ysel, xsel, geom=None):
     """Intensity-centroid angle in degrees (f32) of each keypoint's
-    circular 31x31 patch; the moments are integer sums, exact."""
-    dev = lvl.device
-    yy = torch.from_numpy(_YY.ravel()).to(dev)
-    xx = torch.from_numpy(_XX.ravel()).to(dev)
-    circ = torch.from_numpy(_CIRC.ravel().astype(np.int64)).to(dev)
-    patch = _gather(lvl.to(torch.int64), _HALF, ysel[..., None] + yy,
-                    xsel[..., None] + xx) * circ
+    circular 31x31 patch on its level (pixels off the level read 0); the
+    moments are integer sums, exact. ``geom`` as ``_read``'s, None where
+    ``plane`` is the level."""
+    geom = _whole(plane) if geom is None else geom
+    yy, xx = cached(_patch_grids, plane.device)
+    ys, xs = ysel[..., None] + yy, xsel[..., None] + xx
+    h, w = geom[2], geom[3]
+    inside = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+    patch = _read(plane, geom, ys, xs).to(torch.int64) * inside
     m00 = patch.sum(-1).to(torch.float32)
     m10 = (patch * xx).sum(-1).to(torch.float32)
     m01 = (patch * yy).sum(-1).to(torch.float32)
@@ -365,16 +411,16 @@ def _f32_of_f64(fn, *args):
     return fn(*(a.double() for a in args)).to(torch.float32)
 
 
-def _brief(lvl, ysel, xsel, angles):
+def _brief(plane, ysel, xsel, angles, geom=None):
     """Rotated BRIEF of each keypoint -> u8 ``[B, K, 32]`` (bits little
-    first); samples off the level leave their bit 0."""
-    h, w = lvl.shape[-2:]
-    dev = lvl.device
+    first); samples off the keypoint's level leave their bit 0. ``geom``
+    as ``_read``'s, None where ``plane`` is the level."""
+    geom = _whole(plane) if geom is None else geom
+    h, w = geom[2], geom[3]
     rad = angles * _F32(np.pi / 180.0)
     cos_a = _f32_of_f64(torch.cos, rad)[..., None]
     sin_a = _f32_of_f64(torch.sin, rad)[..., None]
-    x1, y1, x2, y2 = (torch.from_numpy(np.ascontiguousarray(_PAT[:, i]))
-                      .to(dev) for i in range(4))
+    x1, y1, x2, y2, weights = cached(_brief_pattern, plane.device)
     kx = xsel.to(torch.float32)[..., None]
     ky = ysel.to(torch.float32)[..., None]
 
@@ -387,49 +433,162 @@ def _brief(lvl, ysel, xsel, angles):
     rx2, ry2 = rotated(x2, y2)
     ok = ((rx1 >= 0) & (rx1 < w) & (ry1 >= 0) & (ry1 < h)
           & (rx2 >= 0) & (rx2 < w) & (ry2 >= 0) & (ry2 < h))
-    p1 = _gather(lvl, 32, ry1, rx1)
-    p2 = _gather(lvl, 32, ry2, rx2)
+    p1 = _read(plane, geom, ry1, rx1)
+    p2 = _read(plane, geom, ry2, rx2)
     bits = (ok & (p1 < p2)).to(torch.int32)
     bits = bits.reshape(*bits.shape[:-1], 32, 8)
-    weights = (1 << torch.arange(8, device=dev, dtype=torch.int32))
     return (bits * weights).sum(-1).to(torch.uint8)
 
 
-def _orb_device(planes, n_levels, scale_factor, thr0, ks, margins, harris):
-    """Device ORB of a u8 ``[B, H, W]`` stack -> f32 ``[B, sum(ks), 37]``
-    rows of [resp, x, y, valid, angle, 32 descriptor bytes] per kept
-    level (every value but resp and angle integer, f32-exact)."""
-    pyr = ImagePyramid.build(planes, n_levels, scale_factor, 1.6)
-    pieces = []
-    for level, lvl in enumerate(pyr.levels):
-        k = ks[level]
-        if k == 0:
-            continue
-        h, w = lvl.shape[-2:]
-        thr = max(5, int(thr0 * (0.9 ** level)))
-        scores = fast_response_map(lvl, thr, 9)
-        keep = _nms_device(scores)
-        resp_map = _harris_map(lvl) if harris else scores.to(torch.float32)
-        cand = torch.where(keep & (scores > 0), resp_map, -torch.inf)
-        # lax.top_k's order: descending, the lower flat index first on ties
-        top_resp, top_idx = torch.sort(cand.reshape(cand.shape[0], -1),
-                                       dim=-1, descending=True, stable=True)
-        top_resp, top_idx = top_resp[:, :k], top_idx[:, :k]
-        ysel, xsel = top_idx // w, top_idx % w
-        m = margins[level]
-        valid = (torch.isfinite(top_resp) & (xsel >= m) & (xsel < w - m)
+def _brief_pattern(device):
+    """The pattern's columns x1, y1, x2, y2, f32 ``[256]``, and the bit
+    weights of a byte, int32 ``[8]``, on ``device``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(_PAT[:, i]))
+                 .to(device) for i in range(4)) + (
+        torch.tensor([1 << i for i in range(8)], dtype=torch.int32,
+                     device=device),)
+
+
+class _Atlas:
+    """The kept levels of a pyramid laid side by side in one plane, so
+    that each stage runs once for all of them, not once a level. Levels
+    go in order onto shelves as wide as the widest, each into the first
+    shelf with room, touching: every value a stage keeps is read within
+    its own level (FAST's ring and Harris's window from 3 and 4 pixels
+    inside it), and the NMS reads at most one pixel past a level, where
+    another level's outer row or column or an empty place scores 0.
+    Holds on ``device``: each pixel's FAST threshold, the masks of each
+    level's FAST (3 px in) and Harris (4 px in) interiors, the levels'
+    pixels in level order (row-major within a level) and, for each row
+    of the output, its level, place and margin."""
+
+    def __init__(self, shapes, ks, margins, thresholds, device):
+        kept = [lv for lv in range(len(shapes)) if ks[lv]]
+        width = max(shapes[lv][1] for lv in kept)
+        shelves, places = [], {}  # shelves: [top, height, used]
+        for lv in kept:
+            h, w = shapes[lv]
+            shelf = next((s for s in shelves if h <= s[1]
+                          and s[2] + w <= width), None)
+            if shelf is None:
+                shelf = [sum(s[1] for s in shelves), h, 0]
+                shelves.append(shelf)
+            places[lv] = (shelf[0], shelf[2])
+            shelf[2] += w
+        height = sum(s[1] for s in shelves)
+        thr = np.zeros((height, width), np.int32)
+        fast_in = np.zeros((height, width), bool)
+        harris_in = np.zeros((height, width), bool)
+        order, rows, self.segments, start = [], [], [], 0
+        for lv in kept:
+            (h, w), (r, c) = shapes[lv], places[lv]
+            thr[r:r + h, c:c + w] = thresholds[lv]
+            fast_in[r + 3:r + h - 3, c + 3:c + w - 3] = True
+            harris_in[r + 4:r + h - 4, c + 4:c + w - 4] = True
+            order.append(((r + np.arange(h))[:, None] * width
+                          + c + np.arange(w)[None, :]).ravel())
+            k = min(ks[lv], h * w)
+            self.segments.append((start, start + h * w, k))
+            rows.append(np.array([[lv, r, c, h, w]] * k, np.int64))
+            start += h * w
+        rows = np.concatenate(rows)
+        self.kept, self.places, self.shape = kept, places, (height, width)
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        self.thr, self.fast_in, self.harris_in = up(thr), up(fast_in), \
+            up(harris_in)
+        self.order = up(np.concatenate(order))
+        self.level = up(rows[:, 0].astype(np.float32))
+        self.geom = tuple(up(rows[:, i:i + 1]) for i in (1, 2, 3, 4))
+        self.margin = up(np.array([margins[lv] for lv in rows[:, 0]]))
+
+    def paste(self, levels):
+        """u8 ``[B, H, W]``: each kept level of ``levels`` in its place."""
+        first = levels[self.kept[0]]
+        plane = torch.zeros((first.shape[0],) + self.shape,
+                            dtype=torch.uint8, device=first.device)
+        for lv in self.kept:
+            (r, c), (h, w) = self.places[lv], levels[lv].shape[-2:]
+            plane[:, r:r + h, c:c + w] = levels[lv]
+        return plane
+
+    def candidates(self, plane, harris: bool):
+        """f32 ``[B, N]``, the levels' pixels in level order: each FAST
+        corner that survives the NMS scored by its response, -inf
+        elsewhere."""
+        scores = torch.where(self.fast_in, fast_response_map(plane, self.thr,
+                                                             9), 0)
+        keep = _nms_device(scores) & (scores > 0)
+        resp = torch.where(self.harris_in, _harris_map(plane), 0.0) \
+            if harris else scores.to(torch.float32)
+        cand = torch.where(keep, resp, -torch.inf)
+        return cand.reshape(cand.shape[0], -1)[:, self.order]
+
+    def select(self, cand):
+        """Each level's top-k: (responses, flat indices on the level),
+        ``[B, K]``."""
+        tops = [_top_k(cand[:, s:e], k) for s, e, k in self.segments]
+        return (torch.cat([t[0] for t in tops], dim=1),
+                torch.cat([t[1] for t in tops], dim=1))
+
+    def describe(self, plane, resp, idx):
+        """The keypoint rows ``[B, K, 5]``, descriptors ``[B, K, 32]`` and
+        validity ``[B, K]`` of the selected pixels."""
+        h, w = self.geom[2][:, 0], self.geom[3][:, 0]
+        ysel, xsel = idx // w, idx % w
+        m = self.margin
+        valid = (torch.isfinite(resp) & (xsel >= m) & (xsel < w - m)
                  & (ysel >= m) & (ysel < h - m))
-        angles = _angles(lvl, ysel, xsel)
-        desc = _brief(lvl, ysel, xsel, angles)
-        pieces.append(torch.cat([
-            torch.stack([top_resp, xsel.to(torch.float32),
-                         ysel.to(torch.float32), valid.to(torch.float32),
-                         angles], dim=-1),
-            desc.to(torch.float32)], dim=-1))
-    if not pieces:
-        return torch.zeros((planes.shape[0], 0, _ROW), dtype=torch.float32,
-                           device=planes.device)
-    return torch.cat(pieces, dim=1)
+        angles = _angles(plane, ysel, xsel, self.geom)
+        desc = _brief(plane, ysel, xsel, angles, self.geom)
+        rows = torch.stack([resp, xsel.to(torch.float32),
+                            ysel.to(torch.float32), angles,
+                            self.level.expand_as(resp)], dim=-1)
+        return rows, desc, valid
+
+
+def _top_k(cand, k: int):
+    """The ``k`` best of each row of ``cand``, as ``lax.top_k`` orders
+    them: descending, the lower flat index first on ties -> (responses,
+    flat indices)."""
+    resp, idx = torch.sort(cand, dim=-1, descending=True, stable=True)
+    return resp[:, :k], idx[:, :k]
+
+
+def _orb_device(planes, n_levels, scale_factor, thr0, ks, margins, harris):
+    """Device ORB of a u8 ``[B, H, W]`` stack -> (f32 ``[B, K, 5]``
+    keypoint rows, u8 ``[B, K, 32]`` descriptors, bool ``[B, K]``
+    validity), K = sum(ks); every value of a row but the response and the
+    angle is an integer, f32-exact. The kept levels run together, laid
+    in one plane (``_Atlas``)."""
+    global LEVELS
+    t0 = span_start()
+    b, dev = planes.shape[0], planes.device
+    pyr = ImagePyramid.build(planes, n_levels, scale_factor, 1.6)
+    if not any(ks):
+        return (torch.zeros((b, 0, len(KEYPOINT_FIELDS)), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((b, 0, 32), dtype=torch.uint8, device=dev),
+                torch.zeros((b, 0), dtype=torch.bool, device=dev))
+    thresholds = tuple(max(5, int(thr0 * (0.9 ** lv)))
+                       for lv in range(n_levels))
+    atlas = cached(_Atlas, tuple(tuple(lvl.shape[-2:]) for lvl in pyr.levels),
+                   ks, margins, thresholds, dev)
+    plane = atlas.paste(pyr.levels)
+    t1 = t0 and RECORDER.add("orb.pyramid", t0)
+    cand = atlas.candidates(plane, harris)
+    t2 = t1 and RECORDER.add("orb.detect", t1)
+    resp, idx = atlas.select(cand)
+    t3 = t2 and RECORDER.add("orb.select", t2)
+    out = atlas.describe(plane, resp, idx)
+    if t0:
+        RECORDER.add("orb", t0, RECORDER.add("orb.describe", t3))
+    if dev.type == "cuda":
+        with COUNT_LOCK:
+            LEVELS += len(atlas.kept)
+    return out
 
 
 # -- the host oracle (copied from the JAX package) ---------------------------
