@@ -153,15 +153,22 @@ Phases (any failure raises and exits non-zero):
 24. BASELINE config 5 (bench.py:556-680): Orb().detect_and_compute_batch
    of 8 images of 512^2 (image 0, its view rotated by 0.2 rad, 6 more),
    with the launch counts zeroed just before and read just after (K4
-   once, K1 n_levels - 1 = 7 times: one pyramid for the stack), a
+   once, K1 n_levels - 1 = 7 times: one pyramid for the stack; ORB's
+   detect kernel once: one atlas of the kept levels), a
    cross-checked BruteForceMatcher of images 0 and 1, HoughTransform(256)
    of Image.sobel() with find_lines(threshold=120), 50 lines and 50
    circles on a Canvas; ORB of images 0 and 1, the matches, Sobel, the
    accumulator and the canvas equal to the same calls on the CPU;
 25. each stage of configs 4 and 5 timed with CUDA events and the host
    clock, then one update split into upload, statistics, host SVD, map
-   and D2H, and one ORB batch into pyramid, FAST + NMS, Harris, top-k
-   and the whole device path with its D2H.
+   and D2H, and one ORB batch into pyramid and atlas, the detect kernel
+   (FAST, NMS and Harris) with the plain route's detect beside it, the
+   top-k sorts and the whole device path with its D2H;
+25b. ORB's detect kernel at the orb_stereo cell's shape (8 frames of
+   376 x 1241, ORB-SLAM2's KITTI settings, their 8-level atlas) equal bit
+   for bit to its plain route, with Harris's response and with the FAST
+   score, then timed (plain, kernel, kernel, plain by CUDA events, the
+   kernel's profiler device time) beside its bound.
 26. the tenth slice's device paths on the card, each output on the card
    and equal to the same call on the CPU: ImageBatch.apply_colormap of
    [16, 1024, 1024, 3] with each of the five maps at the auto range (image
@@ -243,7 +250,8 @@ Phases (any failure raises and exits non-zero):
    K4 launched (K3p once); the bench's lines are printed and its launches
    join the kernels line.
 The last two lines are a JSON summary of the kernels (K3's with the
-launches of its values route, ``values``; each with its
+launches of its values route, ``values``; the detect kernel's, DET, with
+those of phases 24, 25b and 35; each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
 counted at CBRTF_OPS and POWF_OPS) and the device line.
@@ -259,8 +267,8 @@ import time
 import numpy as np
 import torch
 
-from zignal_tpu_torch._bounds import CBRTF_OPS, F32_OPS_S, hist_bound, \
-    k1_bound, k2_bound, k3_bound, k3p_bound, k4_bound, lut_bound
+from zignal_tpu_torch._bounds import CBRTF_OPS, F32_OPS_S, detect_bound, \
+    hist_bound, k1_bound, k2_bound, k3_bound, k3p_bound, k4_bound, lut_bound
 from zignal_tpu_torch.bench import CHAIN_UNIT, FDM_SHARE, OKLAB_TOL, \
     cast_target, synth_photo
 from zignal_tpu_torch.bench import SPACES as BENCH_CHAIN
@@ -1748,9 +1756,11 @@ def _config4(card):
 
 def _config5(card):
     """Phase 24: BASELINE config 5, ORB + matching + Hough + Canvas, on
-    the card. Returns (K1, K4) launches and what phase 25 times."""
+    the card. Returns the (K1, K4, detect kernel) launches and what
+    phase 25 times."""
     from zignal_tpu_torch import Canvas, Image
     from zignal_tpu_torch.features import BruteForceMatcher, Orb
+    from zignal_tpu_torch.ops import orb_detect
     from zignal_tpu_torch.ops.hough import HoughTransform
 
     n, b = CONFIG5["side"], CONFIG5["batch"]
@@ -1763,17 +1773,19 @@ def _config5(card):
     torch.cuda.synchronize()
     for m in _counted_modules():
         m.LAUNCHES = 0
-    since = _streamed()
+    since, det = _streamed(), orb_detect.LAUNCHES
     results = orb.detect_and_compute_batch(corpus)
     torch.cuda.synchronize()
     k1, _, _, k4 = _counts()
+    det = orb_detect.LAUNCHES - det
     _keep_streamed("24", since)
-    want = (orb.n_levels - 1, 1)
+    want = (orb.n_levels - 1, 1, 1)
     print(f"phase 24 Orb().detect_and_compute_batch of {b} {n}^2 images: "
-          f"K1 {k1} launches, K4 {k4} (want {want[0]}, {want[1]}); "
+          f"K1 {k1} launches, K4 {k4}, DET {det} (want {want}); "
           f"keypoints {[len(r[0]) for r in results]}")
-    if (k1, k4) != want or _counts()[1:3] != (0, 0):
-        raise AssertionError(f"the ORB batch launched {_counts()}")
+    if (k1, k4, det) != want or _counts()[1:3] != (0, 0):
+        raise AssertionError(f"the ORB batch launched {_counts()}, DET "
+                             f"{det}")
     matcher = BruteForceMatcher(cross_check=True, device="cuda")
     matches = matcher.match(results[0][1], results[1][1])
     edges = img.sobel()
@@ -1823,8 +1835,8 @@ def _config5(card):
     print("phase 24: ORB of images 0 and 1 (keypoints, angles, "
           "descriptors), the matches, Sobel, the Hough accumulator and "
           "the canvas equal the CPU")
-    return (k1, k4), (orb, corpus, results, matcher, img, edges, hough,
-                      acc, draw)
+    return (k1, k4, det), (orb, corpus, results, matcher, img, edges,
+                           hough, acc, draw)
 
 
 def _config_times(card, c4, c5):
@@ -1885,42 +1897,107 @@ def _config_times(card, c4, c5):
     # where a config-5 ORB batch goes
     planes = torch.stack([orb_mod.plane_of(im, None) for im in corpus])
     h, w = planes.shape[-2:]
-    ks, _ = orb._fused_params(h, w)
-    pyr = [None]
+    ks, margins = orb._fused_params(h, w)
 
-    def level_stage(fn):
-        def run(_):
-            out = []
-            for level, lvl in enumerate(pyr[0].levels):
-                if ks[level]:
-                    out.append(fn(level, lvl))
-            return out
-        return run
+    def paste(_):
+        pyr = ImagePyramid.build(planes, orb.n_levels, orb.scale_factor, 1.6)
+        atlas = orb_mod._atlas(pyr.levels, orb.fast_threshold, ks, margins)
+        return atlas, atlas.paste(pyr.levels)
 
     split = _stage_ms([
-        ("pyramid (K4 + K1)", lambda _: pyr.__setitem__(0, ImagePyramid.build(
-            planes, orb.n_levels, orb.scale_factor, 1.6))),
-        ("FAST + NMS", level_stage(lambda lv, lvl: orb_mod._nms_device(
-            orb_mod.fast_response_map(lvl, max(5, int(
-                orb.fast_threshold * 0.9 ** lv)), 9)))),
-        ("Harris", level_stage(lambda lv, lvl: orb_mod._harris_map(lvl))),
-        ("top-k sort", level_stage(lambda lv, lvl: torch.sort(
-            orb_mod._harris_map(lvl).reshape(lvl.shape[0], -1), dim=-1,
-            descending=True, stable=True))),
+        ("pyramid (K4 + K1) and atlas", paste),
+        ("detect kernel (FAST, NMS, Harris)",
+         lambda a: (*a, a[0].candidates(a[1], True))),
+        ("detect plain route",
+         lambda a: (*a[:2], a[0].candidates_reference(a[1], True))),
+        ("top-k sorts", lambda a: a[0].select(a[2])),
         ("whole device path + D2H", lambda _: [
             t.cpu() for t in orb.detect_and_compute_tensors(planes)]),
     ])
     print(f"[{card}] phase 25 config 5 ORB split (B={len(corpus)}; the "
-          f"top-k row includes its Harris map again): " + ", ".join(
-              f"{k} {v:.3f} ms" for k, v in split))
+          f"plain route's detect beside the kernel's, not in the path): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split))
+
+
+# ORB's detect kernel at the orb_stereo cell's shape (ORB-SLAM2's KITTI
+# settings): B frames of rows x cols
+DETECT = dict(batch=8, rows=376, cols=1241, n_features=2000,
+              edge_threshold=31)
+
+
+def _detect_phase(card):
+    """Phase 25b: ORB's detect kernel (csrc/orb_detect.cu) at the
+    orb_stereo cell's shape against its plain route on the card (equal
+    bit for bit with Harris's response and with the FAST score), then
+    timed: plain, kernel, kernel, plain by CUDA events and the kernel's
+    profiler device time, beside its bound. Returns the kernels line's
+    entry; its launches are the two checked calls'."""
+    from zignal_tpu_torch.features import Orb
+    from zignal_tpu_torch.features import orb as orb_mod
+    from zignal_tpu_torch.ops import orb_detect
+    from zignal_tpu_torch.ops.pyramid import ImagePyramid
+
+    b, h, w = DETECT["batch"], DETECT["rows"], DETECT["cols"]
+    orb = Orb(n_features=DETECT["n_features"],
+              edge_threshold=DETECT["edge_threshold"])
+    gen = torch.Generator().manual_seed(86)
+    x = torch.randint(0, 256, (b, h, w), generator=gen, dtype=torch.uint8)
+    x[:, 100:250, 300:900] //= 4  # a darker block: structure beside grain
+    pyr = ImagePyramid.build(x.cuda(), orb.n_levels, orb.scale_factor, 1.6)
+    atlas = orb_mod._atlas(pyr.levels, orb.fast_threshold,
+                           *orb._fused_params(h, w))
+    plane = atlas.paste(pyr.levels)
+    before = orb_detect.LAUNCHES
+    for harris in (True, False):
+        got = atlas.candidates(plane, harris)
+        want = atlas.candidates_reference(plane, harris)
+        equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        kept = int(torch.isfinite(want).sum())
+        print(f"phase 25b detect kernel {list(plane.shape)} "
+              f"harris={harris}: {kept} of {want.numel()} candidates kept, "
+              f"{'equal to the plain route bit for bit' if equal else 'FAIL'}")
+        if not equal:
+            raise AssertionError("the detect kernel differs from the plain "
+                                 "route")
+    torch.cuda.synchronize()
+    launches = orb_detect.LAUNCHES - before
+    kern = lambda: atlas.candidates(plane, True)  # noqa: E731
+    plain = lambda: atlas.candidates_reference(plane, True)  # noqa: E731
+    p1, k1, k2, p2 = _time_ms(plain, 5), _time_ms(kern), _time_ms(kern), \
+        _time_ms(plain, 5)
+    device = _device_ms(kern, "detect_kernel")
+    bound_ms, bound_by = detect_bound(b, *atlas.shape, atlas.n)
+    print(f"[{card}] phase 25b detect kernel B={b} of {h}x{w} (atlas "
+          f"{atlas.shape[0]}x{atlas.shape[1]}, {atlas.n} candidates a "
+          f"frame): {k1:.4f} / {k2:.4f} ms (CUDA events), {device:.4f} ms "
+          f"(profiler, device), {100 * bound_ms / device:.1f} % of its "
+          f"bound {bound_ms:.4f} ms ({bound_by}); plain route {p1:.3f} / "
+          f"{p2:.3f} ms")
+    return {
+        "name": "orb_detect",
+        "route": "cuda",
+        "source": "zignal_tpu_torch/csrc/orb_detect.cu",
+        "replaces": None,  # the JAX package's FAST, NMS and Harris are jnp
+        "launches": launches,
+        "max_abs_err": 0,
+        "ms": min(k1, k2),
+        "device_ms": device,
+        "plain_ms": min(p1, p2),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no one PyTorch call runs FAST
+    }
 
 
 def _config_phases(card):
-    """Phases 23-25. Returns K1's and K4's launches of phase 24."""
+    """Phases 23-25b. Returns K1's, K4's and the detect kernel's launches
+    of phase 24 and the detect kernel's entry of the kernels line."""
     c4 = _config4(card)
     launches, c5 = _config5(card)
     _config_times(card, c4, c5)
-    return launches
+    det = _detect_phase(card)
+    det["launches"] += launches[2]
+    return launches[:2], det
 
 
 # -- colormaps, flood fill, Perlin noise, QR, GIF and the terminal ----------
@@ -2991,7 +3068,7 @@ def _bench_phases(card) -> dict:
             or any(v is None for v in values.values()):
         raise AssertionError(f"phase 35: bad summary {out[-1]}")
     launches = {k: sum(x["launches"][k] for x in configs)
-                for k in ("K1", "K2", "K3", "K3p", "K4")}
+                for k in ("K1", "K2", "K3", "K3p", "K4", "DET")}
     K1_STREAMED["35"] += sum(x["k1_streamed"] for x in configs)
     if min(launches.values()) < 1 or launches["K3p"] != 1:
         raise AssertionError(f"phase 35: the bench launched {launches}")
@@ -3565,7 +3642,7 @@ def main() -> int:
     k4_s8 = _geometry_phases(card, rng)
     print(f"phases 20-22: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    k1_s9, k4_s9 = _config_phases(card)
+    (k1_s9, k4_s9), det = _config_phases(card)
     print(f"phases 23-25: {time.perf_counter() - t0:.1f} s")
     k1_s10 = _slice10_phases(card)
     k1_s11, k4_s11 = _cli_phases(card, corpus, config1)
@@ -3582,7 +3659,8 @@ def main() -> int:
     k3p["launches"] += s14["K3p"]
     k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9 + k4_s11 + \
         k4_s12 + s14["K4"]
-    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4, eqk]}))
+    det["launches"] += s14["DET"]
+    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4, eqk, det]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -48,7 +48,10 @@ from zignal_tpu_torch.features import fast as pfast
 from zignal_tpu_torch.features import orb as porb
 from zignal_tpu_torch.features._orb_pattern import ORB_PATTERN
 from zignal_tpu_torch.features.matcher import distance_matrix, match_tensors
+from zignal_tpu_torch.ops import orb_detect
 from zignal_tpu_torch.ops.pyramid import ImagePyramid
+
+import _orb_atlas_cases as oc
 
 CPU = "cpu"
 ANGLE_DEG = 1e-3
@@ -512,6 +515,151 @@ def test_orb_stereo_request_is_held_to_its_reference():
         assert 0 < checks["angle_max_gap_deg"] <= cfg["limits"][
             "angle_max_gap_deg"]
         assert int((out[3][0] >= 0).sum()) > 0
+
+
+# csrc/orb_detect.cu's schedule: its tile, FAST's ring, the NMS's reach
+_TH, _TW = orb_detect.TILE
+_RING, _NEAR = 3, 4
+_HALO = _RING + _NEAR
+
+
+def _emulate_detect(plane, levels, n, harris):
+    """The detect kernel transcribed in numpy, block by block: the levels
+    that meet the tile and its NMS halo; the u8 tile staged with a 7-px
+    halo, 0 off the plane; FAST over the tile and a 4-px halo on each
+    level's 3-px interior; the NMS over the 68 neighbours; Harris from
+    integer window sums on the kept pixels of each level's 4-px interior;
+    each level's pixels written at their place in level order. A
+    candidate no block writes stays NaN."""
+    b, hh, ww = plane.shape
+    out = np.full((b, n), np.nan, np.float32)
+    f32, f64 = np.float32, np.float64
+    sr, sc = _TH + 2 * _NEAR, _TW + 2 * _NEAR
+    for z, y0, x0 in np.ndindex(b, -(-hh // _TH), -(-ww // _TW)):
+        y0, x0 = y0 * _TH, x0 * _TW
+
+        def meets(pad):
+            return [lv for lv in levels if lv[0] < y0 + _TH + pad
+                    and lv[0] + lv[2] > y0 - pad and lv[1] < x0 + _TW + pad
+                    and lv[1] + lv[3] > x0 - pad]
+
+        if not meets(0):
+            continue
+        src = np.zeros((_TH + 2 * _HALO, _TW + 2 * _HALO), np.int32)
+        ys, xs = max(y0 - _HALO, 0), max(x0 - _HALO, 0)
+        part = plane[z, ys:y0 + _TH + _HALO, xs:x0 + _TW + _HALO]
+        src[ys - (y0 - _HALO):ys - (y0 - _HALO) + part.shape[0],
+            xs - (x0 - _HALO):xs - (x0 - _HALO) + part.shape[1]] = part
+        gy, gx = np.mgrid[y0 - _NEAR:y0 + _TH + _NEAR,
+                          x0 - _NEAR:x0 + _TW + _NEAR]
+        thr = np.full(gy.shape, -1)
+        for r, c, h, w, t, _ in meets(_NEAR):
+            thr[(gy >= r + 3) & (gy < r + h - 3) & (gx >= c + 3)
+                & (gx < c + w - 3)] = t
+        v = src[_RING:_RING + sr, _RING:_RING + sc]
+        hi, lo = np.minimum(v + thr, 255), np.maximum(v - thr, 0)
+        bright = dark = score = 0
+        for k, (dx, dy) in enumerate(pfast.CIRCLE_OFFSETS):
+            tap = src[_RING + dy:_RING + dy + sr, _RING + dx:_RING + dx + sc]
+            bright = bright | (tap > hi).astype(np.int64) << k
+            dark = dark | (tap < lo).astype(np.int64) << k
+            d = np.abs(tap - v)
+            score = score + np.where(d > thr, d, 0)
+
+        def run9(m):
+            r = m | m << 16
+            for step in (1, 2, 4, 1):
+                r = r & (r >> step)
+            return r != 0
+
+        score = np.where((thr >= 0) & (run9(bright) | run9(dark)), score, 0)
+        s = score[_NEAR:_NEAR + _TH, _NEAR:_NEAR + _TW]
+        best = np.zeros_like(s)
+        for dx, dy in pfast._NEAR:
+            best = np.maximum(best, score[_NEAR + dy:_NEAR + dy + _TH,
+                                          _NEAR + dx:_NEAR + dx + _TW])
+        keep = (s > 0) & (s >= best)
+        ddx = src[1:-1, 2:] - src[1:-1, :-2]
+        ddy = src[2:, 1:-1] - src[:-2, 1:-1]
+        sums = []
+        for prod in (ddx * ddx, ddy * ddy, ddx * ddy):
+            o = _HALO - 1 - 3
+            sums.append(sum(prod[o + i:o + i + _TH, o + j:o + j + _TW]
+                            for i in range(7) for j in range(7)))
+        ixx, iyy, ixy = (f32(x) * f32(0.25) for x in sums)
+        det = f32(f64(ixx) * f64(iyy) + f64(-(ixy * ixy)))
+        trace = ixx + iyy
+        resp = f32(f64(-(f32(0.04) * trace)) * f64(trace) + f64(det))
+        ty, tx = np.mgrid[y0:y0 + _TH, x0:x0 + _TW]
+        for r, c, h, w, _, start in meets(0):
+            inside = (ty >= r) & (ty < r + h) & (tx >= c) & (tx < c + w)
+            deep = (ty >= r + 4) & (ty < r + h - 4) & (tx >= c + 4) & \
+                (tx < c + w - 4)
+            value = np.where(deep, resp, f32(0)) if harris else \
+                s.astype(np.float32)
+            value = np.where(keep, value, -np.inf).astype(np.float32)
+            at = start + (ty - r) * w + (tx - c)
+            out[z, at[inside]] = value[inside]
+    return out
+
+
+@pytest.mark.parametrize("harris", [True, False])
+@pytest.mark.parametrize("name", oc.SMALL)
+def test_detect_kernel_schedule_equals_the_plain_route(name, harris):
+    """The detect kernel's schedule, transcribed in numpy, writes every
+    candidate and gives the plain route's, bit for bit, on every case of
+    ``_orb_atlas_cases`` small enough for the CPU: empty shelf space,
+    one level, a flat frame, pixels planted at a level's edges and next
+    to another level, arcs of 9 taps wrapping past tap 15."""
+    atlas, plane = oc.case(name, CPU)
+    want = atlas.candidates(plane, harris).numpy()
+    got = _emulate_detect(plane.numpy(), atlas.levels, atlas.n, harris)
+    assert not np.isnan(got).any()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if name == "flat":
+        assert np.isneginf(want).all()
+    else:
+        assert np.isfinite(want).sum() > 0
+
+
+def test_detect_on_the_cpu_takes_the_plain_route_and_the_kernel_checks():
+    """A CPU plane runs the plain route (no launch); the kernel's wrapper
+    raises on a plane it does not take, before it looks for a card."""
+    atlas, plane = oc.case("planted", CPU)
+    before = orb_detect.LAUNCHES
+    assert torch.equal(atlas.candidates(plane, True),
+                       atlas.candidates_reference(plane, True))
+    frames = torch.from_numpy(_stack(31))
+    Orb(n_features=300).detect_and_compute_tensors(frames)
+    assert orb_detect.LAUNCHES == before
+    args = (atlas.levels, atlas.n, True)
+    with pytest.raises(ValueError, match="uint8"):
+        orb_detect.candidates(plane.to(torch.int32), *args)
+    with pytest.raises(ValueError, match="uint8"):
+        orb_detect.candidates(plane[0], *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        orb_detect.candidates(plane.transpose(1, 2), *args)
+    with pytest.raises(TypeError):
+        orb_detect.candidates(plane.numpy(), *args)
+    with pytest.raises(ValueError, match="no kernel"):
+        orb_detect.candidates(plane, *args)
+    assert orb_detect.LAUNCHES == before
+
+
+def test_detect_plan_refuses_tables_the_kernel_cannot_take():
+    """The plan checks the level table against the plane and the
+    candidates: a level past the plane, past the candidates, or more
+    levels than the parameter struct holds."""
+    atlas, _ = oc.case("planted", CPU)
+    (h, w), lv = atlas.shape, atlas.levels
+    plan = orb_detect._DetectPlan(2, h, w, atlas.n, lv)
+    assert len(plan.pack().raw) == 4 * (len(orb_detect._FIELDS)
+                                        + 6 * orb_detect.MAX_LEVELS)
+    bad = ((h - 10, 0, 11, 5, 20, 0),)
+    for table, n in ((bad, atlas.n), (lv, atlas.n - 1),
+                     (lv * 5, atlas.n * 5), ((), 0)):
+        with pytest.raises(ValueError):
+            orb_detect._DetectPlan(2, h, w, n, table)
 
 
 @pytest.mark.parametrize("case", ["line", "l_shape", "noise"])

@@ -21,11 +21,15 @@ from zignal_tpu_torch.ops import color_chain as cc
 from zignal_tpu_torch.ops import enhancement as en
 from zignal_tpu_torch.ops import filter_chain as fc
 from zignal_tpu_torch.ops import fused_pipeline as fp
+from zignal_tpu_torch.ops import orb_detect as od
 from zignal_tpu_torch.ops import separable_conv as sc
 from zignal_tpu_torch.ops import tables
 from zignal_tpu_torch.ops.convolution import convolve_separable, \
     convolve_separable_reference
+from zignal_tpu_torch.features import Orb
 from zignal_tpu_torch.ops.interpolation import resize
+
+import _orb_atlas_cases as oc
 
 pytestmark = pytest.mark.cuda
 
@@ -529,6 +533,8 @@ PINS = [
     ("K4", (1, 64, 64, 3, 30.0, "REPLICATE"), ("band", 69632),
      "cd64f938a267ab0a"),
     ("K4", (16, 1024, 1024, 3, 2.0, "MIRROR"), (64, 32), "bd7926ac4345c55f"),
+    ("DET", (8, 376, 1241, 2000, 8, 31), (20, 43, 8), "0ddca85afc6c97c1"),
+    ("DET", (2, 70, 90, 100, 1, 31), (2, 3, 1), "4386706e31aa3893"),
 ]
 
 
@@ -560,6 +566,14 @@ def _pinned(kernel, case):
             *(p.pack(thr, vi, vo).raw for vi, vo in
               ((False, False), (True, True), (True, False))),
             p.ty, p.tx, p.sty, p.stx)
+    if kernel == "DET":
+        b, h, w, n_features, n_levels, edge = case
+        atlas = oc.atlas_of(Orb(n_features=n_features, n_levels=n_levels,
+                                edge_threshold=edge), h, w, "cpu")
+        p = od._DetectPlan(b, *atlas.shape, atlas.n, atlas.levels)
+        return (-(-p.fields["W"] // od.TILE[1]),
+                -(-p.fields["H"] // od.TILE[0]),
+                p.fields["levels"]), _digest(p.pack().raw)
     if kernel == "K3":
         codes = cc.compile_chain(case) if case else ()
         return codes, _digest(cc.chain_params(codes).raw)
@@ -1257,13 +1271,34 @@ def test_orb_batch_launches_the_pyramid_kernels_once_a_call(cuda):
         assert all(np.array_equal(a.bits, b.bits) for a, b in zip(dg, dw))
 
 
+@pytest.mark.parametrize("harris", [True, False])
+@pytest.mark.parametrize("name", oc.CASES)
+def test_detect_kernel_equals_the_plain_route(cuda, name, harris):
+    """ORB's detect kernel (csrc/orb_detect.cu, one launch a call) gives
+    the plain route's candidates bit for bit, -inf included, on every
+    case of tests/_orb_atlas_cases.py: the KITTI atlas at B=1 and B=8,
+    empty shelf space, one level, a flat frame, pixels planted at a
+    level's edges and next to another level, arcs of 9 taps wrapping past
+    tap 15."""
+    atlas, plane = oc.case(name, cuda)
+    before = od.LAUNCHES
+    got = atlas.candidates(plane, harris)
+    torch.cuda.synchronize()
+    assert od.LAUNCHES == before + 1
+    want = atlas.candidates_reference(plane, harris)
+    assert got.shape == want.shape == (plane.shape[0], atlas.n)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isfinite(want).any()) == (name != "flat")
+
+
 def test_orb_stereo_request_at_kitti_size_waits_for_nothing(cuda):
     """One stereo request of 8 frames of 1241 x 376 (ORB at 2000 features,
     then each left frame matched with its right) after a warm-up call
     issues no host-device synchronization: it raises nothing under
     ``set_sync_debug_mode("error")``. Its keypoints, descriptors and
     matches equal the same request on the CPU; the counters count its
-    8 levels and 4 pairs."""
+    8 levels, 4 pairs and one launch of the detect kernel."""
     from zignal_tpu_torch.features import Orb, matcher, orb
 
     gen = torch.Generator().manual_seed(86)
@@ -1280,14 +1315,15 @@ def test_orb_stereo_request_at_kitti_size_waits_for_nothing(cuda):
     card = x.to(cuda)
     request(card)
     torch.cuda.synchronize()
-    levels, pairs = orb.LEVELS, matcher.PAIRS
+    levels, pairs, detects = orb.LEVELS, matcher.PAIRS, od.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = request(card)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert (orb.LEVELS - levels, matcher.PAIRS - pairs) == (8, 4)
+    assert (orb.LEVELS - levels, matcher.PAIRS - pairs,
+            od.LAUNCHES - detects) == (8, 4, 1)
     want = request(x)
     for a, b in zip(got[:3] + got[3], want[:3] + want[3]):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

@@ -101,3 +101,13 @@ def lut_bound(values: int):
     tables between the two passes read 1 KB of counts an image and
     channel and are not counted."""
     return bound(2 * values, 3 * values)
+
+
+def detect_bound(b: int, h: int, w: int, n: int):
+    """ORB's detect kernel on ``b`` atlases of h x w u8 that hold ``n``
+    level pixels each: the atlas read and the f32 candidates written;
+    per level pixel FAST's 48 ops (16 compares each way and the arc test,
+    as benchmarks/roofline_features.py counts them), Harris's 25 and the
+    NMS's 18 (its disc's maxima as three running row maxima, then a
+    column of 9)."""
+    return bound(b * h * w + 4 * b * n, b * n * (48 + 25 + 18))

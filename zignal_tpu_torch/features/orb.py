@@ -3,12 +3,13 @@ rotated BRIEF descriptors from the learned pattern
 (reference: src/features/orb.zig), the counterpart of
 zignal_tpu/features/orb.py.
 
-The device path (``use_device=True``) is plain torch on the planes'
-device, batched over a ``[B, H, W]`` stack: the pyramid (one u8 Gaussian
-blur of the stack, then one bilinear resize a level: on a card the
-separable and fused resize kernels), FAST, its non-maximum suppression,
-the Harris map, the top-k, the intensity-centroid angle and the rotated
-BRIEF. ``Orb.detect_and_compute_tensors`` returns its keypoints,
+The device path (``use_device=True``) runs on the planes' device,
+batched over a ``[B, H, W]`` stack: the pyramid (one u8 Gaussian blur of
+the stack, then one bilinear resize a level: on a card the separable and
+fused resize kernels), FAST, its non-maximum suppression and the Harris
+map (on a card one kernel, ``ops/orb_detect``; elsewhere plain torch),
+then, in plain torch, the top-k, the intensity-centroid angle and the
+rotated BRIEF. ``Orb.detect_and_compute_tensors`` returns its keypoints,
 descriptors and validity mask as tensors on the planes' device; the list
 entries copy them to the host once and unpack them. Its constants live on
 each device once (``ops/_build.cached``), so a request on a card after the
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from ..image import plane_of
+from ..ops import orb_detect
 from ..ops._build import COUNT_LOCK, cached
 from ..ops.fma import fma
 from ..ops.pyramid import ImagePyramid
@@ -457,10 +459,13 @@ class _Atlas:
     its own level (FAST's ring and Harris's window from 3 and 4 pixels
     inside it), and the NMS reads at most one pixel past a level, where
     another level's outer row or column or an empty place scores 0.
-    Holds on ``device``: each pixel's FAST threshold, the masks of each
-    level's FAST (3 px in) and Harris (4 px in) interiors, the levels'
-    pixels in level order (row-major within a level) and, for each row
-    of the output, its level, place and margin."""
+    Holds the level table of the detect kernel (``levels``: each kept
+    level's row, column, height, width, FAST threshold and first
+    candidate; ``n`` candidates in all) and, on ``device``, for each row
+    of the output, its level, place and margin. The plain detect stage's
+    planes (each pixel's FAST threshold, the masks of each level's FAST
+    and Harris interiors, the levels' pixels in level order) are built at
+    its first call."""
 
     def __init__(self, shapes, ks, margins, thresholds, device):
         kept = [lv for lv in range(len(shapes)) if ks[lv]]
@@ -476,33 +481,42 @@ class _Atlas:
             places[lv] = (shelf[0], shelf[2])
             shelf[2] += w
         height = sum(s[1] for s in shelves)
-        thr = np.zeros((height, width), np.int32)
-        fast_in = np.zeros((height, width), bool)
-        harris_in = np.zeros((height, width), bool)
-        order, rows, self.segments, start = [], [], [], 0
+        levels, rows, self.segments, start = [], [], [], 0
         for lv in kept:
             (h, w), (r, c) = shapes[lv], places[lv]
-            thr[r:r + h, c:c + w] = thresholds[lv]
-            fast_in[r + 3:r + h - 3, c + 3:c + w - 3] = True
-            harris_in[r + 4:r + h - 4, c + 4:c + w - 4] = True
-            order.append(((r + np.arange(h))[:, None] * width
-                          + c + np.arange(w)[None, :]).ravel())
+            levels.append((r, c, h, w, thresholds[lv], start))
             k = min(ks[lv], h * w)
             self.segments.append((start, start + h * w, k))
             rows.append(np.array([[lv, r, c, h, w]] * k, np.int64))
             start += h * w
         rows = np.concatenate(rows)
         self.kept, self.places, self.shape = kept, places, (height, width)
+        self.levels, self.n, self.device = tuple(levels), start, device
+        self._plain = None
+        self.level = _upload(rows[:, 0].astype(np.float32), device)
+        self.geom = tuple(_upload(rows[:, i:i + 1], device)
+                          for i in (1, 2, 3, 4))
+        self.margin = _upload(np.array([margins[lv] for lv in rows[:, 0]]),
+                              device)
 
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-        self.thr, self.fast_in, self.harris_in = up(thr), up(fast_in), \
-            up(harris_in)
-        self.order = up(np.concatenate(order))
-        self.level = up(rows[:, 0].astype(np.float32))
-        self.geom = tuple(up(rows[:, i:i + 1]) for i in (1, 2, 3, 4))
-        self.margin = up(np.array([margins[lv] for lv in rows[:, 0]]))
+    def _plain_planes(self):
+        """(threshold, FAST interior, Harris interior, order) of the plain
+        detect stage, built on the first call."""
+        if self._plain is None:
+            height, width = self.shape
+            thr = np.zeros((height, width), np.int32)
+            fast_in = np.zeros((height, width), bool)
+            harris_in = np.zeros((height, width), bool)
+            order = []
+            for r, c, h, w, t, _ in self.levels:
+                thr[r:r + h, c:c + w] = t
+                fast_in[r + 3:r + h - 3, c + 3:c + w - 3] = True
+                harris_in[r + 4:r + h - 4, c + 4:c + w - 4] = True
+                order.append(((r + np.arange(h))[:, None] * width
+                              + c + np.arange(w)[None, :]).ravel())
+            self._plain = tuple(_upload(a, self.device) for a in (
+                thr, fast_in, harris_in, np.concatenate(order)))
+        return self._plain
 
     def paste(self, levels):
         """u8 ``[B, H, W]``: each kept level of ``levels`` in its place."""
@@ -517,14 +531,21 @@ class _Atlas:
     def candidates(self, plane, harris: bool):
         """f32 ``[B, N]``, the levels' pixels in level order: each FAST
         corner that survives the NMS scored by its response, -inf
-        elsewhere."""
-        scores = torch.where(self.fast_in, fast_response_map(plane, self.thr,
-                                                             9), 0)
+        elsewhere. A CUDA plane runs one kernel (``ops/orb_detect``), any
+        other the plain version."""
+        if plane.device.type == "cuda":
+            return orb_detect.candidates(plane, self.levels, self.n, harris)
+        return self.candidates_reference(plane, harris)
+
+    def candidates_reference(self, plane, harris: bool):
+        """``candidates`` as plain torch on the plane's device."""
+        thr, fast_in, harris_in, order = self._plain_planes()
+        scores = torch.where(fast_in, fast_response_map(plane, thr, 9), 0)
         keep = _nms_device(scores) & (scores > 0)
-        resp = torch.where(self.harris_in, _harris_map(plane), 0.0) \
+        resp = torch.where(harris_in, _harris_map(plane), 0.0) \
             if harris else scores.to(torch.float32)
         cand = torch.where(keep, resp, -torch.inf)
-        return cand.reshape(cand.shape[0], -1)[:, self.order]
+        return cand.reshape(cand.shape[0], -1)[:, order]
 
     def select(self, cand):
         """Each level's top-k: (responses, flat indices on the level),
@@ -549,12 +570,26 @@ class _Atlas:
         return rows, desc, valid
 
 
+def _upload(a, device):
+    """A numpy array as a tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def _top_k(cand, k: int):
     """The ``k`` best of each row of ``cand``, as ``lax.top_k`` orders
     them: descending, the lower flat index first on ties -> (responses,
     flat indices)."""
     resp, idx = torch.sort(cand, dim=-1, descending=True, stable=True)
     return resp[:, :k], idx[:, :k]
+
+
+def _atlas(levels, thr0, ks, margins):
+    """The atlas (``_Atlas``, cached) of the pyramid ``levels``, FAST's
+    threshold ``max(5, int(thr0 * 0.9 ** level))`` on each."""
+    thresholds = tuple(max(5, int(thr0 * (0.9 ** lv)))
+                       for lv in range(len(levels)))
+    return cached(_Atlas, tuple(tuple(lvl.shape[-2:]) for lvl in levels), ks,
+                  margins, thresholds, levels[0].device)
 
 
 def _orb_device(planes, n_levels, scale_factor, thr0, ks, margins, harris):
@@ -572,10 +607,7 @@ def _orb_device(planes, n_levels, scale_factor, thr0, ks, margins, harris):
                             device=dev),
                 torch.zeros((b, 0, 32), dtype=torch.uint8, device=dev),
                 torch.zeros((b, 0), dtype=torch.bool, device=dev))
-    thresholds = tuple(max(5, int(thr0 * (0.9 ** lv)))
-                       for lv in range(n_levels))
-    atlas = cached(_Atlas, tuple(tuple(lvl.shape[-2:]) for lvl in pyr.levels),
-                   ks, margins, thresholds, dev)
+    atlas = _atlas(pyr.levels, thr0, ks, margins)
     plane = atlas.paste(pyr.levels)
     t1 = t0 and RECORDER.add("orb.pyramid", t0)
     cand = atlas.candidates(plane, harris)

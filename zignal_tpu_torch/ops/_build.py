@@ -37,7 +37,8 @@ __all__ = ["load", "launch", "sm_count", "cached", "pack", "check_layout",
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / name for name in (
     "fused_resize_blur_oklab.cu", "fused_blur_sharpen_morph.cu",
-    "separable_u8.cu", "fused_color_chain_u8.cu", "equalize_u8.cu"))
+    "separable_u8.cu", "fused_color_chain_u8.cu", "equalize_u8.cu",
+    "orb_detect.cu"))
 _HEADERS = (_PKG / "csrc" / "tile_staging.cuh",)
 _BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the Oklab epilogue and the colour chain need IEEE
@@ -56,6 +57,9 @@ _LIB = None
 # (the loader's decode threads letterbox through K1), and an unguarded +=
 # after a ctypes call loses counts
 COUNT_LOCK = threading.Lock()
+# held around a build: threads that launch their first kernels at once
+# (the loader's decode threads) would each compile into the same objects
+_BUILD_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,7 +115,9 @@ def load():
     """The kernels' library, built on the first call."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(_compile()))
+        with _BUILD_LOCK:
+            path = _compile()
+        lib = ctypes.CDLL(str(path))
         _declare(lib, "zt_fused_resize_blur_oklab",
                  [_P, _P, _P, _P, _P, _P, _P,      # src dst ty tx sy sx lut
                   _P, _P])                         # params stream
@@ -147,6 +153,10 @@ def load():
         _declare(lib, "zt_lut_apply_u8",
                  [_P, _P, _P, _L, _L, _I, _P])     # src dst luts b n c
                                                    # stream
+        _declare(lib, "zt_orb_detect",
+                 [_P, _P, _I, _P, _P])             # src dst harris params
+                                                   # stream
+        _declare(lib, "zt_orb_detect_params_bytes", [])
         lib.zt_error_string.argtypes = [_I]
         lib.zt_error_string.restype = ctypes.c_char_p
         _LIB = lib
