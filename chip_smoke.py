@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ops            # cbrtf's and powf's costs
     python3 chip_smoke.py --profile        # phases 20 and 26, profiled
     python3 chip_smoke.py --trace DIR      # phase 34's calls, traced
+    python3 chip_smoke.py --lane           # phase 36 alone
 
 ``--times`` runs on the package found first on TREE (a checkout of another
 commit, e.g. the parent's ``git archive``) or on this one: K1 at B 16, 4
@@ -248,10 +249,21 @@ Phases (any failure raises and exits non-zero):
    with a positive value, a passed check and this card's name on each,
    a summary under 2000 bytes whose values hold all six, and K1, K2, K3,
    K4 launched (K3p once); the bench's lines are printed and its launches
-   join the kernels line.
+   join the kernels line;
+36. the lane_hough cell's request (8 road frames of 1241 x 376 from
+   benchmarks/sources/device_road.py): Canny and HoughTransform.lines_batch
+   on the card against the CPU route, bit for bit (edges, accumulators,
+   line rows, validity); the Canny front, hysteresis and vote kernels
+   each against its plain route on the card, the lines kernel against
+   find_lines' own on the host; a request's host waits after the first
+   (none, by torch's sync debug mode); the request's split by CUDA events
+   on the kernels and on the plain route, and each kernel's time against
+   its bound, the vote's from the request's own edges and votes
+   (``--lane`` runs this phase alone).
 The last two lines are a JSON summary of the kernels (K3's with the
 launches of its values route, ``values``; the detect kernel's, DET, with
-those of phases 24, 25b and 35; each with its
+those of phases 24, 25b and 35; the lane_hough kernels', with the
+launches of one request, its counters set to 0 before it; each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
 counted at CBRTF_OPS and POWF_OPS) and the device line.
@@ -268,7 +280,8 @@ import numpy as np
 import torch
 
 from zignal_tpu_torch._bounds import CBRTF_OPS, F32_OPS_S, detect_bound, \
-    hist_bound, k1_bound, k2_bound, k3_bound, k3p_bound, k4_bound, lut_bound
+    front_bound, hist_bound, hysteresis_bound, k1_bound, k2_bound, k3_bound, \
+    k3p_bound, k4_bound, lut_bound, vote_bound
 from zignal_tpu_torch.bench import CHAIN_UNIT, FDM_SHARE, OKLAB_TOL, \
     cast_target, synth_photo
 from zignal_tpu_torch.bench import SPACES as BENCH_CHAIN
@@ -3509,10 +3522,236 @@ def transcendental_rates() -> int:
     return 0
 
 
+LANE = dict(batch=8, rows=376, cols=1241, sigma=1.4, low=50.0, high=150.0,
+            size=1024, threshold=100, angle=5.0, radius=10.0, lines=32,
+            seed=2 ** 33 + 26)
+
+
+def _lane_request(x, hough):
+    """The lane_hough cell's request: Canny, then the Hough lines."""
+    from zignal_tpu_torch.ops import edges
+
+    e = edges.canny(x.to(torch.float32), LANE["sigma"], LANE["low"],
+                    LANE["high"])
+    return (e,) + hough.lines_batch(e, LANE["threshold"], LANE["angle"],
+                                    LANE["radius"], LANE["lines"])
+
+
+def _lane_stages(x, hough):
+    """The request's stages on the card's kernels one after another:
+    (name, fn of the previous output), as ``_stage_ms`` times them."""
+    from zignal_tpu_torch.ops import canny_front, hough_kernels
+    from zignal_tpu_torch.ops.hough import _device_tables, _tables
+    from zignal_tpu_torch.ops.hysteresis import hysteresis_u8
+
+    n = LANE["size"]
+    cos_j, sin_j, _ = _device_tables(n, x.device)
+    _, _, offset, even = _tables(n)
+
+    def front(_):
+        return canny_front.front(x.to(torch.float32), LANE["sigma"])
+
+    def hyst(f):
+        return hysteresis_u8(f[1], f[0], LANE["low"], LANE["high"])
+
+    def vote(e):
+        return hough_kernels.vote(e, n, cos_j, sin_j, offset, even)
+
+    def lines(acc):
+        return hough_kernels.lines(acc, LANE["threshold"], LANE["angle"],
+                                   LANE["radius"], LANE["lines"], even)
+
+    return [("front", front), ("hysteresis", hyst), ("vote", vote),
+            ("lines", lines)]
+
+
+def _plain_stages(x, hough):
+    """The same stages on the plain route, for comparison: on the card
+    smooth, gradients, NMS, the hysteresis growth, resize and vote; the
+    peaks and lines on the host (``find_lines``' own, which a CPU
+    accumulator takes), the copy there included."""
+    from zignal_tpu_torch.enums import BorderMode, Interpolation
+    from zignal_tpu_torch.ops import edges
+    from zignal_tpu_torch.ops.convolution import convolve_separable, \
+        gradient_magnitude, sobel_gradients
+    from zignal_tpu_torch.ops.hough import _vote
+    from zignal_tpu_torch.ops.interpolation import resize
+    from zignal_tpu_torch.ops.tables import gaussian_kernel
+
+    k, n = gaussian_kernel(LANE["sigma"]), LANE["size"]
+
+    def smooth(_):
+        return convolve_separable(x.to(torch.float32)[..., None], k, k,
+                                  BorderMode.MIRROR)[..., 0]
+
+    def gradients(s):
+        gx, gy = sobel_gradients(s, BorderMode.REPLICATE)
+        return gx, gy, gradient_magnitude(gx, gy)
+
+    def nms(g):
+        return edges._quantized_nms(*g), g[2]
+
+    def hyst(c):
+        return edges._hysteresis(c[0], c[1], LANE["low"], LANE["high"]).to(
+            torch.uint8) * 255
+
+    def resized(e):
+        return resize(e[..., None], n, n, Interpolation.NEAREST)[..., 0]
+
+    def vote(p):
+        return _vote(p, n)
+
+    def peaks(acc):
+        return hough.find_lines_tensors(acc.cpu(), LANE["threshold"],
+                                        LANE["angle"], LANE["radius"],
+                                        LANE["lines"])
+
+    return [("smooth", smooth), ("gradients", gradients), ("nms", nms),
+            ("hysteresis", hyst), ("resize", resized), ("vote", vote),
+            ("peaks on the host", peaks)]
+
+
+def _syncs(fn) -> list:
+    """The host waits that ``fn()`` makes on the card, as torch's sync
+    debug mode reports them: the innermost Python frames of each."""
+    import traceback
+    import warnings
+
+    stacks = []
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            stacks.append(" < ".join(
+                f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno}"
+                for f in reversed(traceback.extract_stack()[-7:-1])))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return stacks
+
+
+def _lane_outputs_equal(label, got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"phase 36 {label}: output {i} differs")
+
+
+def lane_phase(card) -> list:
+    """Phase 36: the lane_hough cell's request (8 road frames of 1241 x
+    376 from benchmarks/sources/device_road.py) on the card against the
+    same calls on the CPU, bit for bit: the edges, the accumulators, the
+    line rows and their validity; each kernel against its plain route
+    (equal, with the plain hysteresis's convergence tests; the lines
+    kernel against ``find_lines``' own on the host); the host waits of a
+    request after the first (torch's sync debug mode: none); the
+    request's split by CUDA events, on the kernels and on the plain route;
+    and each kernel's time alone against its bound. Returns the kernels
+    line's entries of the four kernels, with the launches of the first
+    request, each counter set to 0 before it."""
+    from benchmarks.sources import device_road
+    from zignal_tpu_torch.ops import canny_front, edges, hough_kernels, \
+        hysteresis
+    from zignal_tpu_torch.ops.hough import HoughTransform
+
+    shape = (LANE["batch"], LANE["rows"], LANE["cols"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LANE["seed"])
+    x = device_road.frames(shape, gen, torch.device("cuda"))
+    hough = HoughTransform(LANE["size"])
+    # the main path's own launches: one request with the counters at 0
+    counters = ((canny_front, "LAUNCHES"), (hysteresis, "LAUNCHES"),
+                (hough_kernels, "VOTE_LAUNCHES"),
+                (hough_kernels, "LINES_LAUNCHES"))
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    out = _lane_request(x, hough)
+    torch.cuda.synchronize()
+    calls = [getattr(mod, name) for mod, name in counters]
+    if calls != [1, 1, 1, 1]:
+        raise AssertionError(f"the request called the kernels {calls} "
+                             "times, not once each")
+    share = float((out[0] > 0).float().mean())
+    t0 = time.perf_counter()
+    cpu = _lane_request(x.cpu(), hough)
+    cpu_s = time.perf_counter() - t0
+    _lane_outputs_equal("card vs CPU", out, cpu)
+    print(f"phase 36 lane_hough B={shape[0]} {shape[2]}x{shape[1]}: edges, "
+          f"accumulators, rows and validity equal to the CPU route "
+          f"({cpu_s:.1f} s there); edge share {share:.4f}, lines a frame "
+          f"{out[3].sum(1).tolist()}, accumulator max "
+          f"{int(out[1].max())}")
+    # each kernel against its plain route on the card
+    kern, plain = _lane_stages(x, hough), _plain_stages(x, hough)
+    k_front = kern[0][1](None)
+    s = plain[0][1](None)
+    p_nms = plain[2][1](plain[1][1](s))
+    _lane_outputs_equal("front vs plain", k_front, (p_nms[1], p_nms[0]))
+    tests = edges.HYSTERESIS_TESTS
+    p_hyst = plain[3][1](p_nms)
+    tests = edges.HYSTERESIS_TESTS - tests
+    k_hyst = kern[1][1](k_front)
+    _lane_outputs_equal("hysteresis vs plain", (k_hyst,), (p_hyst,))
+    k_acc = kern[2][1](k_hyst)
+    p_acc = plain[5][1](plain[4][1](p_hyst))
+    _lane_outputs_equal("vote vs plain", (k_acc,), (p_acc,))
+    _lane_outputs_equal("lines vs plain", kern[3][1](k_acc),
+                        plain[6][1](p_acc))
+    print(f"phase 36: the front, hysteresis, vote and lines kernels equal "
+          f"their plain routes on the card; the plain hysteresis took "
+          f"{tests} convergence tests")
+    waits = _syncs(lambda: _lane_request(x, hough))
+    print(f"phase 36 host waits in a request: {len(waits)} {waits}")
+    if waits:
+        raise AssertionError(f"a request waited {len(waits)} times")
+    _lane_request(x, hough)
+    for label, stages in (("kernels", kern), ("plain", plain)):
+        split = _stage_ms(stages)
+        print(f"[{card}] phase 36 split on the {label} (ms): " + ", ".join(
+            f"{name} {t:.4f}" for name, t in split)
+            + f"; total {sum(t for _, t in split):.4f}")
+    rows = []
+    e = k_hyst
+    resized = plain[4][1](e)
+    edge_n, votes = int((resized > 0).sum()), int(k_acc.sum())
+    print(f"phase 36 the request's votes: {edge_n} edge pixels at "
+          f"{LANE['size']}^2, {votes} votes in range")
+    for name, fn, src, bnd in (
+            ("canny_front", lambda: kern[0][1](None), "canny_front.cu",
+             front_bound(*shape)),
+            ("hysteresis", lambda: kern[1][1](k_front), "hysteresis.cu",
+             hysteresis_bound(*shape)),
+            ("hough_vote", lambda: kern[2][1](e), "hough.cu",
+             vote_bound(*shape, LANE["size"], edge_n, votes)),
+            ("hough_lines", lambda: kern[3][1](k_acc), "hough.cu", None)):
+        ms = _time_ms(fn)
+        share = "" if bnd is None else (
+            f" ({100 * bnd[0] / ms:.2f} % of its {bnd[1]} bound "
+            f"{bnd[0]:.5f} ms)")
+        print(f"[{card}] phase 36 {name}: {ms:.4f} ms{share}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"zignal_tpu_torch/csrc/{src}",
+                     "replaces": None, "launches": None, "max_abs_err": 0,
+                     "ms": ms, "bound_ms": None if bnd is None else bnd[0],
+                     "bound_by": None if bnd is None else bnd[1]})
+    for row, count in zip(rows, calls):
+        row["launches"] = count
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--lane" in sys.argv[1:]:
+        print(json.dumps({"kernels": lane_phase(_card())}))
+        return 0
     if "--profile" in sys.argv[1:]:
         return calls_profile()
     if "--ops" in sys.argv[1:]:
@@ -3660,7 +3899,8 @@ def main() -> int:
     k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9 + k4_s11 + \
         k4_s12 + s14["K4"]
     det["launches"] += s14["DET"]
-    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4, eqk, det]}))
+    lane = lane_phase(card)
+    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4, eqk, det] + lane}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -54,12 +54,11 @@ def test_hough_accumulator_equals_jax(size):
 
 
 def test_hough_accumulator_in_theta_chunks(monkeypatch):
-    edges = _lines_plane(64)
-    whole = phough._accumulate(torch.from_numpy(edges), 64)
+    edges = torch.from_numpy(_lines_plane(64))[None]
+    whole = phough._vote(edges, 64)
     monkeypatch.setattr(phough, "_VOTES", 1000)  # a few thetas a chunk
-    np.testing.assert_array_equal(
-        phough._accumulate(torch.from_numpy(edges), 64).numpy(),
-        whole.numpy())
+    np.testing.assert_array_equal(phough._vote(edges, 64).numpy(),
+                                  whole.numpy())
 
 
 def test_hough_of_an_image_resized_nearest_equals_jax():

@@ -1847,3 +1847,152 @@ def test_equalize_kernels_refuse_other_channel_counts(cuda):
         eb.histogram256_batch(x)
     with pytest.raises(ValueError, match="C in"):
         eb.lut_apply_u8_per_channel(x, _u8((1, 2, 256), 51, cuda))
+
+
+@pytest.mark.parametrize("shape,low,high", [
+    ((3, 61, 97), 0.3, 0.7), ((1, 1, 300), 0.2, 0.9), ((2, 300, 1), 0.5, 0.5),
+    ((4, 33, 40), 0.8, 0.2), ((2, 128, 128), 0.05, 0.95)])
+def test_hysteresis_kernel_equals_plain(cuda, shape, low, high):
+    """The union-find kernel against the plain growth on random
+    candidates and magnitudes, thresholds either way round; each plane's
+    components stay their own."""
+    from zignal_tpu_torch.ops import edges, hysteresis
+
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    cand = torch.rand(shape, generator=g, device=cuda) < 0.6
+    mag = torch.rand(shape, generator=g, device=cuda)
+    before = hysteresis.LAUNCHES
+    got = hysteresis.hysteresis_u8(cand, mag, low, high)
+    want = edges._hysteresis(cand, mag, low, high).to(torch.uint8) * 255
+    torch.cuda.synchronize()
+    assert hysteresis.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+def test_canny_on_the_card_equals_the_cpu(cuda):
+    """A road-like plane with a long fading edge: the card's Canny (the
+    kernel's hysteresis) against the CPU's plain growth."""
+    from zignal_tpu_torch.ops import edges
+
+    x = torch.full((2, 120, 400), 60.0)
+    x[:, 40:44, 10:390] += torch.linspace(160, 30, 380)
+    x += torch.randint(0, 6, x.shape, generator=torch.Generator()
+                       .manual_seed(8))
+    assert torch.equal(edges.canny(x.to(cuda)).cpu(), edges.canny(x))
+
+
+@pytest.mark.parametrize("shape", [(2, 45, 70), (1, 3, 200), (3, 130, 2),
+                                   (1, 1, 9), (2, 97, 33)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sigma", [0.0, 0.8, 1.4, 3.0])
+def test_canny_front_kernel_equals_plain(cuda, shape, sigma):
+    """The blur, Sobel, magnitude and NMS kernel against the plain route's
+    stages on the card, at tile edges and on axes shorter than the blur."""
+    from zignal_tpu_torch.ops import canny_front, edges
+    from zignal_tpu_torch.ops.convolution import gradient_magnitude, \
+        sobel_gradients
+
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randint(0, 256, shape, generator=g, device=cuda).float()
+    mag, mask = canny_front.front(x, sigma)
+    s = x
+    if sigma > 0:
+        k = tables.gaussian_kernel(sigma)
+        s = convolve_separable(x[..., None], k, k, BorderMode.MIRROR)[..., 0]
+    gx, gy = sobel_gradients(s, BorderMode.REPLICATE)
+    want = gradient_magnitude(gx, gy)
+    assert torch.equal(mag, want)
+    assert torch.equal(mask, edges._quantized_nms(gx, gy, want))
+
+
+@pytest.mark.parametrize("planes,size", [((3, 40, 70), 64), ((2, 70, 40), 256),
+                                         ((1, 376, 1241), 1024),
+                                         ((2, 64, 64), 64), ((2, 50, 90), 37),
+                                         ((1, 200, 300), 2048)])
+def test_hough_kernels_equal_plain(cuda, planes, size):
+    """The vote kernel against the plain votes on the card, at 16, 8 and 4
+    thetas a block and a last block short of its thetas; the lines kernel
+    against ``find_lines``' own on the host."""
+    from zignal_tpu_torch.enums import Interpolation
+    from zignal_tpu_torch.ops import hough
+
+    g = torch.Generator(device=cuda).manual_seed(size)
+    e = (torch.rand(planes, generator=g, device=cuda) < 0.02).to(
+        torch.uint8) * 255
+    e[:, planes[1] // 2, :] = 255
+    ht = hough.HoughTransform(size)
+    acc = ht.compute_batch(e)
+    p = e if planes[1:] == (size, size) else resize(
+        e[..., None], size, size, Interpolation.NEAREST)[..., 0]
+    assert torch.equal(acc, hough._vote(p, size))
+    for threshold in (5, 20):
+        for max_lines in (3, 32):
+            got = ht.find_lines_tensors(acc, threshold, 4.0, 8.0, max_lines)
+            want = ht.find_lines_tensors(acc.cpu(), threshold, 4.0, 8.0,
+                                         max_lines)
+            assert int(want[1].sum()) > 0
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_lane_hough_request_at_kitti_size_waits_for_nothing(cuda):
+    """One lane_hough request of 8 road frames of 1241 x 376 (Canny, then
+    the Hough lines at 1024) after a warm-up call issues no host-device
+    synchronization; it launches each of the front, hysteresis, vote and
+    lines kernels once and votes 8 frames, and equals the same request on
+    the CPU."""
+    from benchmarks.sources import device_road
+    from zignal_tpu_torch.ops import canny_front, edges, hough, \
+        hough_kernels, hysteresis
+
+    gen = torch.Generator().manual_seed(2 ** 35 + 7)
+    x = device_road.frames((8, 376, 1241), gen, torch.device("cpu"))
+    ht = hough.HoughTransform(1024)
+
+    def request(planes):
+        e = edges.canny(planes.to(torch.float32), 1.4, 50.0, 150.0)
+        return (e,) + ht.lines_batch(e, 100, 5.0, 10.0, 32)
+
+    card = x.to(cuda)
+    request(card)
+    torch.cuda.synchronize()
+    counters = ((canny_front, "LAUNCHES"), (hysteresis, "LAUNCHES"),
+                (hough_kernels, "VOTE_LAUNCHES"),
+                (hough_kernels, "LINES_LAUNCHES"), (hough, "FRAMES"),
+                (edges, "HYSTERESIS_TESTS"))
+    before = [getattr(m, n) for m, n in counters]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = request(card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert [getattr(m, n) - b for (m, n), b in zip(counters, before)] == \
+        [1, 1, 1, 1, 8, 0]
+    want = request(x)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert int(want[3].sum()) > 8
+
+
+def test_the_lane_path_on_a_card_refuses_what_its_kernels_cannot_take(cuda):
+    """No plain route on a card: Canny of a plane that is not f32 or with
+    a blur wider than the front kernel's, and lines past the lines
+    kernel's count or of an accumulator that is not int32, raise; an
+    accumulator with no interior has no line."""
+    from zignal_tpu_torch.ops import edges, hough
+
+    x = torch.zeros((1, 20, 30), device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        edges.canny(x.double())
+    with pytest.raises(ValueError, match="taps"):
+        edges.canny(x, sigma=6.0)
+    ht = hough.HoughTransform(16)
+    acc = torch.zeros((1, 16, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="lines"):
+        ht.find_lines_tensors(acc, 1, max_lines=257)
+    with pytest.raises(ValueError, match="int32"):
+        ht.find_lines_tensors(acc.long(), 1)
+    rows, valid = hough.HoughTransform(2).find_lines_tensors(
+        torch.ones((1, 2, 2), dtype=torch.int32, device=cuda), 1)
+    assert rows.device.type == "cuda" and not bool(valid.any())

@@ -278,6 +278,65 @@ def test_orb_and_match_spans_only_in_a_session():
     assert (orb.LEVELS, matcher.PAIRS) == (levels, pairs)
 
 
+def _road_edges(shape=(2, 60, 90)):
+    """Edge-like u8 frames: a bright bar with a fading tail on grain, so
+    that the hysteresis grows over several tests."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(60, 68, shape, generator=g).to(torch.float32)
+    x[:, 20:24, 5:80] += torch.linspace(150, 40, 75)
+    return x
+
+
+def test_canny_and_hough_spans_only_in_a_session():
+    """The lane request, ``canny`` then ``HoughTransform.lines_batch``:
+    outside a session it records nothing; inside one, the four Canny
+    stages one after the other inside ``canny``, one ``canny.test`` for
+    each convergence test inside ``canny.hysteresis`` (the CPU route
+    grows to the fixpoint), then ``hough`` around its three stages; and
+    the counters count no test and no frame on the CPU."""
+    from zignal_tpu_torch.ops import edges, hough
+
+    x = _road_edges()
+    ht = hough.HoughTransform(64)
+
+    def request():
+        ht.lines_batch(edges.canny(x), 5, max_lines=4)
+
+    log, before = tprof.RECORDER.spans, list(tprof.RECORDER.spans)
+    tests, frames = edges.HYSTERESIS_TESTS, hough.FRAMES
+    request()
+    assert tprof.RECORDER.spans is log and log == before
+    with _session():
+        for _ in range(2):
+            request()
+    spans = tprof.RECORDER.spans
+    names = [s[0] for s in spans]
+    assert names.count("canny") == names.count("hough") == 2
+    stages = ["canny.smooth", "canny.gradients", "canny.nms",
+              "canny.hysteresis"]
+    half = len(spans) // 2
+    for call in (spans[:half], spans[half:]):
+        n_tests = [s[0] for s in call].count("canny.test")
+        assert n_tests >= 2
+        assert [s[0] for s in call] == stages[:3] + ["canny.test"] * n_tests \
+            + stages[3:] + ["canny", "hough.resize", "hough.vote",
+                            "hough.peaks", "hough"]
+        by = {name: (t0, t1) for name, t0, t1, _ in call}
+        assert by["canny"][0] == by[stages[0]][0]
+        assert by["canny"][1] == by[stages[-1]][1]
+        assert all(by[a][1] == by[b][0] for a, b in zip(stages, stages[1:]))
+        for name, t0, t1, _ in call:
+            if name == "canny.test":
+                assert by["canny.hysteresis"][0] <= t0 < t1 <= \
+                    by["canny.hysteresis"][1]
+        assert by["canny"][1] <= by["hough"][0]
+        assert by["hough"][0] <= by["hough.resize"][0]
+        assert by["hough.resize"][1] == by["hough.vote"][0]
+        assert by["hough.vote"][1] <= by["hough.peaks"][0]
+        assert by["hough.peaks"][1] <= by["hough"][1]
+    assert (edges.HYSTERESIS_TESTS, hough.FRAMES) == (tests, frames)
+
+
 def test_span_log_bound_counts_what_it_drops():
     p = tprof.Profile()
     assert p.spans is None and tprof.RECORDER.limit == 1 << 16

@@ -111,3 +111,32 @@ def detect_bound(b: int, h: int, w: int, n: int):
     NMS's 18 (its disc's maxima as three running row maxima, then a
     column of 9)."""
     return bound(b * h * w + 4 * b * n, b * n * (48 + 25 + 18))
+
+
+def hysteresis_bound(b: int, h: int, w: int):
+    """Canny's hysteresis kernel on ``b`` planes of h x w: the u8
+    candidates and the f32 magnitude read once and the u8 edges written
+    once; per pixel its two threshold compares and the 8-neighbour test of
+    one growth step (9 ops)."""
+    n = b * h * w
+    return bound(n * (1 + 4 + 1), n * (2 + 9))
+
+
+def front_bound(b: int, h: int, w: int):
+    """Canny's front kernel on ``b`` planes of h x w: the f32 plane read
+    once, the f32 magnitude and the u8 mask written once; per pixel the
+    blur's 2 x 11 multiply-adds (2 ops each), Sobel's 12, the magnitude's
+    4 and the NMS's 12."""
+    n = b * h * w
+    return bound(n * (4 + 4 + 1), n * (44 + 12 + 4 + 12))
+
+
+def vote_bound(b: int, h: int, w: int, size: int, edges: int, votes: int):
+    """The Hough votes of ``b`` u8 edge frames of h x w into size x size
+    int32 accumulators, of a request whose resized planes held ``edges``
+    edge pixels that cast ``votes`` votes in range (the accumulators'
+    sum): the frames read once, each edge's 4-B entry written and read
+    once, each bin written once; per vote its two products and their sum,
+    the bin's two shifts and add, and the count's add (7 ops). The votes
+    depend on the frames, so the bound is read from the request's own."""
+    return bound(b * h * w + 8 * edges + 4 * b * size * size, 7 * votes)

@@ -38,7 +38,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / name for name in (
     "fused_resize_blur_oklab.cu", "fused_blur_sharpen_morph.cu",
     "separable_u8.cu", "fused_color_chain_u8.cu", "equalize_u8.cu",
-    "orb_detect.cu"))
+    "orb_detect.cu", "hysteresis.cu", "canny_front.cu", "hough.cu"))
 _HEADERS = (_PKG / "csrc" / "tile_staging.cuh",)
 _BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the Oklab epilogue and the colour chain need IEEE
@@ -157,6 +157,22 @@ def load():
                  [_P, _P, _I, _P, _P])             # src dst harris params
                                                    # stream
         _declare(lib, "zt_orb_detect_params_bytes", [])
+        _declare(lib, "zt_hysteresis",
+                 [_P, _P, _P, _P, _P, _I, _I, _I,  # cand mag out labels
+                  ctypes.c_float, ctypes.c_float,  # flags b h w low high
+                  _I, _P])                         # blocks stream
+        _declare(lib, "zt_canny_front",
+                 [_P, _P, _P, _P, _P])             # src mag mask params
+                                                   # stream
+        _declare(lib, "zt_canny_front_params_bytes", [])
+        _declare(lib, "zt_hough_vote",
+                 [_P, _P, _P, _P, _P, _P, _P, _P,  # edges rows cols cos sin
+                  _P, _P])                         # list count acc params
+                                                   # stream
+        _declare(lib, "zt_hough_lines",
+                 [_P, _P, _P, _P, _P, _P, _P])     # acc cand counts rows
+                                                   # valid params stream
+        _declare(lib, "zt_hough_params_bytes", [])
         lib.zt_error_string.argtypes = [_I]
         lib.zt_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..enums import BorderMode
+from ._build import cached
 from .fma import fma_sum
 from .tables import SCALE, _kernel_to_int, border_tap_table, \
     build_tap_matrix, gaussian_kernel
@@ -47,14 +48,30 @@ def _div_clamp_u8(accum, scale: int):
     return q.clamp(0, 255).to(torch.uint8)
 
 
+def _tap_tables(n: int, ksize: int, border: BorderMode, device):
+    """The host tap table of an axis and its source positions and inside
+    mask on ``device``."""
+    table = border_tap_table(n, ksize, border)
+    return (table, torch.from_numpy(np.maximum(table, 0)).to(device),
+            torch.from_numpy(table >= 0).to(device))
+
+
+def _on_device(values: np.ndarray, dtype, device):
+    """``values`` as a ``dtype`` tensor on ``device``, uploaded once: an
+    upload from pageable memory waits for the card."""
+    return cached("weights", values.tobytes(), values.shape, dtype,
+                  torch.device(device), build=lambda: torch.from_numpy(
+                      np.ascontiguousarray(values)).to(device, dtype))
+
+
 def _tap_reader(n: int, ksize: int, border: BorderMode, axis: int, device):
     """``read(x, k)``: the ``[..., n, ...]`` slab of ``x`` that tap ``k`` of
     a ``ksize``-tap filter reads along ``axis`` (0 where a ZERO-border tap
     falls outside the axis). The table stays on the host to decide which
-    taps need the mask."""
-    table = border_tap_table(n, ksize, border)
-    taps = torch.from_numpy(np.maximum(table, 0)).to(device)
-    inside = torch.from_numpy(table >= 0).to(device)
+    taps need the mask; its device copies are made once a device and
+    axis length, since an upload waits for the card."""
+    table, taps, inside = cached(_tap_tables, n, ksize, BorderMode(border),
+                                 torch.device(device))
 
     def read(x, k: int):
         part = x.index_select(axis, taps[:, k])
@@ -92,7 +109,7 @@ def _sep_pass_float(x, weights: np.ndarray, axis: int, border: BorderMode):
             if weights[k] != 0 or not 0 < ksize // 2 < n]
     if not keep:
         return torch.zeros_like(x)
-    w = torch.from_numpy(weights).to(x.device, x.dtype)
+    w = _on_device(weights, x.dtype, x.device)
     return fma_sum((read(x, k), w[k]) for k in keep)
 
 
@@ -216,7 +233,7 @@ def convolve2d(arr, kernel, border: BorderMode = BorderMode.MIRROR):
                              SCALE)
     if not k.any():
         return torch.zeros_like(arr)
-    w = torch.from_numpy(k).to(arr.device, arr.dtype)
+    w = _on_device(k, arr.dtype, arr.device)
     return fma_sum((px, w[i, j])
                    for px, i, j in _taps2d(arr, k, read_y, read_x))
 

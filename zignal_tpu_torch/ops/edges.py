@@ -15,7 +15,15 @@ the thresholded masks come out the same:
   plane, never a loop over columns;
 - hysteresis grows strong edges through weak ones to a fixpoint, which
   does not depend on how many growth steps run between two convergence
-  tests, so several run per test (one host sync on a card).
+  tests, so several run per test (one host sync on a card). Canny on a
+  card takes kernels instead (ops/canny_front.py, ops/hysteresis.py),
+  equal bit for bit, with no test at all.
+
+Canny records its spans while a profiler session runs: ``canny`` around
+the call, with ``canny.smooth``, ``canny.gradients``, ``canny.nms`` (or,
+on a card, ``canny.front`` for the three) and ``canny.hysteresis`` inside
+and a ``canny.test`` around each convergence test.
+``HYSTERESIS_TESTS`` counts the tests run on a CUDA device.
 
 Shen-Castan's window counts and sums are exact: integer window sums of
 the 0/1 sign plane, and f64 window sums of the gray plane (exact for the
@@ -26,8 +34,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..enums import BorderMode
+from ..profiling import RECORDER, span_start
+from ._build import COUNT_LOCK, cached
 from .binary import histogram256
 from .convolution import convolve_separable, gradient_magnitude, \
     sobel_gradients
@@ -39,6 +50,9 @@ __all__ = ["canny", "isef_filter", "shen_castan"]
 
 _K = np.float32(0.414213562)  # tan(22.5 deg), as the JAX package's f32
 _GROWTH_STEPS = 8  # hysteresis steps between two convergence tests
+# convergence tests run on a CUDA device (each a host wait), under
+# COUNT_LOCK
+HYSTERESIS_TESTS = 0
 
 
 def _shift(a, dr: int, dc: int, fill=0):
@@ -51,27 +65,49 @@ def _shift(a, dr: int, dc: int, fill=0):
     return out
 
 
-def _interior(a):
-    """True off the one-pixel frame of ``[..., H, W]``."""
-    m = torch.zeros(a.shape[-2:], dtype=torch.bool, device=a.device)
+def _interior_mask(h: int, w: int, device):
+    m = torch.zeros((h, w), dtype=torch.bool, device=device)
     m[1:-1, 1:-1] = True
     return m
+
+
+def _interior(a):
+    """True off the one-pixel frame of ``[..., H, W]``, made once a shape
+    and device."""
+    return cached(_interior_mask, a.shape[-2], a.shape[-1], a.device)
+
+
+def _tan_k(device):
+    return torch.tensor(_K, device=device)
+
+
+def _padded(a, fill=0):
+    """``a`` with a one-pixel frame of ``fill``: ``_at(p, dr, dc)`` of it
+    reads ``_shift(a, dr, dc, fill)`` without a copy."""
+    return F.pad(a, (1, 1, 1, 1), value=fill)
+
+
+def _at(p, dr: int, dc: int):
+    """The view of the padded ``p`` that ``_shift(a, dr, dc)`` gives."""
+    h, w = p.shape[-2] - 2, p.shape[-1] - 2
+    return p[..., 1 + dr:1 + dr + h, 1 + dc:1 + dc + w]
 
 
 def _quantized_nms(gx, gy, magnitude):
     """Directional non-max suppression (edges.zig:692-763); the frame
     stays 0."""
     ax, ay = gx.abs(), gy.abs()
-    k = torch.tensor(_K, device=gx.device)
+    k = cached(_tan_k, gx.device)  # an upload waits for the card
     horiz = ay <= k * ax
     vert = ax <= k * ay
     diag45 = ~horiz & ~vert & (gx * gy > 0)
     m = magnitude
+    p = _padded(m)
 
     def pick(h_, v_, d45, d135):
-        return torch.where(horiz, _shift(m, *h_), torch.where(
-            vert, _shift(m, *v_), torch.where(diag45, _shift(m, *d45),
-                                              _shift(m, *d135))))
+        return torch.where(horiz, _at(p, *h_), torch.where(
+            vert, _at(p, *v_), torch.where(diag45, _at(p, *d45),
+                                           _at(p, *d135))))
 
     n1 = pick((0, -1), (-1, 0), (-1, 1), (-1, -1))
     n2 = pick((0, 1), (1, 0), (1, -1), (1, 1))
@@ -79,39 +115,75 @@ def _quantized_nms(gx, gy, magnitude):
 
 
 def _dilate8(mask):
-    """3x3 neighbourhood OR, rows then columns."""
-    h = mask | _shift(mask, 0, -1, False) | _shift(mask, 0, 1, False)
-    return h | _shift(h, -1, 0, False) | _shift(h, 1, 0, False)
+    """3x3 neighbourhood OR, rows then columns, over one padded copy."""
+    p = _padded(mask, False)
+    h = p[..., :-2] | p[..., 1:-1] | p[..., 2:]
+    return h[..., :-2, :] | h[..., 1:-1, :] | h[..., 2:, :]
 
 
-def _hysteresis(candidate, gradients, t_low, t_high):
+def _hysteresis(candidate, gradients, t_low, t_high, span=None):
     """Grow strong edges (``grad >= high``) through weak ones (``grad >=
-    low``), 8-connected, to the fixpoint (edges.zig:499-580)."""
+    low``), 8-connected, to the fixpoint (edges.zig:499-580). A growth
+    step keeps the members (weak or strong) that touch the edges so far,
+    the same as ``(weak & dilate(cur)) | cur``, since the edges so far are
+    members that touch themselves. During a profiler session each
+    convergence test is the recorder's span ``span`` when one is given."""
+    global HYSTERESIS_TESTS
     weak = candidate & (gradients >= t_low)
     strong = candidate & (gradients >= t_high)
+    members = weak | strong
     cur = (weak & _dilate8(strong)) | strong
     while True:
         prev = cur
         for _ in range(_GROWTH_STEPS):
-            cur = (weak & _dilate8(cur)) | cur
-        if torch.equal(prev, cur):
+            cur = members & _dilate8(cur)
+        t0 = span_start() if span else 0
+        done = torch.equal(prev, cur)
+        if t0:
+            RECORDER.add(span, t0)
+        if cur.device.type == "cuda":
+            with COUNT_LOCK:
+                HYSTERESIS_TESTS += 1
+        if done:
             return cur
 
 
 def canny(gray_f32, sigma: float = 1.4, low: float = 50.0,
           high: float = 150.0):
     """Canny edges of a 0-255 float ``[..., H, W]`` plane -> u8 0/255
-    (reference: edges.zig:212-275)."""
+    (reference: edges.zig:212-275). A plane on a card takes two kernels
+    with no host wait: the blur, Sobel, magnitude and NMS in one
+    (ops/canny_front.py, the span ``canny.front`` in place of the three
+    stages'), then the union-find hysteresis (ops/hysteresis.py); there a
+    plane that is not f32, or a blur wider than the front kernel's, is
+    refused. A CPU plane takes the plain route."""
+    t0 = span_start()
+    low, high = float(np.float32(low)), float(np.float32(high))
     x = gray_f32
+    if x.device.type == "cuda":
+        from . import canny_front
+        from .hysteresis import hysteresis_u8
+
+        magnitude, nms = canny_front.front(x, sigma)
+        t3 = t0 and RECORDER.add("canny.front", t0)
+        out = hysteresis_u8(nms, magnitude, low, high)
+        if t0:
+            RECORDER.add("canny", t0, RECORDER.add("canny.hysteresis", t3))
+        return out
     if sigma > 0:
         k = gaussian_kernel(sigma)
         x = convolve_separable(x[..., None], k, k, BorderMode.MIRROR)[..., 0]
+    t1 = t0 and RECORDER.add("canny.smooth", t0)
     gx, gy = sobel_gradients(x, BorderMode.REPLICATE)
     magnitude = gradient_magnitude(gx, gy)
+    t2 = t1 and RECORDER.add("canny.gradients", t1)
     nms = _quantized_nms(gx, gy, magnitude)
-    final = _hysteresis(nms, magnitude, float(np.float32(low)),
-                        float(np.float32(high)))
-    return final.to(torch.uint8) * 255
+    t3 = t2 and RECORDER.add("canny.nms", t2)
+    out = _hysteresis(nms, magnitude, low, high, "canny.test").to(
+        torch.uint8) * 255
+    if t0:
+        RECORDER.add("canny", t0, RECORDER.add("canny.hysteresis", t3))
+    return out
 
 
 # ---------------------------------------------------------------------------

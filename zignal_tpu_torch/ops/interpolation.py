@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..enums import Interpolation
+from ._build import cached
 from .fma import fma, fma_sum
 from .tables import CUBIC_KERNELS, SCALE, _axis_coords, \
     bilinear_axis_table, cubic_axis_table, lanczos_axis_table, \
@@ -49,9 +50,17 @@ def _resize_bilinear_u8(arr, rows: int, cols: int):
     return (acc >> 16).clamp(0, 255).to(torch.uint8)
 
 
+def _nearest_tables(src_rows: int, src_cols: int, rows: int, cols: int,
+                    device):
+    return (_dev(nearest_indices(src_rows, rows), device),
+            _dev(nearest_indices(src_cols, cols), device))
+
+
 def _resize_nearest(arr, rows: int, cols: int):
-    y = _dev(nearest_indices(arr.shape[-3], rows), arr.device)
-    x = _dev(nearest_indices(arr.shape[-2], cols), arr.device)
+    """NEAREST source rows, then columns; the index tables go to the
+    device once a shape, since an upload waits for the card."""
+    y, x = cached(_nearest_tables, arr.shape[-3], arr.shape[-2], rows, cols,
+                  arr.device)
     return arr.index_select(-3, y).index_select(-2, x)
 
 
