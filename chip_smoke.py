@@ -169,7 +169,14 @@ Phases (any failure raises and exits non-zero):
    376 x 1241, ORB-SLAM2's KITTI settings, their 8-level atlas) equal bit
    for bit to its plain route, with Harris's response and with the FAST
    score, then timed (plain, kernel, kernel, plain by CUDA events, the
-   kernel's profiler device time) beside its bound.
+   kernel's profiler device time) beside its bound;
+25c. ORB's describe kernel at the same shape, on the keypoints the detect
+   and select stages choose: rows, descriptors and validity equal bit for
+   bit to its plain route, then timed the same way beside its bound; one
+   ORB request with the detect and describe launch counters set to 0
+   just before it (one launch each); the request's stages by CUDA events
+   (pyramid and atlas, detect, select, describe, the match), the plain
+   describe beside the kernel (``--orb`` runs phases 25b and 25c alone).
 26. the tenth slice's device paths on the card, each output on the card
    and equal to the same call on the CPU: ImageBatch.apply_colormap of
    [16, 1024, 1024, 3] with each of the five maps at the auto range (image
@@ -261,9 +268,9 @@ Phases (any failure raises and exits non-zero):
    its bound, the vote's from the request's own edges and votes
    (``--lane`` runs this phase alone).
 The last two lines are a JSON summary of the kernels (K3's with the
-launches of its values route, ``values``; the detect kernel's, DET, with
-those of phases 24, 25b and 35; the lane_hough kernels', with the
-launches of one request, its counters set to 0 before it; each with its
+launches of its values route, ``values``; the ORB detect and describe
+kernels' and the lane_hough kernels', with the launches of one request,
+its counters set to 0 before it, in phases 25c and 36; each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, the H100's published peaks, a cube root and a gamma curve
 counted at CBRTF_OPS and POWF_OPS) and the device line.
@@ -279,9 +286,9 @@ import time
 import numpy as np
 import torch
 
-from zignal_tpu_torch._bounds import CBRTF_OPS, F32_OPS_S, detect_bound, \
-    front_bound, hist_bound, hysteresis_bound, k1_bound, k2_bound, k3_bound, \
-    k3p_bound, k4_bound, lut_bound, vote_bound
+from zignal_tpu_torch._bounds import CBRTF_OPS, F32_OPS_S, describe_bound, \
+    detect_bound, front_bound, hist_bound, hysteresis_bound, k1_bound, \
+    k2_bound, k3_bound, k3p_bound, k4_bound, lut_bound, vote_bound
 from zignal_tpu_torch.bench import CHAIN_UNIT, FDM_SHARE, OKLAB_TOL, \
     cast_target, synth_photo
 from zignal_tpu_torch.bench import SPACES as BENCH_CHAIN
@@ -1769,8 +1776,7 @@ def _config4(card):
 
 def _config5(card):
     """Phase 24: BASELINE config 5, ORB + matching + Hough + Canvas, on
-    the card. Returns the (K1, K4, detect kernel) launches and what
-    phase 25 times."""
+    the card. Returns the (K1, K4) launches and what phase 25 times."""
     from zignal_tpu_torch import Canvas, Image
     from zignal_tpu_torch.features import BruteForceMatcher, Orb
     from zignal_tpu_torch.ops import orb_detect
@@ -1848,7 +1854,7 @@ def _config5(card):
     print("phase 24: ORB of images 0 and 1 (keypoints, angles, "
           "descriptors), the matches, Sobel, the Hough accumulator and "
           "the canvas equal the CPU")
-    return (k1, k4, det), (orb, corpus, results, matcher, img, edges,
+    return (k1, k4), (orb, corpus, results, matcher, img, edges,
                            hough, acc, draw)
 
 
@@ -1944,10 +1950,9 @@ def _detect_phase(card):
     bit for bit with Harris's response and with the FAST score), then
     timed: plain, kernel, kernel, plain by CUDA events and the kernel's
     profiler device time, beside its bound. Returns the kernels line's
-    entry; its launches are the two checked calls'."""
+    entry; its launches are one request's, which phase 25c counts."""
     from zignal_tpu_torch.features import Orb
     from zignal_tpu_torch.features import orb as orb_mod
-    from zignal_tpu_torch.ops import orb_detect
     from zignal_tpu_torch.ops.pyramid import ImagePyramid
 
     b, h, w = DETECT["batch"], DETECT["rows"], DETECT["cols"]
@@ -1960,7 +1965,6 @@ def _detect_phase(card):
     atlas = orb_mod._atlas(pyr.levels, orb.fast_threshold,
                            *orb._fused_params(h, w))
     plane = atlas.paste(pyr.levels)
-    before = orb_detect.LAUNCHES
     for harris in (True, False):
         got = atlas.candidates(plane, harris)
         want = atlas.candidates_reference(plane, harris)
@@ -1972,8 +1976,6 @@ def _detect_phase(card):
         if not equal:
             raise AssertionError("the detect kernel differs from the plain "
                                  "route")
-    torch.cuda.synchronize()
-    launches = orb_detect.LAUNCHES - before
     kern = lambda: atlas.candidates(plane, True)  # noqa: E731
     plain = lambda: atlas.candidates_reference(plane, True)  # noqa: E731
     p1, k1, k2, p2 = _time_ms(plain, 5), _time_ms(kern), _time_ms(kern), \
@@ -1991,7 +1993,7 @@ def _detect_phase(card):
         "route": "cuda",
         "source": "zignal_tpu_torch/csrc/orb_detect.cu",
         "replaces": None,  # the JAX package's FAST, NMS and Harris are jnp
-        "launches": launches,
+        "launches": None,  # one request's (phase 25c)
         "max_abs_err": 0,
         "ms": min(k1, k2),
         "device_ms": device,
@@ -2002,15 +2004,124 @@ def _detect_phase(card):
     }
 
 
+def _describe_phase(card):
+    """Phase 25c: ORB's describe kernel (csrc/orb_describe.cu) at the
+    orb_stereo cell's shape: on the keypoints the detect and select
+    stages choose, against its plain route on the card (rows, descriptors
+    and validity bit for bit), then timed (plain, kernel, kernel, plain by
+    CUDA events, the kernel's profiler device time) beside its bound; one
+    ORB request with the launch counters set to 0 just before it; the
+    request's stages by CUDA events, the plain describe beside the
+    kernel's. Returns the detect kernel's launches in that request and
+    the kernels line's entry, its launches the request's."""
+    from zignal_tpu_torch.features import Orb, matcher
+    from zignal_tpu_torch.features import orb as orb_mod
+    from zignal_tpu_torch.ops import orb_describe, orb_detect
+    from zignal_tpu_torch.ops.pyramid import ImagePyramid
+
+    b, h, w = DETECT["batch"], DETECT["rows"], DETECT["cols"]
+    orb = Orb(n_features=DETECT["n_features"],
+              edge_threshold=DETECT["edge_threshold"])
+    gen = torch.Generator().manual_seed(86)
+    x = torch.randint(0, 256, (b, h, w), generator=gen, dtype=torch.uint8)
+    x[:, 100:250, 300:900] //= 4  # a darker block: structure beside grain
+    x = x.cuda()
+    ks, margins = orb._fused_params(h, w)
+
+    def pasted(_):
+        pyr = ImagePyramid.build(x, orb.n_levels, orb.scale_factor, 1.6)
+        atlas = orb_mod._atlas(pyr.levels, orb.fast_threshold, ks, margins)
+        return atlas, atlas.paste(pyr.levels)
+
+    atlas, plane = pasted(None)
+    resp, idx = atlas.select(atlas.candidates(plane, True))
+    before = orb_describe.LAUNCHES
+    got = atlas.describe(plane, resp, idx)
+    want = atlas.describe_reference(plane, resp, idx)
+    torch.cuda.synchronize()
+    launches = orb_describe.LAUNCHES - before
+    equal = launches == 1 and torch.equal(
+        got[0].view(torch.int32), want[0].view(torch.int32)) and \
+        torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    k = resp.shape[1]
+    print(f"phase 25c describe kernel {list(plane.shape)}, {k} keypoints a "
+          f"frame ({int(want[2].sum())} valid of {b * k}): "
+          f"{'equal to the plain route bit for bit' if equal else 'FAIL'}")
+    if not equal:
+        raise AssertionError("the describe kernel differs from the plain "
+                             "route")
+    kern = lambda: atlas.describe(plane, resp, idx)  # noqa: E731
+    plain = lambda: atlas.describe_reference(plane, resp, idx)  # noqa: E731
+    p1, k1, k2, p2 = _time_ms(plain, 5), _time_ms(kern), _time_ms(kern), \
+        _time_ms(plain, 5)
+    device = _device_ms(kern, "describe_kernel")
+    bound_ms, bound_by = describe_bound(b, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        kern()
+    host_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    print(f"[{card}] phase 25c describe kernel B={b} of {h}x{w}, K={k}: "
+          f"{k1:.4f} / {k2:.4f} ms (CUDA events), {device:.4f} ms "
+          f"(profiler, device), {100 * bound_ms / device:.2f} % of its "
+          f"bound {bound_ms:.4f} ms ({bound_by}); plain route {p1:.3f} / "
+          f"{p2:.3f} ms; {host_us:.1f} us of host a call (100 issued)")
+    # one request, its launches counted from 0
+    orb.detect_and_compute_tensors(x)
+    torch.cuda.synchronize()
+    orb_describe.LAUNCHES = orb_detect.LAUNCHES = 0
+    kps, desc, valid = orb.detect_and_compute_tensors(x)
+    torch.cuda.synchronize()
+    request = (orb_detect.LAUNCHES, orb_describe.LAUNCHES)
+    print(f"phase 25c one ORB request of {b} frames: orb_detect "
+          f"{request[0]}, orb_describe {request[1]} launches (want 1, 1)")
+    if request != (1, 1):
+        raise AssertionError(f"an ORB request launched {request}")
+    split = lambda: _stage_ms([  # noqa: E731
+        ("pyramid and atlas", pasted),
+        ("detect", lambda a: (*a, a[0].candidates(a[1], True))),
+        ("select", lambda a: (*a[:2], *a[0].select(a[2]))),
+        ("describe kernel", lambda a: (*a, a[0].describe(*a[1:]))),
+        ("describe plain route (beside)",
+         lambda a: (*a, a[0].describe_reference(*a[1:4]))),
+        (f"match ({b // 2} pairs)", lambda a: matcher.match_tensors(
+            a[4][1][0::2], a[4][2][0::2], a[4][1][1::2], a[4][2][1::2])),
+    ])
+    split()  # the matcher's first call
+    print(f"[{card}] phase 25c orb_stereo request split (CUDA events): "
+          + ", ".join(f"{n} {v:.3f} ms" for n, v in split()))
+    return request[0], {
+        "name": "orb_describe",
+        "route": "cuda",
+        "source": "zignal_tpu_torch/csrc/orb_describe.cu",
+        "replaces": None,  # the JAX package's angle and BRIEF are jnp
+        "launches": request[1],
+        "max_abs_err": 0,
+        "ms": min(k1, k2),
+        "device_ms": device,
+        "plain_ms": min(p1, p2),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no one PyTorch call rotates BRIEF
+    }
+
+
+def _orb_phases(card) -> list:
+    """Phases 25b and 25c. Returns the detect and describe kernels'
+    entries of the kernels line, each with its launches in one request."""
+    det = _detect_phase(card)
+    det["launches"], desc = _describe_phase(card)
+    return [det, desc]
+
+
 def _config_phases(card):
-    """Phases 23-25b. Returns K1's, K4's and the detect kernel's launches
-    of phase 24 and the detect kernel's entry of the kernels line."""
+    """Phases 23-25c. Returns K1's and K4's launches of phase 24 and the
+    detect and describe kernels' entries of the kernels line."""
     c4 = _config4(card)
     launches, c5 = _config5(card)
     _config_times(card, c4, c5)
-    det = _detect_phase(card)
-    det["launches"] += launches[2]
-    return launches[:2], det
+    return launches, _orb_phases(card)
 
 
 # -- colormaps, flood fill, Perlin noise, QR, GIF and the terminal ----------
@@ -3081,7 +3192,7 @@ def _bench_phases(card) -> dict:
             or any(v is None for v in values.values()):
         raise AssertionError(f"phase 35: bad summary {out[-1]}")
     launches = {k: sum(x["launches"][k] for x in configs)
-                for k in ("K1", "K2", "K3", "K3p", "K4", "DET")}
+                for k in ("K1", "K2", "K3", "K3p", "K4", "DET", "DESC")}
     K1_STREAMED["35"] += sum(x["k1_streamed"] for x in configs)
     if min(launches.values()) < 1 or launches["K3p"] != 1:
         raise AssertionError(f"phase 35: the bench launched {launches}")
@@ -3752,6 +3863,9 @@ def main() -> int:
     if "--lane" in sys.argv[1:]:
         print(json.dumps({"kernels": lane_phase(_card())}))
         return 0
+    if "--orb" in sys.argv[1:]:
+        print(json.dumps({"kernels": _orb_phases(_card())}))
+        return 0
     if "--profile" in sys.argv[1:]:
         return calls_profile()
     if "--ops" in sys.argv[1:]:
@@ -3881,7 +3995,7 @@ def main() -> int:
     k4_s8 = _geometry_phases(card, rng)
     print(f"phases 20-22: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    (k1_s9, k4_s9), det = _config_phases(card)
+    (k1_s9, k4_s9), orb_kernels = _config_phases(card)
     print(f"phases 23-25: {time.perf_counter() - t0:.1f} s")
     k1_s10 = _slice10_phases(card)
     k1_s11, k4_s11 = _cli_phases(card, corpus, config1)
@@ -3898,9 +4012,9 @@ def main() -> int:
     k3p["launches"] += s14["K3p"]
     k4["launches"] += k4_ex + k4_s4 + k4_s7 + k4_s8 + k4_s9 + k4_s11 + \
         k4_s12 + s14["K4"]
-    det["launches"] += s14["DET"]
     lane = lane_phase(card)
-    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4, eqk, det] + lane}))
+    print(json.dumps({"kernels": [k1, k2, k3, k3p, k4, eqk] + orb_kernels
+                      + lane}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,6 +13,15 @@ Cases:
   edge of every level, so that some lie next to another level;
 - ``arc``: rings of 8 and 9 consecutive taps brighter or darker than
   their centre, starting at every tap, those past tap 15 wrapping.
+
+The describe stage's keypoints (``keypoints``): those the detect and
+select stages choose on a case, or (``PLACED``) keypoints anywhere on
+their levels, a third of them -inf, on ``planted``, ``shelves`` and 40
+levels (``levels40_any``: more than the detect kernel takes), and
+``wide``: keypoints past x = 2^20 on a level 1.12 M px wide, each on a
+ramp that turns its angle to one of 2,000 steps from 133 to 136 degrees,
+where the f32 spacing moves some rotated samples past the describe
+kernel's window.
 """
 
 import numpy as np
@@ -27,6 +36,7 @@ CASES = ("kitti_b1", "kitti_b8", "shelves", "one_level", "flat", "planted",
          "arc")
 # the cases small enough for the plain route on the CPU
 SMALL = ("shelves", "one_level", "flat", "planted", "arc")
+PLACED = ("planted_any", "shelves_any", "levels40_any", "wide")
 KITTI = Orb(n_features=2000, edge_threshold=31)
 
 
@@ -106,3 +116,47 @@ def case(name, device):
             if name == "flat" else _planted(atlas, 2) \
             if name == "planted" else _arcs(atlas)
     return atlas, torch.from_numpy(plane).to(device)
+
+
+def _wide(device):
+    """The ``wide`` case: (atlas, plane, keypoint x)."""
+    from zignal_tpu_torch.ops.orb_describe import REACH
+
+    side, k = 2 * REACH + 1, 2000
+    atlas = atlas_of(Orb(n_features=k, n_levels=1), 48,
+                     2 ** 20 + side * (k + 1), device)
+    x = 2 ** 20 + REACH + 1 + side * np.arange(k)
+    turn = np.deg2rad(133 + 3 * np.arange(k) / k)
+    d = np.arange(-REACH, REACH + 1)
+    plane = np.full((1,) + atlas.shape, 128, np.uint8)
+    for xj, t in zip(x, turn):
+        plane[0, 24 - REACH:24 + REACH + 1, xj - REACH:xj + REACH + 1] = \
+            128 + np.rint(3.4 * (np.cos(t) * d[None] + np.sin(t) * d[:, None]))
+    return atlas, plane, x
+
+
+def keypoints(name, device):
+    """(atlas, plane, resp f32 ``[B, K]``, idx int64 ``[B, K]``) of the
+    describe stage's case ``name`` on ``device``."""
+    if name in CASES:
+        atlas, plane = case(name, device)
+        return (atlas, plane) + atlas.select(atlas.candidates(plane, True))
+    rng = np.random.default_rng(28)
+    if name == "wide":
+        atlas, plane, x = _wide(device)
+        idx = (24 * atlas.shape[1] + x)[None]
+    else:
+        name = name.removesuffix("_any")
+        if name == "levels40":
+            atlas = atlas_of(Orb(n_features=500, scale_factor=1.05,
+                                 n_levels=40), 120, 160, device)
+        else:
+            atlas, _ = case(name, device)
+        plane = rng.integers(0, 256, (2,) + atlas.shape, np.uint8)
+        t = atlas.table.tensor
+        hw = (t[:, 3] * t[:, 4]).cpu().numpy()
+        idx = (rng.random((2, hw.size)) * hw).astype(np.int64)
+    resp = rng.normal(0, 1e4, idx.shape).astype(np.float32)
+    resp[rng.random(idx.shape) < 1 / 3] = -np.inf
+    return atlas, torch.from_numpy(plane).to(device), \
+        torch.from_numpy(resp).to(device), torch.from_numpy(idx).to(device)

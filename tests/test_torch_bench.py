@@ -266,8 +266,9 @@ def test_smoke_run_on_the_cpu_end_to_end():
         assert line["device"] == "cpu" and line["l2_flushed"] is False
         assert line["value"] > 0 and "check" in line
         assert set(line["launches"]) == {"K1", "K2", "K3", "K3p", "K4",
-                                         "DET"}
-        assert line["launches"]["DET"] == 0  # the CPU launches no kernel
+                                         "DET", "DESC"}
+        # the CPU launches no kernel
+        assert line["launches"]["DET"] == line["launches"]["DESC"] == 0
         assert line["k1_streamed"] == 0  # the CPU launches no kernel
     last = lines[-1]
     assert len(out[-1].encode()) < 2000 and last["summary"] is True

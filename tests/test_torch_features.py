@@ -48,7 +48,8 @@ from zignal_tpu_torch.features import fast as pfast
 from zignal_tpu_torch.features import orb as porb
 from zignal_tpu_torch.features._orb_pattern import ORB_PATTERN
 from zignal_tpu_torch.features.matcher import distance_matrix, match_tensors
-from zignal_tpu_torch.ops import orb_detect
+from zignal_tpu_torch.ops import orb_describe, orb_detect
+from zignal_tpu_torch.ops.fma import fma
 from zignal_tpu_torch.ops.pyramid import ImagePyramid
 
 import _orb_atlas_cases as oc
@@ -660,6 +661,212 @@ def test_detect_plan_refuses_tables_the_kernel_cannot_take():
                      (lv * 5, atlas.n * 5), ((), 0)):
         with pytest.raises(ValueError):
             orb_detect._DetectPlan(2, h, w, n, table)
+
+
+def _emulate_describe(plane, resp, idx, table):
+    """The describe kernel transcribed in numpy, for all keypoints at
+    once: each keypoint's window of radius REACH staged, 0 off its level;
+    the moments of the circular patch as integer sums; the angle from f32
+    quotients, atan2 in f64 rounded to f32, times f32(180 / pi), 0 where
+    m00 < 0.001; each rotated sample's two multiply-adds in f64, rounded
+    to f32, then half to even; a sample read from the window, or from the
+    plane where it lies outside it; the bits packed as the warp's 8
+    ballots, bit i of word q pair 32 q + i. The transcendentals are
+    torch's f64 ones, as the kernel's are the card's (numpy's differ).
+    Returns the rows, descriptors and validity, and the number of samples
+    that counted and were read from the plane."""
+    f32, f64, r, half = np.float32, np.float64, orb_describe.REACH, \
+        orb_describe.HALF
+    lv, r0, c0, h, w, lo, x_end, y_end = table.T.astype(np.int64)
+    y, x = idx // w, idx % w
+    zb = np.arange(plane.shape[0])[:, None]
+
+    def at(ys, xs):  # level pixels (ys, xs), [B, K, ...], clamped
+        ys = np.clip(ys, 0, h[:, None] - 1) + r0[:, None]
+        xs = np.clip(xs, 0, w[:, None] - 1) + c0[:, None]
+        return plane[zb[..., None], ys, xs].astype(np.int64)
+
+    off = np.arange(-r, r + 1)
+    wy, wx = (np.repeat(off, off.size)[None, None],
+              np.tile(off, off.size)[None, None])
+    ly, lx = y[..., None] + wy, x[..., None] + wx
+    inside = (ly >= 0) & (ly < h[:, None]) & (lx >= 0) & (lx < w[:, None])
+    win = np.where(inside, at(ly, lx), 0)
+    circle = (wy ** 2 + wx ** 2 <= half ** 2) & (np.abs(wy) <= half) & \
+        (np.abs(wx) <= half)
+    m00, m10, m01 = ((win * circle * m).sum(-1) for m in (1, wx, wy))
+    assert max(abs(m).max() for m in (m00, m10, m01)) < 2 ** 31
+    f00 = m00.astype(f32)
+    safe = np.maximum(f00, f32(1e-6))
+    ratio = [torch.from_numpy((m.astype(f32) / safe).astype(f64))
+             for m in (m01, m10)]
+    angle = torch.atan2(*ratio).numpy().astype(f32) * f32(180.0 / np.pi)
+    angle = np.where(f00 < f32(0.001), f32(0), angle).astype(f32)
+    rad = torch.from_numpy((angle * f32(np.pi / 180.0)).astype(f64))
+    ca, sa = (fn(rad).numpy().astype(f32)[..., None]
+              for fn in (torch.cos, torch.sin))
+    kx, ky = x.astype(f32)[..., None], y.astype(f32)[..., None]
+
+    def fma64(a, b, c):
+        return (a.astype(f64) * b.astype(f64) + c.astype(f64)).astype(f32)
+
+    pat = orb_describe.PAIRS.astype(f32)
+    bits, outside = True, False
+    for px, py, slot in ((pat[:, 0], pat[:, 1], 0), (pat[:, 2], pat[:, 3],
+                                                      1)):
+        rx = np.rint(fma64(-sa, py, fma64(ca, px, kx))).astype(np.int64)
+        ry = np.rint(fma64(ca, py, fma64(sa, px, ky))).astype(np.int64)
+        bits = bits & (rx >= 0) & (rx < w[:, None]) & (ry >= 0) & \
+            (ry < h[:, None])
+        vy, vx = ry - y[..., None] + r, rx - x[..., None] + r
+        near = (vy >= 0) & (vy <= 2 * r) & (vx >= 0) & (vx <= 2 * r)
+        cell = np.clip(vy, 0, 2 * r) * (2 * r + 1) + np.clip(vx, 0, 2 * r)
+        sample = np.where(near, np.take_along_axis(win, cell, -1),
+                          at(ry, rx))
+        outside = outside | ~near
+        if slot == 0:
+            first = sample
+    bits_ok = bits
+    bits = bits & (first < sample)
+    words = (bits.reshape(*bits.shape[:-1], 8, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(-1).astype("<u4")
+    rows = np.stack([resp, x.astype(f32), y.astype(f32), angle,
+                     np.broadcast_to(lv.astype(f32), resp.shape)], -1)
+    valid = np.isfinite(resp) & (x >= lo) & (x < x_end) & (y >= lo) & \
+        (y < y_end)
+    return rows.astype(f32), words.view(np.uint8), valid, \
+        int((outside & bits_ok).sum())
+
+
+@pytest.mark.parametrize("name", oc.SMALL + oc.PLACED)
+def test_describe_kernel_schedule_equals_the_plain_route(name):
+    """The describe kernel's schedule, transcribed in numpy, gives the
+    plain route's rows, descriptors and validity bit for bit on every row,
+    valid or not: the keypoints chosen on the small cases of
+    ``_orb_atlas_cases`` (pixels planted next to a level's edge and next
+    to another level, shelves with empty space, the top-k's -inf padding),
+    keypoints anywhere on their levels, 40 levels, and samples past the
+    window on a level wider than 2^20 px."""
+    atlas, plane, resp, idx = oc.keypoints(name, CPU)
+    want = atlas.describe(plane, resp, idx)
+    got = _emulate_describe(plane.numpy(), resp.numpy(), idx.numpy(),
+                            atlas.table.tensor.numpy())
+    np.testing.assert_array_equal(got[0].view(np.int32),
+                                  want[0].numpy().view(np.int32))
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    np.testing.assert_array_equal(got[2], want[2].numpy())
+    x, y, w = want[0][..., 1], want[0][..., 2], atlas.table.tensor[:, 4]
+    edge = (x < orb_describe.REACH) | (y < orb_describe.REACH) | \
+        (x >= w - orb_describe.REACH)
+    assert bool(edge.any()) != (name == "wide")
+    assert (got[3] > 0) == (name == "wide")
+    if name == "flat" or name in oc.PLACED:
+        assert bool(torch.isneginf(resp).any())
+
+
+def test_describe_window_covers_every_rotated_sample():
+    """REACH, derived from the pattern, holds every rounded rotated sample
+    of BRIEF (the plain route's arithmetic) at every angle step of 0.02
+    degrees and at keypoints from 0 to 2^19, and some sample reaches it;
+    it covers the orientation patch. Near 2^20 the f32 spacing moves a
+    sample past it: the kernel reads such a sample from the plane."""
+    assert orb_describe.HALF == porb._HALF
+    assert orb_describe.REACH >= porb._HALF
+    assert orb_describe.PAIRS.tolist() == [list(p) for p in ORB_PATTERN]
+    angles = torch.cat([torch.arange(-180.0, 180.0, 0.02),
+                        torch.tensor([180.0])]).to(torch.float32)
+    rad = angles * np.float32(np.pi / 180.0)
+    cos_a = porb._f32_of_f64(torch.cos, rad)[:, None]
+    sin_a = porb._f32_of_f64(torch.sin, rad)[:, None]
+    pat = torch.from_numpy(orb_describe.PAIRS.astype(np.float32))
+    def reach(k):
+        kk = torch.tensor(k, dtype=torch.float32)
+        most = 0.0
+        for px, py in ((pat[:, 0], pat[:, 1]), (pat[:, 2], pat[:, 3])):
+            rx = torch.round(fma(-sin_a, py, fma(cos_a, px, kk)))
+            ry = torch.round(fma(cos_a, py, fma(sin_a, px, kk)))
+            most = max(most, float((rx - kk).abs().max()),
+                       float((ry - kk).abs().max()))
+        return most
+
+    assert [reach(k) for k in (0.0, 17.0, 1240.0, 65535.0, 2.0 ** 19 - 1)] \
+        == [orb_describe.REACH] * 5
+    assert reach(2.0 ** 20 - 1) > orb_describe.REACH
+
+
+def test_describe_on_the_cpu_takes_the_plain_route_and_the_kernel_checks():
+    """A CPU plane runs the plain route (no launch); the kernel's wrapper
+    raises on a plane or rows it does not take, before it looks for a
+    card."""
+    atlas, plane, resp, idx = oc.keypoints("planted", CPU)
+    before = orb_describe.LAUNCHES
+    for a, b in zip(atlas.describe(plane, resp, idx),
+                    atlas.describe_reference(plane, resp, idx)):
+        assert torch.equal(a, b)
+    Orb(n_features=300).detect_and_compute_tensors(
+        torch.from_numpy(_stack(31)))
+    assert orb_describe.LAUNCHES == before
+    args = (resp, idx, atlas.table)
+    with pytest.raises(ValueError, match="uint8"):
+        orb_describe.describe(plane.to(torch.int32), *args)
+    with pytest.raises(ValueError, match="uint8"):
+        orb_describe.describe(plane[0], *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        orb_describe.describe(plane.transpose(1, 2), *args)
+    with pytest.raises(TypeError):
+        orb_describe.describe(plane.numpy(), *args)
+    with pytest.raises(ValueError, match="no kernel"):
+        orb_describe.describe(plane, *args)
+    t = atlas.table
+    taller = orb_describe.RowTable(t.tensor.numpy(), (t.hw[0] + 1, t.hw[1]),
+                                   CPU)
+    for bad in ((resp.double(), idx, t), (resp, idx.to(torch.int32), t),
+                (resp[:1], idx, t), (resp, idx, t.tensor),
+                (resp, idx, taller)):
+        with pytest.raises(ValueError, match="contiguous|RowTable"):
+            orb_describe._check_rows(plane, *bad)
+    assert orb_describe.LAUNCHES == before
+
+
+@pytest.mark.parametrize("field,value,inside", [
+    ("row", lambda h, w, lh, lw: h - lh, True),
+    ("col", lambda h, w, lh, lw: w - lw, True),
+    ("row", lambda h, w, lh, lw: h - lh + 1, False),
+    ("col", lambda h, w, lh, lw: w - lw + 1, False),
+    ("row", lambda h, w, lh, lw: -1, False),
+    ("col", lambda h, w, lh, lw: -1, False),
+    ("h", lambda h, w, lh, lw: 0, False),
+    ("w", lambda h, w, lh, lw: 0, False),
+], ids=["bottom_edge", "right_edge", "past_bottom", "past_right",
+        "above", "left", "no_rows", "no_cols"])
+def test_describe_row_table_refuses_a_level_outside_the_plane(field, value,
+                                                              inside):
+    """The describe kernel's row table is checked on the host as it is
+    built: a level that touches the plane's bottom or right edge is
+    taken, one that lies past it, at a negative place or of no size is
+    refused, so the kernel reads nothing outside the plane."""
+    atlas, _ = oc.case("shelves", CPU)
+    rows = atlas.table.tensor.numpy().astype(np.int64)
+    (h, w), j = atlas.table.hw, len(rows) // 2
+    col = 1 + ("row", "col", "h", "w").index(field)
+    rows[j, col] = value(h, w, rows[j, 3], rows[j, 4])
+    if inside:
+        got = orb_describe.RowTable(rows, (h, w), CPU)
+        assert torch.equal(got.tensor, torch.from_numpy(rows.astype(np.int32)))
+    else:
+        with pytest.raises(ValueError, match="outside"):
+            orb_describe.RowTable(rows, (h, w), CPU)
+
+
+def test_describe_row_table_refuses_rows_of_another_form():
+    """The row table takes integer rows of 8 values that fit int32."""
+    atlas, _ = oc.case("shelves", CPU)
+    rows, hw = atlas.table.tensor.numpy(), atlas.table.hw
+    big = rows.astype(np.int64)
+    big[0, 5] = 2 ** 31
+    for bad in (rows[:, :6], rows.astype(np.float64), big, rows[0]):
+        with pytest.raises(ValueError, match="int32 rows"):
+            orb_describe.RowTable(bad, hw, CPU)
 
 
 @pytest.mark.parametrize("case", ["line", "l_shape", "noise"])

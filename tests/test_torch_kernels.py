@@ -21,6 +21,7 @@ from zignal_tpu_torch.ops import color_chain as cc
 from zignal_tpu_torch.ops import enhancement as en
 from zignal_tpu_torch.ops import filter_chain as fc
 from zignal_tpu_torch.ops import fused_pipeline as fp
+from zignal_tpu_torch.ops import orb_describe as odesc
 from zignal_tpu_torch.ops import orb_detect as od
 from zignal_tpu_torch.ops import separable_conv as sc
 from zignal_tpu_torch.ops import tables
@@ -535,6 +536,8 @@ PINS = [
     ("K4", (16, 1024, 1024, 3, 2.0, "MIRROR"), (64, 32), "bd7926ac4345c55f"),
     ("DET", (8, 376, 1241, 2000, 8, 31), (20, 43, 8), "0ddca85afc6c97c1"),
     ("DET", (2, 70, 90, 100, 1, 31), (2, 3, 1), "4386706e31aa3893"),
+    ("DESC", (8, 376, 1241, 2000, 8, 31), (2000, 1999), "e837adbdbd101162"),
+    ("DESC", (2, 70, 90, 100, 1, 31), (26, 100), "f957f2ecd4096d62"),
 ]
 
 
@@ -574,6 +577,14 @@ def _pinned(kernel, case):
         return (-(-p.fields["W"] // od.TILE[1]),
                 -(-p.fields["H"] // od.TILE[0]),
                 p.fields["levels"]), _digest(p.pack().raw)
+    if kernel == "DESC":
+        b, h, w, n_features, n_levels, edge = case
+        atlas = oc.atlas_of(Orb(n_features=n_features, n_levels=n_levels,
+                                edge_threshold=edge), h, w, "cpu")
+        k = atlas.table.tensor.shape[0]
+        p = odesc._DescribePlan(b, *atlas.shape, k)
+        return (b * -(-k // odesc.WARPS), k), _digest(p.pack().raw,
+                                                      atlas.table.tensor)
     if kernel == "K3":
         codes = cc.compile_chain(case) if case else ()
         return codes, _digest(cc.chain_params(codes).raw)
@@ -1292,13 +1303,53 @@ def test_detect_kernel_equals_the_plain_route(cuda, name, harris):
     assert bool(torch.isfinite(want).any()) == (name != "flat")
 
 
+@pytest.mark.parametrize("name", oc.CASES + oc.PLACED)
+def test_describe_kernel_equals_the_plain_route(cuda, name):
+    """ORB's describe kernel (csrc/orb_describe.cu, one launch a call)
+    gives the plain route's rows, descriptors and validity bit for bit on
+    every row, valid or not, on every case of tests/_orb_atlas_cases.py:
+    the keypoints the detect and select stages choose on each atlas (the
+    KITTI atlas at B=1 and B=8, the top-k's -inf padding), keypoints
+    anywhere on their levels, a table of 40 levels (past the detect
+    kernel's 32), and samples past the window on a level wider than
+    2^20 px."""
+    atlas, plane, resp, idx = oc.keypoints(name, cuda)
+    before = odesc.LAUNCHES
+    got = atlas.describe(plane, resp, idx)
+    torch.cuda.synchronize()
+    assert odesc.LAUNCHES == before + 1
+    want = atlas.describe_reference(plane, resp, idx)
+    k = atlas.table.tensor.shape[0]
+    for g, wt, shape in zip(got, want, ((5,), (32,), ())):
+        assert g.shape == wt.shape == (plane.shape[0], k) + shape
+        assert g.dtype == wt.dtype and g.device.type == "cuda"
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_describe_kernel_of_no_keypoints_launches_nothing(cuda, b):
+    """K = 0: empty rows, descriptors and validity, and no launch."""
+    plane = _u8((b, 40, 60), 28, cuda)
+    before = odesc.LAUNCHES
+    rows, desc, valid = odesc.describe(
+        plane, torch.zeros((b, 0), device=cuda),
+        torch.zeros((b, 0), dtype=torch.int64, device=cuda),
+        odesc.RowTable(np.zeros((0, odesc.TABLE_COLS), np.int32), (40, 60),
+                       cuda))
+    assert (rows.shape, desc.shape, valid.shape) == ((b, 0, 5), (b, 0, 32),
+                                                     (b, 0))
+    assert odesc.LAUNCHES == before
+
+
 def test_orb_stereo_request_at_kitti_size_waits_for_nothing(cuda):
     """One stereo request of 8 frames of 1241 x 376 (ORB at 2000 features,
     then each left frame matched with its right) after a warm-up call
     issues no host-device synchronization: it raises nothing under
     ``set_sync_debug_mode("error")``. Its keypoints, descriptors and
     matches equal the same request on the CPU; the counters count its
-    8 levels, 4 pairs and one launch of the detect kernel."""
+    8 levels, 4 pairs and one launch each of the detect and describe
+    kernels."""
     from zignal_tpu_torch.features import Orb, matcher, orb
 
     gen = torch.Generator().manual_seed(86)
@@ -1315,15 +1366,16 @@ def test_orb_stereo_request_at_kitti_size_waits_for_nothing(cuda):
     card = x.to(cuda)
     request(card)
     torch.cuda.synchronize()
-    levels, pairs, detects = orb.LEVELS, matcher.PAIRS, od.LAUNCHES
+    levels, pairs, detects, describes = orb.LEVELS, matcher.PAIRS, \
+        od.LAUNCHES, odesc.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = request(card)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert (orb.LEVELS - levels, matcher.PAIRS - pairs,
-            od.LAUNCHES - detects) == (8, 4, 1)
+    assert (orb.LEVELS - levels, matcher.PAIRS - pairs, od.LAUNCHES - detects,
+            odesc.LAUNCHES - describes) == (8, 4, 1, 1)
     want = request(x)
     for a, b in zip(got[:3] + got[3], want[:3] + want[3]):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

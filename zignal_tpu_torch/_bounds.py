@@ -113,6 +113,25 @@ def detect_bound(b: int, h: int, w: int, n: int):
     return bound(b * h * w + 4 * b * n, b * n * (48 + 25 + 18))
 
 
+# a keypoint's orientation patch: the values of the radius-15 circle, each
+# added to the mass and, times its x and its y, to the two moments (5
+# ops); its descriptor: 256 pairs of two rotated samples, each two
+# coordinates of two multiply-adds, and a compare (17 ops), as
+# benchmarks/roofline_features.py counts them
+PATCH_VALUES = sum(1 for y in range(-15, 16) for x in range(-15, 16)
+                   if x * x + y * y <= 15 * 15)
+DESCRIBE_OPS = PATCH_VALUES * 5 + 256 * 17
+
+
+def describe_bound(b: int, k: int):
+    """ORB's describe kernel on ``b`` planes of ``k`` keypoints: each
+    keypoint's response (4 B) and index (8 B) read, its row (20 B),
+    descriptor (32 B) and validity (1 B) written, the 32-B row table read
+    once; ``DESCRIBE_OPS`` a keypoint. Its windows of the atlas are left
+    in L2 by the detect stage and not counted."""
+    return bound(b * k * (4 + 8 + 20 + 32 + 1) + 32 * k, b * k * DESCRIBE_OPS)
+
+
 def hysteresis_bound(b: int, h: int, w: int):
     """Canny's hysteresis kernel on ``b`` planes of h x w: the u8
     candidates and the f32 magnitude read once and the u8 edges written

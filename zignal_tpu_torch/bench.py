@@ -9,11 +9,11 @@ and repetitions are bench.py's (bench.py:685-699): ``north_star``,
 ``fdm``. All run in this process, in that order. Each prints one JSON
 line in bench.py's shape (``metric``, ``value``, ``unit``,
 ``vs_baseline``; the value unrounded) plus ``device`` (nvidia-smi's card
-name and power limit, or ``cpu``), ``launches`` (K1, K2, K3, K3p, K4
-and DET, ORB's detect kernel, read around the config) and
-``k1_streamed`` (those of K1's that took its streamed kernel). The last
-line is a compact summary: the headline's fields and ``values``, each
-config's value.
+name and power limit, or ``cpu``), ``launches`` (K1, K2, K3, K3p, K4,
+and DET and DESC, ORB's detect and describe kernels, read around the
+config) and ``k1_streamed`` (those of K1's that took its streamed
+kernel). The last line is a compact summary: the headline's fields and
+``values``, each config's value.
 
 Timing. Device configs go through ``profiling.measure`` (CUDA events on
 the card, two chain lengths differenced), after the card has been kept
@@ -194,12 +194,12 @@ def launch_counts() -> dict:
     from .ops import color_chain as cc
     from .ops import filter_chain as fc
     from .ops import fused_pipeline as fp
-    from .ops import orb_detect
+    from .ops import orb_describe, orb_detect
     from .ops import separable_conv as sc
 
     return {"K1": fp.LAUNCHES, "K2": fc.LAUNCHES, "K3": cc.LAUNCHES,
             "K3p": cc.PROBE_LAUNCHES, "K4": sc.LAUNCHES,
-            "DET": orb_detect.LAUNCHES}
+            "DET": orb_detect.LAUNCHES, "DESC": orb_describe.LAUNCHES}
 
 
 def k1_streamed() -> int:

@@ -8,8 +8,9 @@ batched over a ``[B, H, W]`` stack: the pyramid (one u8 Gaussian blur of
 the stack, then one bilinear resize a level: on a card the separable and
 fused resize kernels), FAST, its non-maximum suppression and the Harris
 map (on a card one kernel, ``ops/orb_detect``; elsewhere plain torch),
-then, in plain torch, the top-k, the intensity-centroid angle and the
-rotated BRIEF. ``Orb.detect_and_compute_tensors`` returns its keypoints,
+the top-k in plain torch, then the intensity-centroid angle and the
+rotated BRIEF (on a card one kernel, ``ops/orb_describe``; elsewhere
+plain torch). ``Orb.detect_and_compute_tensors`` returns its keypoints,
 descriptors and validity mask as tensors on the planes' device; the list
 entries copy them to the host once and unpack them. Its constants live on
 each device once (``ops/_build.cached``), so a request on a card after the
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from ..image import plane_of
-from ..ops import orb_detect
+from ..ops import orb_describe, orb_detect
 from ..ops._build import COUNT_LOCK, cached
 from ..ops.fma import fma
 from ..ops.pyramid import ImagePyramid
@@ -461,8 +462,9 @@ class _Atlas:
     another level's outer row or column or an empty place scores 0.
     Holds the level table of the detect kernel (``levels``: each kept
     level's row, column, height, width, FAST threshold and first
-    candidate; ``n`` candidates in all) and, on ``device``, for each row
-    of the output, its level, place and margin. The plain detect stage's
+    candidate; ``n`` candidates in all) and, on ``device``, the describe
+    stage's row table (``table``: each output row's level, place, size
+    and margin). The plain detect stage's
     planes (each pixel's FAST threshold, the masks of each level's FAST
     and Harris interiors, the levels' pixels in level order) are built at
     its first call."""
@@ -493,11 +495,15 @@ class _Atlas:
         self.kept, self.places, self.shape = kept, places, (height, width)
         self.levels, self.n, self.device = tuple(levels), start, device
         self._plain = None
-        self.level = _upload(rows[:, 0].astype(np.float32), device)
-        self.geom = tuple(_upload(rows[:, i:i + 1], device)
-                          for i in (1, 2, 3, 4))
-        self.margin = _upload(np.array([margins[lv] for lv in rows[:, 0]]),
-                              device)
+        # each row's level, place, size, and its margin as the integers a
+        # valid x and y start from and end before: an integer x >= m (or
+        # < w - m) where x >= ceil(m) (< ceil(w - m)), the f64 margin
+        margin = np.array([margins[lv] for lv in rows[:, 0]])
+        ends = np.ceil(np.stack([margin, rows[:, 4] - margin,
+                                 rows[:, 3] - margin], 1))
+        self.table = orb_describe.RowTable(
+            np.concatenate([rows, ends.astype(np.int64)], 1), self.shape,
+            device)
 
     def _plain_planes(self):
         """(threshold, FAST interior, Harris interior, order) of the plain
@@ -556,17 +562,26 @@ class _Atlas:
 
     def describe(self, plane, resp, idx):
         """The keypoint rows ``[B, K, 5]``, descriptors ``[B, K, 32]`` and
-        validity ``[B, K]`` of the selected pixels."""
-        h, w = self.geom[2][:, 0], self.geom[3][:, 0]
-        ysel, xsel = idx // w, idx % w
-        m = self.margin
-        valid = (torch.isfinite(resp) & (xsel >= m) & (xsel < w - m)
-                 & (ysel >= m) & (ysel < h - m))
-        angles = _angles(plane, ysel, xsel, self.geom)
-        desc = _brief(plane, ysel, xsel, angles, self.geom)
+        validity ``[B, K]`` of the selected pixels. A CUDA plane runs one
+        kernel (``ops/orb_describe``), any other the plain version."""
+        if plane.device.type == "cuda":
+            return orb_describe.describe(plane, resp, idx, self.table)
+        return self.describe_reference(plane, resp, idx)
+
+    def describe_reference(self, plane, resp, idx):
+        """``describe`` as plain torch on the plane's device, from the
+        kernel's row table."""
+        t = self.table.tensor.to(torch.int64)
+        geom = tuple(t[:, i:i + 1] for i in (1, 2, 3, 4))
+        ysel, xsel = idx // t[:, 4], idx % t[:, 4]
+        valid = (torch.isfinite(resp) & (xsel >= t[:, 5]) & (xsel < t[:, 6])
+                 & (ysel >= t[:, 5]) & (ysel < t[:, 7]))
+        angles = _angles(plane, ysel, xsel, geom)
+        desc = _brief(plane, ysel, xsel, angles, geom)
         rows = torch.stack([resp, xsel.to(torch.float32),
                             ysel.to(torch.float32), angles,
-                            self.level.expand_as(resp)], dim=-1)
+                            t[:, 0].to(torch.float32).expand_as(resp)],
+                           dim=-1)
         return rows, desc, valid
 
 

@@ -38,7 +38,8 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / name for name in (
     "fused_resize_blur_oklab.cu", "fused_blur_sharpen_morph.cu",
     "separable_u8.cu", "fused_color_chain_u8.cu", "equalize_u8.cu",
-    "orb_detect.cu", "hysteresis.cu", "canny_front.cu", "hough.cu"))
+    "orb_detect.cu", "hysteresis.cu", "canny_front.cu", "hough.cu",
+    "orb_describe.cu"))
 _HEADERS = (_PKG / "csrc" / "tile_staging.cuh",)
 _BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the Oklab epilogue and the colour chain need IEEE
@@ -157,6 +158,10 @@ def load():
                  [_P, _P, _I, _P, _P])             # src dst harris params
                                                    # stream
         _declare(lib, "zt_orb_detect_params_bytes", [])
+        _declare(lib, "zt_orb_describe",
+                 [_P, _P, _P, _P, _P, _P, _P,      # src resp idx table rows
+                  _P, _P])                         # desc valid params stream
+        _declare(lib, "zt_orb_describe_params_bytes", [])
         _declare(lib, "zt_hysteresis",
                  [_P, _P, _P, _P, _P, _I, _I, _I,  # cand mag out labels
                   ctypes.c_float, ctypes.c_float,  # flags b h w low high
