@@ -925,24 +925,20 @@ def test_recorder_holds_the_colorspace_stages_on_the_card(cuda):
         torch.cuda.synchronize()
     spans = RECORDER.spans
     # equalize's three kernel launches: the histogram's inside
-    # equalize.hist, the tables' and the lookup's inside equalize.lut
+    # equalize.hist, the tables' and the lookup's inside equalize.lut;
+    # then K3's launch inside the values entry
     call = ["launch", "equalize.hist", "launch", "launch", "equalize.lut",
-            "equalize", "K3.check", "K3.plan", "K3.alloc", "K3.params",
-            "launch", "color_chain_values"]
+            "equalize", "launch", "color_chain_values"]
     assert [s[0] for s in spans] == call * 2
-    for one in (spans[:12], spans[12:]):
+    for one in (spans[:8], spans[8:]):
         hist, lut = one[1], one[4]
         assert hist[1] <= one[0][1] <= one[0][2] <= hist[2]
         assert lut[1] <= one[2][1] <= one[2][2] <= one[3][1] \
             <= one[3][2] <= lut[2]
         by = {name: (t0, t1) for name, t0, t1, _ in one}  # K3's launch last
-        stages = [by[f"K3.{s}"] for s in ("check", "plan", "alloc",
-                                           "params")]
-        assert all(a[1] == b[0] for a, b in zip(stages, stages[1:]))
         entry = by["color_chain_values"]
-        assert by["equalize"][1] <= entry[0] <= stages[0][0]
-        assert stages[-1][1] <= by["launch"][0] <= by["launch"][1] \
-            <= entry[1]
+        assert by["equalize"][1] <= entry[0] <= by["launch"][0] \
+            <= by["launch"][1] <= entry[1]
 
 
 def test_histogram_ops_on_the_card_equal_the_cpu(cuda):
@@ -2048,3 +2044,174 @@ def test_the_lane_path_on_a_card_refuses_what_its_kernels_cannot_take(cuda):
     rows, valid = hough.HoughTransform(2).find_lines_tensors(
         torch.ones((1, 2, 2), dtype=torch.int32, device=cuda), 1)
     assert rows.device.type == "cuda" and not bool(valid.any())
+
+
+# -- device spans: the stages' time on the card (profiling.RECORDER) --------
+
+ORB_STAGES = ("orb.pyramid", "orb.detect", "orb.select", "orb.describe")
+# the stages whose device spans each request records, in order
+STAGES = {"stereo": ORB_STAGES + ("match",), "lane": ("canny", "hough")}
+
+
+def _stage_request(kind, device):
+    """The stereo request (ORB of 8 frames of 1241 x 376, then each left
+    frame matched with its right) or the lane request (Canny, then the
+    Hough lines at 1024) on ``device``, as the benchmark's cells issue
+    them."""
+    gen = torch.Generator().manual_seed(2 ** 33 + 29)
+    if kind == "stereo":
+        from zignal_tpu_torch.features import matcher
+
+        x = torch.randint(0, 256, (8, 376, 1241), generator=gen,
+                          dtype=torch.uint8)
+        x[:, 100:250, 300:900] //= 4
+        x, det = x.to(device), Orb(n_features=2000, edge_threshold=31)
+
+        def request():
+            kps, desc, valid = det.detect_and_compute_tensors(x)
+            return matcher.match_tensors(desc[0::2], valid[0::2],
+                                         desc[1::2], valid[1::2])
+
+        return request
+    from benchmarks.sources import device_road
+    from zignal_tpu_torch.ops import edges, hough
+
+    x = device_road.frames((8, 376, 1241), gen, torch.device("cpu"))
+    x, ht = x.to(device), hough.HoughTransform(1024)
+
+    def request():
+        e = edges.canny(x.to(torch.float32), 1.4, 50.0, 150.0)
+        return ht.lines_batch(e, 100, 5.0, 10.0, 32)
+
+    return request
+
+
+@pytest.mark.parametrize("kind", ["stereo", "lane"])
+def test_a_request_under_a_session_gives_its_device_spans_in_order(cuda,
+                                                                  kind):
+    """One request in a session: its host spans as before, then at the
+    stop one ``@device`` span a stage, in the stages' order, on the
+    recording thread; ORB's four share their boundaries; each stage starts
+    on the card no earlier than the last one ended and lasts longer than
+    nothing. Outside a session no device span is kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zignal_tpu_torch.profiling import RECORDER
+
+    request, stages = _stage_request(kind, cuda), STAGES[kind]
+    request()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        request()
+        assert RECORDER.device and not any(
+            s[0].endswith("@device") for s in RECORDER.spans)
+    device = [s for s in RECORDER.spans if s[0].endswith("@device")]
+    host = [s for s in RECORDER.spans if not s[0].endswith("@device")]
+    assert [s[0] for s in device] == [f"{s}@device" for s in stages]
+    assert set(stages) <= {s[0] for s in host}
+    assert RECORDER.spans[-len(device):] == device and RECORDER.dropped == 0
+    assert {s[3] for s in device} == {s[3] for s in host}
+    for a, b in zip(device, device[1:]):
+        assert a[1] < a[2] <= b[1]
+        if {a[0].removesuffix("@device"),
+                b[0].removesuffix("@device")} <= set(ORB_STAGES):
+            assert a[2] == b[1]
+    request()
+    torch.cuda.synchronize()
+    assert RECORDER.spans[-len(device):] == device  # nothing kept after
+    assert RECORDER.device == []
+
+
+def _trace_requests(kind, log_dir):
+    """``profiling.trace`` of three requests of ``kind`` into ``log_dir``
+    after a warm-up call, in this process."""
+    from zignal_tpu_torch.profiling import trace
+
+    request = _stage_request(kind, torch.device("cuda"))
+    request()
+    torch.cuda.synchronize()
+    with trace(log_dir):
+        for _ in range(3):
+            request()
+
+
+def _device_ops(events) -> dict:
+    """The trace's device operations by correlation id."""
+    return {e["args"]["correlation"]: e for e in events
+            if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and "correlation" in e.get("args", {})}
+
+
+def _runtime_calls(events) -> list:
+    return [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("cuda_runtime", "cuda_driver")]
+
+
+def _traced_in_a_fresh_process(kind, log_dir, attempts=3):
+    """The events of ``_trace_requests(kind)`` run in a process of its
+    own, whose first profiler session it is: kernel events have been seen
+    to drop out of sessions opened long after a process's first one. A
+    trace that puts a device operation before its own runtime call (the
+    profiler's card clock off the host's: 0.07-2 ms in some sessions) is
+    no yardstick, and is taken again in a new process."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    code = (f"import sys; sys.path[:0] = [{str(here)!r}, "
+            f"{str(here.parent)!r}]; import test_torch_kernels as t; "
+            f"t._trace_requests({kind!r}, {str(log_dir)!r})")
+    early = []
+    for _ in range(attempts):
+        subprocess.run([sys.executable, "-c", code], check=True,
+                       timeout=600, cwd=here.parent)
+        (path,) = Path(log_dir).glob("*.pt.trace.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        path.unlink()
+        ops = _device_ops(events)
+        early = [c["ts"] - ops[c["args"]["correlation"]]["ts"]
+                 for c in _runtime_calls(events)
+                 if c.get("args", {}).get("correlation") in ops
+                 and ops[c["args"]["correlation"]]["ts"] < c["ts"]]
+        if not early:
+            return events
+    raise AssertionError(f"{attempts} traces put device operations before "
+                         f"their runtime calls, by up to {max(early)} us")
+
+
+@pytest.mark.parametrize("kind", ["stereo", "lane"])
+def test_trace_device_spans_enclose_their_stages_device_ops(cuda, kind,
+                                                           tmp_path):
+    """In a ``profiling.trace`` file, each stage's device span encloses,
+    within 10 us at each end, the device operations whose runtime calls
+    lie inside the stage's host span (paired by the trace's correlation
+    ids): 99 % of them or more, and every stage has some. The device
+    spans lie on a track of their own."""
+    events = _traced_in_a_fresh_process(kind, tmp_path)
+    calls, ops = _runtime_calls(events), _device_ops(events)
+    zignal = [e for e in events if e.get("cat") == "zignal"]
+    checked, outside = 0, []
+    for stage in STAGES[kind]:
+        host = sorted((e for e in zignal if e["name"] == stage),
+                      key=lambda e: e["ts"])
+        device = sorted((e for e in zignal if e["name"] == f"{stage}@device"),
+                        key=lambda e: e["ts"])
+        assert len(host) == len(device) == 3, stage
+        assert {e["tid"] for e in device}.isdisjoint(e["tid"] for e in host)
+        for h, d in zip(host, device):
+            mine = [ops[c["args"]["correlation"]] for c in calls
+                    if h["ts"] <= c["ts"]
+                    and c["ts"] + c["dur"] <= h["ts"] + h["dur"]
+                    and c.get("args", {}).get("correlation") in ops]
+            assert mine, stage
+            checked += len(mine)
+            # how far each op starts before the span or ends after it
+            outside += [(stage, d["ts"] - op["ts"],
+                         op["ts"] + op["dur"] - d["ts"] - d["dur"])
+                        for op in mine if not (
+                            d["ts"] - 10 <= op["ts"] and op["ts"] + op["dur"]
+                            <= d["ts"] + d["dur"] + 10)]
+    assert len(outside) <= 0.01 * checked, (checked, outside)

@@ -395,3 +395,204 @@ def test_trace_holds_the_programs_spans_on_its_clock(tmp_path):
     assert span["ts"] - 20 <= min(e["ts"] for e in ops)
     assert max(e["ts"] + e["dur"] for e in ops) <= \
         span["ts"] + span["dur"] + 20
+
+
+# --- device spans: marks on the stream, placed at the session's stop -------
+
+class _Card:
+    """A stand-in for one card and its clock: an event stamps the card's
+    time (ns) when it is recorded, and the card's time moves only by
+    ``run``. Counts the waits for the card and the events read."""
+
+    def __init__(self, now_ns=7_000_000):
+        self.now_ns, self.waits, self.reads, self.streams = now_ns, 0, 0, []
+        card = self
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                assert enable_timing
+                self.t = None
+
+            def record(self, stream):
+                card.streams.append(stream)
+                self.t = card.now_ns
+
+            def synchronize(self):
+                card.waits += 1
+
+            def elapsed_time(self, other):
+                card.reads += 1
+                return (other.t - self.t) / 1e6
+
+        self.Event = Event
+
+    def run(self, ns):
+        self.now_ns += ns
+
+    def install(self, monkeypatch, host_ns):
+        """The card in place of torch.cuda's, and ``host_ns`` as the
+        recorder's host clock."""
+        monkeypatch.setattr(torch.cuda, "Event", self.Event)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device: ("stream", device))
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda device=None: self._wait())
+        monkeypatch.setattr(tprof, "_perf_counter_ns", lambda: host_ns)
+
+    def _wait(self):
+        self.waits += 1
+
+
+def _on_card():
+    """A stand-in for a tensor on the first card: the recorder reads its
+    device alone."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(device=torch.device("cuda", 0))
+
+
+def test_no_mark_outside_a_session_and_none_for_cpu_tensors(monkeypatch):
+    """Outside a session the instrumented entries never reach the
+    recorder's marks; a mark of a CPU tensor is None (the CPU calls in a
+    session: the next test)."""
+    calls = []
+    for name in ("mark", "add_device"):
+        monkeypatch.setattr(tprof.RECORDER, name,
+                            lambda *a, _n=name: calls.append(_n))
+    _stereo_and_lane_requests()
+    assert calls == []
+    monkeypatch.undo()
+    assert tprof.RECORDER.mark(_plane()) is None
+
+
+def _stereo_and_lane_requests():
+    from zignal_tpu_torch.features import Orb, matcher
+    from zignal_tpu_torch.ops import edges, hough
+
+    kps, desc, valid = Orb(n_features=60, n_levels=3) \
+        .detect_and_compute_tensors(_plane((2, 40, 56)))
+    matcher.match_tensors(desc[:1], valid[:1], desc[1:], valid[1:])
+    hough.HoughTransform(64).lines_batch(edges.canny(_road_edges()), 5,
+                                         max_lines=4)
+
+
+@pytest.mark.parametrize("entry", ["orb", "match", "canny", "hough"])
+def test_a_cpu_call_records_its_host_spans_and_no_device_span(entry):
+    """Each instrumented entry on CPU tensors, in a session: its host span
+    as before, and no ``@device`` span."""
+    from zignal_tpu_torch.features import Orb, matcher
+    from zignal_tpu_torch.ops import edges, hough
+
+    x = _plane((2, 40, 56))
+    kps, desc, valid = Orb(n_features=60, n_levels=3) \
+        .detect_and_compute_tensors(x)
+    e = edges.canny(_road_edges())
+    call = {"orb": lambda: Orb(n_features=60, n_levels=3)
+            .detect_and_compute_tensors(x),
+            "match": lambda: matcher.match_tensors(desc[:1], valid[:1],
+                                                   desc[1:], valid[1:]),
+            "canny": lambda: edges.canny(_road_edges()),
+            "hough": lambda: hough.HoughTransform(64).lines_batch(
+                e, 5, max_lines=4)}[entry]
+    with _session():
+        call()
+        assert tprof.RECORDER.device == []
+    names = [s[0] for s in tprof.RECORDER.spans]
+    assert names.count(entry) == 1 and names[-1] == entry
+    assert not any(n.endswith(tprof.DEVICE_SPAN) for n in names)
+
+
+def test_stop_places_device_spans_at_the_anchors_offset(monkeypatch):
+    """Three stages on a card, one after the other, then one from another
+    thread: nothing waits for the card or reads an event while the
+    session records; at its stop one anchor (the card idle, then the host
+    clock read beside it) puts each mark the card's time before it, and
+    each span joins the log as ``<name>@device`` with its thread."""
+    card, host_ns = _Card(), 50_000_000_000
+    card.install(monkeypatch, host_ns)
+    x = _on_card()
+    rec = tprof.RECORDER
+    with _session():
+        d0 = rec.mark(x)
+        card.run(1_000)
+        d1 = rec.add_device("a", d0, x)
+        card.run(2_500)
+        d2 = rec.add_device("b", d1, x)
+        card.run(4_000)
+        rec.add_device("c", d2, x)
+        other = threading.Thread(target=lambda: rec.add_device(
+            "d", rec.mark(x), x))
+        other.start()
+        other.join(timeout=10)
+        assert not other.is_alive()
+        card.run(3_000)  # queued work that the anchor waits for
+        assert (card.waits, card.reads, len(rec.device)) == (0, 0, 4)
+        assert rec.spans == []
+    assert card.waits >= 1 and rec.device == []
+    anchor = card.now_ns
+    assert card.streams == [("stream", x.device)] * 7
+    placed = {s[0]: s for s in rec.spans}
+    # the marks: 7.0, 7.001, 7.0035, 7.0075 ms on the card, the anchor at
+    # 7.0105 ms; each at the host's reading less its distance to the anchor
+    want = {"a@device": (7_000_000, 7_001_000),
+            "b@device": (7_001_000, 7_003_500),
+            "c@device": (7_003_500, 7_007_500),
+            "d@device": (7_007_500, 7_007_500)}
+    assert [s[0] for s in rec.spans] == list(want)
+    for name, (s, t) in want.items():
+        assert placed[name][1:3] == (host_ns - (anchor - s),
+                                     host_ns - (anchor - t))
+    assert {placed[f"{n}@device"][3] for n in "abc"} == \
+        {threading.get_ident()}
+    assert placed["d@device"][3] == other.ident
+    assert rec.dropped == 0
+
+
+def test_the_span_log_bound_counts_the_device_spans_it_drops(monkeypatch):
+    card = _Card()
+    card.install(monkeypatch, 10_000_000)
+    x = _on_card()
+    p = tprof.Profile()
+    p.limit = 4
+    p.log_spans()
+    for k in range(3):
+        p.add(f"h{k}", 100 * k, 100 * k + 5)
+    d = p.mark(x)
+    for k in range(3):  # one fits beside the host's three
+        d = p.add_device(f"s{k}", d, x)
+    assert len(p.device) == 1 and p.dropped == 2
+    p.place_device_spans()
+    assert [s[0] for s in p.spans] == ["h0", "h1", "h2", "s0@device"]
+    # device spans first, then the host's: the log's room is spent before
+    # the stop, and the stop counts what it cannot place
+    p.log_spans()
+    d = p.mark(x)
+    for k in range(2):
+        d = p.add_device(f"s{k}", d, x)
+    for k in range(5):
+        p.add(f"h{k}", 100 * k, 100 * k + 5)
+    assert p.dropped == 1
+    p.place_device_spans()
+    assert [s[0] for s in p.spans] == ["h0", "h1", "h2", "h3"]
+    assert p.dropped == 3
+
+
+def test_trace_writes_device_spans_on_their_own_track():
+    """``profiling.trace``'s program events: a thread's device spans on a
+    track of their own, named, beside its host spans, on the same clock."""
+    p = tprof.Profile()
+    p.log_spans()
+    p.unix_offset_ns = 1_000_000
+    me = threading.get_ident()
+    p.spans += [("match", 2_000, 9_000, me),
+                ("match@device", 5_000, 12_000, me)]
+    events = tprof._program_events(p, 0)
+    host, device, meta = events
+    native = threading.get_native_id()
+    assert host["tid"] == native and device["tid"] != native
+    assert (host["ts"], host["dur"]) == (1_002.0, 7.0)
+    assert (device["ts"], device["dur"]) == (1_005.0, 7.0)
+    assert device["cat"] == host["cat"] == "zignal"
+    assert meta["ph"] == "M" and meta["tid"] == device["tid"]
+    assert meta["name"] == "thread_name" and str(native) in \
+        meta["args"]["name"]

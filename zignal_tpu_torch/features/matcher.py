@@ -98,6 +98,7 @@ def match_tensors(q, q_valid, t, t_valid, *, cross_check: bool = True,
                          "descriptors")
     if q_valid.shape != q.shape[:2] or t_valid.shape != t.shape[:2]:
         raise ValueError("a validity mask does not fit its descriptors")
+    d0 = t0 and RECORDER.mark(q)
     p, n, m = q.shape[0], q.shape[1], t.shape[1]
     none = torch.full((p, n), -1, dtype=torch.int64, device=q.device)
     if n == 0 or m == 0:
@@ -122,6 +123,7 @@ def match_tensors(q, q_valid, t, t_valid, *, cross_check: bool = True,
             PAIRS += p
     if t0:
         RECORDER.add("match", t0)
+        d0 and RECORDER.add_device("match", d0, q)
     return idx, dist
 
 

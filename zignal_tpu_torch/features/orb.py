@@ -615,6 +615,7 @@ def _orb_device(planes, n_levels, scale_factor, thr0, ks, margins, harris):
     in one plane (``_Atlas``)."""
     global LEVELS
     t0 = span_start()
+    d0 = t0 and RECORDER.mark(planes)
     b, dev = planes.shape[0], planes.device
     pyr = ImagePyramid.build(planes, n_levels, scale_factor, 1.6)
     if not any(ks):
@@ -625,13 +626,17 @@ def _orb_device(planes, n_levels, scale_factor, thr0, ks, margins, harris):
     atlas = _atlas(pyr.levels, thr0, ks, margins)
     plane = atlas.paste(pyr.levels)
     t1 = t0 and RECORDER.add("orb.pyramid", t0)
+    d1 = d0 and RECORDER.add_device("orb.pyramid", d0, plane)
     cand = atlas.candidates(plane, harris)
     t2 = t1 and RECORDER.add("orb.detect", t1)
+    d2 = d1 and RECORDER.add_device("orb.detect", d1, plane)
     resp, idx = atlas.select(cand)
     t3 = t2 and RECORDER.add("orb.select", t2)
+    d3 = d2 and RECORDER.add_device("orb.select", d2, plane)
     out = atlas.describe(plane, resp, idx)
     if t0:
         RECORDER.add("orb", t0, RECORDER.add("orb.describe", t3))
+        d3 and RECORDER.add_device("orb.describe", d3, plane)
     if dev.type == "cuda":
         with COUNT_LOCK:
             LEVELS += len(atlas.kept)

@@ -24,8 +24,6 @@ The same kernel runs a chain that ends off rgb, in a cartesian space of
 the linear family (``values_chain_supported``: u8 sRGB to xyz, lab, oklab
 or xyb), with ``quantize=False``: its f32 values are the result
 (``pipeline.color_chain_values``); ``VALUES`` counts those launches.
-During a profiler session the kernel's route adds the recorder's spans
-``K3.check``, ``K3.plan``, ``K3.alloc`` and ``K3.params``.
 
 ``transcendentals_probe`` is K3p: the probe expression of the TPU's
 ``mosaic_transcendentals_ok`` through the same device helpers as K3. The
@@ -40,7 +38,6 @@ import torch
 from ..color import _array as A
 from ..color._chain import _CYL_OF, _LINEAR_SPACES, convert_chain
 from ..color._path import conversion_path
-from ..profiling import RECORDER, span_start
 from ._build import COUNT_LOCK, cached, check_layout, launch, pack
 from .tables import gamma_table
 
@@ -269,12 +266,8 @@ def fused_color_chain_u8(batch, spaces, quantize: bool = True):
     """[B, H, W, 3] u8 through the chain ``spaces`` -> u8 of the same
     shape, or the f32 values before the quantization when not
     ``quantize`` (then a values chain too). A CUDA tensor runs the kernel
-    (or raises); a CPU tensor runs the plain version. During a profiler
-    session the kernel's route adds the recorder's spans ``K3.check``,
-    ``K3.plan`` (K3p's one launch inside it on a device's first call),
-    ``K3.alloc`` and ``K3.params``, one after the other."""
+    (or raises); a CPU tensor runs the plain version."""
     global LAUNCHES, VALUES
-    t0 = span_start()
     _check(batch)
     spaces = tuple(spaces)
     if batch.device.type == "cpu":
@@ -284,20 +277,15 @@ def fused_color_chain_u8(batch, spaces, quantize: bool = True):
     if not batch.is_contiguous():
         raise ValueError("the kernel needs a contiguous batch")
     _check_chain(spaces, quantize)
-    t0 = t0 and RECORDER.add("K3.check", t0)
     codes = compile_chain(spaces)
     cached(_probe, batch.device)
-    t0 = t0 and RECORDER.add("K3.plan", t0)
     out = torch.empty(batch.shape, device=batch.device,
                       dtype=torch.uint8 if quantize else torch.float32)
-    t0 = t0 and RECORDER.add("K3.alloc", t0)
     params = cached(_params, codes)
     n = batch.numel() // 3
     lut = cached(gamma_table, batch.device).data_ptr() \
         if codes and codes[0] == _CODE["GAMMA_TO_LINEAR"] else None
     vec = batch.data_ptr() % 4 == 0 and out.data_ptr() % 16 == 0
-    if t0:
-        RECORDER.add("K3.params", t0)
     launch("zt_fused_color_chain_u8", batch.device, batch.data_ptr(),
            out.data_ptr(), lut, params, n, int(quantize), int(vec))
     with COUNT_LOCK:

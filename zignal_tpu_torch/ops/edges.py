@@ -164,11 +164,13 @@ def canny(gray_f32, sigma: float = 1.4, low: float = 50.0,
         from . import canny_front
         from .hysteresis import hysteresis_u8
 
+        d0 = t0 and RECORDER.mark(x)
         magnitude, nms = canny_front.front(x, sigma)
         t3 = t0 and RECORDER.add("canny.front", t0)
         out = hysteresis_u8(nms, magnitude, low, high)
         if t0:
             RECORDER.add("canny", t0, RECORDER.add("canny.hysteresis", t3))
+            RECORDER.add_device("canny", d0, x)
         return out
     if sigma > 0:
         k = gaussian_kernel(sigma)

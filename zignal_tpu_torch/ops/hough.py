@@ -197,11 +197,13 @@ class HoughTransform:
         accumulators -> (accumulators, rows, validity), on the planes'
         device; during a profiler session the recorder's span ``hough``."""
         t0 = span_start()
+        d0 = t0 and RECORDER.mark(planes)
         acc = self.compute_batch(planes)
         rows, valid = self.find_lines_tensors(
             acc, threshold, angle_nms_thresh, radius_nms_thresh, max_lines)
         if t0:
             RECORDER.add("hough", t0)
+            d0 and RECORDER.add_device("hough", d0, planes)
         return acc, rows, valid
 
     def find_lines(self, accumulator: np.ndarray, threshold: int = 100,

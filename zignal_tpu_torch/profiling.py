@@ -20,6 +20,17 @@
   torch's own flag for one and gives 0 without, and stamps a stage with
   ``t0 = t0 and RECORDER.add(name, t0)``, which then runs no further code
   of the recorder. Each session starts a fresh log.
+- Device spans: a stage's time on the card, from a timing CUDA event
+  recorded on the current stream before its first queued work
+  (``RECORDER.mark``) to one after its last (``RECORDER.add_device``),
+  its boundaries shared as the host stamps share theirs: ``d0 = t0 and
+  RECORDER.mark(x)``, then ``d1 = d0 and RECORDER.add_device(name, d0,
+  x)``. Neither waits for the card nor reads an event while the session
+  records. At the session's stop one anchor on each marked card (an
+  event recorded once the card is idle, the host clock read beside it)
+  puts every mark on the host clock, and each device span joins the log
+  as ``<name>@device``. ORB's four stages and ``match``, ``canny`` on a
+  card, and ``hough`` add theirs.
 """
 
 from __future__ import annotations
@@ -39,6 +50,11 @@ _get_ident, _perf_counter_ns = threading.get_ident, time.perf_counter_ns
 
 __all__ = ["Profile", "measure", "trace"]
 
+DEVICE_SPAN = "@device"  # the suffix of a device span's name in the log
+# a device span's track in a trace: the recording thread's id plus this
+# (thread ids stay below 2^22)
+_DEVICE_TRACK = 1 << 30
+
 
 class Profile:
     """Accumulates per-stage elapsed seconds (reference: sixel.zig:59).
@@ -47,6 +63,9 @@ class Profile:
     # (name, start ns, end ns, thread ident) on time.perf_counter_ns, once
     # log_spans() has started the log
     spans: list | None = None
+    # the session's device spans until its stop: (name, start event, end
+    # event, thread ident, device)
+    device: list | None = None
     limit = 1 << 16  # spans a log keeps; the rest are counted as dropped
 
     def __init__(self):
@@ -65,11 +84,11 @@ class Profile:
             self.counts[name] = self.counts.get(name, 0) + 1
 
     def log_spans(self) -> None:
-        """Start a fresh span log that keeps at most ``limit`` spans and
-        counts the later ones in ``dropped``; ``unix_offset_ns`` takes a
-        span's clock to ``time.time_ns()``'s."""
+        """Start a fresh span log that keeps at most ``limit`` spans, host
+        and device together, and counts the later ones in ``dropped``;
+        ``unix_offset_ns`` takes a span's clock to ``time.time_ns()``'s."""
         with self._lock:
-            self.dropped, self.spans = 0, []
+            self.dropped, self.spans, self.device = 0, [], []
             self.unix_offset_ns = time.time_ns() - time.perf_counter_ns()
 
     def add(self, name: str, t0_ns: int, t1_ns: int | None = None) -> int:
@@ -85,10 +104,65 @@ class Profile:
             self._drop(spans)
         return t1_ns
 
-    def _drop(self, spans: list) -> None:
+    def mark(self, x):
+        """A timing CUDA event recorded now on the current stream of the
+        card that holds the tensor ``x``: the boundary of a device span.
+        None for a tensor off a card. Call it only while a session runs
+        (after a non-zero ``span_start()``)."""
+        if x.device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(x.device))
+        return event
+
+    def add_device(self, name: str, start, x):
+        """Keep the device span ``name`` from the mark ``start`` to a new
+        mark on the card of ``x``, which it returns, where a next stage
+        starts. The span joins the log at the session's stop
+        (``place_device_spans``); past the log's limit it is dropped."""
+        end = self.mark(x)
+        device = self.device
+        device.append((name, start, end, _get_ident(), x.device))
+        if len(self.spans) + len(device) > self.limit:
+            self._drop(device)
+        return end
+
+    def place_device_spans(self) -> None:
+        """Put the session's device spans into the log, on its host clock,
+        once the session has stopped: on each marked card, wait for it,
+        record one event (the anchor) and read the host clock beside it;
+        a mark lies the anchor's elapsed time before that reading. Each
+        span joins the log as ``(<name>@device, start ns, end ns,
+        thread)`` while the log has room, and counts as dropped after."""
         with self._lock:
-            if spans is self.spans and len(spans) > self.limit:
-                spans.pop()
+            device, self.device = self.device, []
+        if not device:
+            return
+        anchors = {}
+        for dev in {span[4] for span in device}:
+            torch.cuda.synchronize(dev)
+            anchor = torch.cuda.Event(enable_timing=True)
+            anchor.record(torch.cuda.current_stream(dev))
+            anchors[dev] = (anchor, _perf_counter_ns())
+            anchor.synchronize()
+        placed = []
+        for name, start, end, ident, dev in device:
+            anchor, host_ns = anchors[dev]
+            placed.append((name + DEVICE_SPAN,
+                           host_ns - round(start.elapsed_time(anchor) * 1e6),
+                           host_ns - round(end.elapsed_time(anchor) * 1e6),
+                           ident))
+        with self._lock:
+            room = max(0, self.limit - len(self.spans))
+            self.spans += placed[:room]
+            self.dropped += len(placed[room:])
+
+    def _drop(self, log: list) -> None:
+        with self._lock:
+            if log is self.spans and len(log) > self.limit \
+                    or log is self.device \
+                    and len(self.spans) + len(log) > self.limit:
+                log.pop()
                 self.dropped += 1
 
     @property
@@ -184,18 +258,35 @@ def _on_profiler_start(start=_autograd_profiler._run_on_profiler_start):
     RECORDER.log_spans()
 
 
+def _on_profiler_stop(stop=_autograd_profiler._run_on_profiler_stop):
+    """torch's hook at the stop of every profiler session, and then the
+    session's device spans into the recorder's log."""
+    stop()
+    RECORDER.place_device_spans()
+
+
 _autograd_profiler._run_on_profiler_start = _on_profiler_start
+_autograd_profiler._run_on_profiler_stop = _on_profiler_stop
 
 
 def _program_events(log: Profile, base_ns: int) -> list:
     """``log``'s spans as chrome-trace complete events on a trace's clock:
-    microseconds since ``base_ns`` on ``time.time_ns()``'s."""
+    microseconds since ``base_ns`` on ``time.time_ns()``'s. A thread's
+    device spans lie on a track of their own, beside its host spans."""
     native = {t.ident: t.native_id for t in threading.enumerate()}
     pid, shift = os.getpid(), log.unix_offset_ns - base_ns
-    return [{"ph": "X", "cat": "zignal", "name": name, "pid": pid,
-             "tid": native.get(ident, ident), "ts": (t0 + shift) / 1e3,
-             "dur": (t1 - t0) / 1e3}
-            for name, t0, t1, ident in list(log.spans)]
+    events, tracks = [], {}
+    for name, t0, t1, ident in list(log.spans):
+        tid = native.get(ident, ident)
+        if name.endswith(DEVICE_SPAN):
+            tid = tracks.setdefault(tid, _DEVICE_TRACK + tid)
+        events.append({"ph": "X", "cat": "zignal", "name": name, "pid": pid,
+                       "tid": tid, "ts": (t0 + shift) / 1e3,
+                       "dur": (t1 - t0) / 1e3})
+    return events + [{"ph": "M", "name": "thread_name", "pid": pid,
+                      "tid": track,
+                      "args": {"name": f"device spans of thread {tid}"}}
+                     for tid, track in tracks.items()]
 
 
 def _write_trace(log_dir: str, prof) -> None:
